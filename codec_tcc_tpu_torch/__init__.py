@@ -1,0 +1,38 @@
+"""codec_tcc_tpu_torch — the PyTorch/CUDA port of codec_tcc_tpu.
+
+Reversible steganography for medical (DICOM) images on an NVIDIA Hopper GPU:
+adaptive bit-plane decomposition, raster LSB embedding (``hybrid`` and
+``multi_plane``) with XOR location maps, the STGC v2 container with the
+``deflate`` transport codec, exact payload extraction and original-image
+restoration. Containers are byte-identical to the JAX package's
+(``codec_tcc_tpu``), which stays in the repository as the reference.
+
+The raster embed and extract run as two hand-written CUDA kernels
+(:mod:`codec_tcc_tpu_torch.ops.raster_kernels`). This package imports
+torch and never jax.
+"""
+
+from .config import EncodeConfig
+from .errors import CapacityError
+from .pipeline import (
+    DecodeResult,
+    EncodeResult,
+    decode_container,
+    decode_file,
+    encode_array,
+    encode_dicom,
+)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "CapacityError",
+    "EncodeConfig",
+    "EncodeResult",
+    "DecodeResult",
+    "encode_array",
+    "encode_dicom",
+    "decode_container",
+    "decode_file",
+    "__version__",
+]

@@ -1,0 +1,13 @@
+"""Device ops and host planning for the compute path.
+
+Modules:
+
+* :mod:`.histogram`      — device value histogram + exact host entropy/MI
+                           replay
+* :mod:`.decompose`      — adaptive cut point (bit-identical to NumPy)
+* :mod:`.segments`       — host segment distribution and plane plans
+* :mod:`.blocks`         — device tile popcounts + exact host ranking
+* :mod:`.embed`          — plain torch raster embed/extract + XOR maps
+* :mod:`.raster_kernels` — CUDA kernels K1/K2, their wrappers and counts
+* :mod:`.metrics`        — fused quality reductions
+"""

@@ -1,0 +1,289 @@
+"""Hand-written CUDA kernels of the raster path, their wrappers and counts.
+
+Two kernels carry the default encode/decode path on an NVIDIA Hopper GPU:
+
+* **K1** :func:`raster_embed` (``csrc/raster_embed.cu``) — the multi-plane
+  raster LSB embed plus the bit-packed XOR location maps, in one launch.
+  Replaces the Pallas embed tiers of ``codec_tcc_tpu/ops/pallas_embed.py``
+  (``embed_batch``, ``embed_batch_padded``, ``embed_batch_preplaced``) and
+  the XLA packed tier with ``xor_maps_packed_batch``.
+* **K2** :func:`raster_extract` (``csrc/raster_extract.cu``) — the payload
+  bits in message order, straight from the stego image. Replaces the Pallas
+  extract tiers (``extract_aligned_batch``, ``extract_aligned_batch_padded``,
+  ``extract_raster_batch``) and the device assembly that followed them.
+
+Both are built from the package's own sources with ``nvcc`` into
+``codec_tcc_tpu_torch/build/`` at first use (again whenever a source changes)
+and bound through ``ctypes`` with a plain C interface. A wrapper given a CUDA
+tensor launches its kernel on the current stream or raises; given a CPU
+tensor it runs the plain torch version from :mod:`.embed`. Nothing falls
+back from the kernel to the plain version.
+
+:data:`LAUNCHES` counts kernel launches per wrapper (plain-version calls do
+not count), so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import embed as embed_ops
+
+__all__ = [
+    "LAUNCHES",
+    "MAX_PLANES",
+    "build_library",
+    "raster_embed",
+    "raster_embed_plain",
+    "raster_extract",
+    "raster_extract_plain",
+    "reset_launch_counts",
+]
+
+MAX_PLANES = 16       # RASTER_MAX_PLANES in csrc/raster_common.cuh
+_INT32_MAX = (1 << 31) - 1
+
+LAUNCHES = {"raster_embed": 0, "raster_extract": 0}
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "build"
+SOURCES = ("raster_embed.cu", "raster_extract.cu")
+HEADERS = ("raster_common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cand = os.path.join(cuda_home or "/usr/local/cuda", "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
+        "raster kernels are built from codec_tcc_tpu_torch/csrc at first use"
+    )
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library (cached by a hash of
+    the sources and flags) and return its path."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        digest.update(name.encode())
+        digest.update((CSRC / name).read_bytes())
+    out = BUILD_DIR / f"libraster_kernels_{digest.hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC / name) for name in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)          # atomic: concurrent builds agree
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_library()))
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for dt in ("u8", "u16"):
+        fn = getattr(lib, f"raster_embed_{dt}")
+        # img, msg, msg_len, starts, lens, offs, np, s, n, emit_maps,
+        # stego, maps, stream
+        fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i32, i32, i64, i32,
+                       ptr, ptr, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"raster_extract_{dt}")
+        # stego, starts, lens, offs, np, s, n, out_len, out, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i64, ptr, ptr]
+        fn.restype = i32
+    lib.raster_kernels_error_string.argtypes = [i32]
+    lib.raster_kernels_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.raster_kernels_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _plan_arrays(starts, lens, offs, s: int, n: int) -> Tuple[np.ndarray, ...]:
+    """Validate a plane plan and return it as int32 arrays with every start
+    reduced mod ``n`` (the kernels apply one ``+n`` wrap)."""
+    st = np.asarray(starts, dtype=np.int64).reshape(-1)
+    ln = np.asarray(lens, dtype=np.int64).reshape(-1)
+    of = np.asarray(offs, dtype=np.int64).reshape(-1)
+    npl = st.size
+    if not (ln.size == npl and of.size == npl and 0 < npl <= MAX_PLANES):
+        raise ValueError(
+            f"plane plan needs 1..{MAX_PLANES} planes of equal length, got "
+            f"starts/lens/offs of {st.size}/{ln.size}/{of.size}"
+        )
+    if not 0 <= s <= npl:
+        raise ValueError(f"cut point s={s} outside [0, {npl}]")
+    if (of < 0).any() or (ln < 0).any():
+        raise ValueError("plane offsets and lengths must be >= 0")
+    if int(of.max()) + n > _INT32_MAX or int(ln.max()) > _INT32_MAX:
+        raise ValueError(
+            "message offset + N or a plane length exceeds int32: the raster "
+            "kernels index in int32 plans"
+        )
+    return (
+        (st % n).astype(np.int32), ln.astype(np.int32), of.astype(np.int32)
+    )
+
+
+def _check_cuda_image(t: torch.Tensor, what: str) -> None:
+    if t.dtype not in (torch.uint8, torch.uint16):
+        raise ValueError(f"{what} must be uint8/uint16, got {t.dtype}")
+    if t.dim() != 2 or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous 2-D tensor")
+
+
+def _stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# K1: raster embed (+ bit-packed XOR maps)
+# ---------------------------------------------------------------------------
+
+
+def raster_embed_plain(
+    image: torch.Tensor, msg: torch.Tensor, starts, lens, offs, s: int,
+    *, emit_maps: bool,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of K1: :func:`.embed.embed` plus
+    :func:`.embed.xor_maps_packed_batch` over planes ``0..s-1``."""
+    n = image.numel()
+    st, ln, of = _plan_arrays(starts, lens, offs, s, n)
+    stego = embed_ops.embed(image, msg, st, ln, of, s, st.size)
+    maps = None
+    if emit_maps:
+        maps = embed_ops.xor_maps_packed_batch(image[None], stego[None], s)[0]
+    return stego, maps
+
+
+def raster_embed(
+    image: torch.Tensor,          # (H, W) uint8/uint16
+    msg: torch.Tensor,            # (L,) uint8 0/1 message bits, same device
+    starts: Sequence[int],        # (NP,) raster start per plane, NP <= 16
+    lens: Sequence[int],          # (NP,) window length per plane
+    offs: Sequence[int],          # (NP,) message offset per plane
+    s: int,                       # cut point: planes >= s stay untouched
+    *,
+    emit_maps: bool,              # also return (s, N/8) packed XOR maps
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1: embed every plane window and (``emit_maps``) the MSB-first
+    bit-packed ``orig ^ stego`` maps of planes ``0..s-1`` in one launch.
+    Message bits past ``L`` read as 0. Returns ``(stego, maps or None)``
+    on the image's device."""
+    if image.device.type == "cpu":
+        return raster_embed_plain(
+            image, msg, starts, lens, offs, s, emit_maps=emit_maps
+        )
+    if image.device.type != "cuda":
+        raise ValueError(f"raster_embed runs on cuda or cpu, not {image.device}")
+    _check_cuda_image(image, "image")
+    if msg.device != image.device or msg.dtype != torch.uint8 or msg.dim() != 1:
+        raise ValueError("msg must be a 1-D uint8 tensor on the image's device")
+    msg = msg.contiguous()
+    n = image.numel()
+    st, ln, of = _plan_arrays(starts, lens, offs, s, n)
+    if emit_maps and n % 8:
+        raise ValueError("packed XOR maps need H*W % 8 == 0")
+    stego = torch.empty_like(image)
+    maps = (
+        torch.empty((s, n // 8), dtype=torch.uint8, device=image.device)
+        if emit_maps else None
+    )
+    lib = _library()
+    fn = lib.raster_embed_u8 if image.dtype == torch.uint8 else lib.raster_embed_u16
+    err = fn(
+        image.data_ptr(), msg.data_ptr() if msg.numel() else None, msg.numel(),
+        st.ctypes.data, ln.ctypes.data, of.ctypes.data, st.size, s, n,
+        int(emit_maps), stego.data_ptr(),
+        maps.data_ptr() if maps is not None and maps.numel() else None,
+        _stream_ptr(image),
+    )
+    _check(lib, err, "raster_embed")
+    LAUNCHES["raster_embed"] += 1
+    return stego, maps
+
+
+# ---------------------------------------------------------------------------
+# K2: raster extract (payload bits in message order)
+# ---------------------------------------------------------------------------
+
+
+def raster_extract_plain(
+    stego: torch.Tensor, starts, lens, offs, s: int, out_len: int
+) -> torch.Tensor:
+    """Plain torch version of K2: :func:`.embed.extract_message_device`."""
+    st, ln, of = _plan_arrays(starts, lens, offs, s, stego.numel())
+    return embed_ops.extract_message_device(
+        stego, st, ln, of, s, st.size, out_len
+    )
+
+
+def raster_extract(
+    stego: torch.Tensor,          # (H, W) uint8/uint16
+    starts: Sequence[int],
+    lens: Sequence[int],
+    offs: Sequence[int],
+    s: int,
+    out_len: int,
+) -> torch.Tensor:
+    """K2: ``(out_len,) uint8`` payload bits. Bit ``j`` comes from the
+    highest plane whose window covers it (``0 <= j - off_p < len_p``):
+    ``(stego[(start_p + j - off_p) mod N] >> p) & 1`` when ``p < s`` and
+    ``j - off_p < N``, else 0; uncovered bits are 0 — exactly
+    ``codec_tcc_tpu.ops.host_extract.extract_raster_host``."""
+    if out_len < 1:
+        raise ValueError(f"out_len must be >= 1, got {out_len}")
+    if stego.device.type == "cpu":
+        return raster_extract_plain(stego, starts, lens, offs, s, out_len)
+    if stego.device.type != "cuda":
+        raise ValueError(f"raster_extract runs on cuda or cpu, not {stego.device}")
+    _check_cuda_image(stego, "stego")
+    n = stego.numel()
+    st, ln, of = _plan_arrays(starts, lens, offs, s, n)
+    out = torch.empty(out_len, dtype=torch.uint8, device=stego.device)
+    lib = _library()
+    fn = (lib.raster_extract_u8 if stego.dtype == torch.uint8
+          else lib.raster_extract_u16)
+    err = fn(
+        stego.data_ptr(), st.ctypes.data, ln.ctypes.data, of.ctypes.data,
+        st.size, s, n, out_len, out.data_ptr(), _stream_ptr(stego),
+    )
+    _check(lib, err, "raster_extract")
+    LAUNCHES["raster_extract"] += 1
+    return out

@@ -1,0 +1,387 @@
+# Port of codec_tcc_tpu/pipeline.py (encode/decode of the raster strategies).
+"""End-to-end encode / decode pipelines (host orchestration shell).
+
+The default path of the JAX package, in torch: the image is uploaded once;
+the value histogram, the hybrid block scan, the raster embed (kernel K1,
+which also emits the bit-packed XOR maps) and the metric moments run on the
+device; the float64 cut-point replay, the segment plan, the deflate codec
+and the STGC container stay host code. Decode inflates the stego on the
+host, uploads it, extracts the payload bits with kernel K2 and restores the
+original from the container's maps on the host.
+
+Containers are byte-identical to the JAX package's for the strategies,
+codecs and container versions ported so far (``hybrid`` and
+``multi_plane``; ``deflate``; STGC v2/v2.1). Everything else raises
+``NotImplementedError`` naming its ROADMAP.md item.
+
+Every entry point takes ``device`` (default ``"cuda"``). The CPU runs the
+kernels' plain torch versions, and only when a caller passes ``"cpu"``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from .config import EncodeConfig
+from .errors import CapacityError
+from .io import container as container_io
+from .io import dicom
+from .io.codecs import get as get_codec
+from .io.codecs import names as codec_names
+from .ops import blocks as block_ops
+from .ops import decompose as decompose_ops
+from .ops import metrics as metric_ops
+from .ops import raster_kernels
+from .ops import segments as segment_ops
+from .profiling import stage
+from .utils import bits as bit_utils
+from .utils.logging import get_logger
+
+logger = get_logger("pipeline")
+
+DeviceLike = Union[torch.device, str]
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not yet ported to codec_tcc_tpu_torch "
+        f"(ROADMAP.md, queue 1: {item})"
+    )
+
+
+def _check_ported(strategy: str, codec: str, version: int) -> None:
+    if strategy == "pee":
+        raise _not_ported("strategy 'pee'", "PEE kernels K3/K4")
+    if strategy == "block_adaptive":
+        raise _not_ported("strategy 'block_adaptive'", "block_adaptive")
+    if version == 1:
+        raise _not_ported(
+            "STGC container v1", "other codecs with v1 containers"
+        )
+    if codec.lower() in codec_names() and codec.lower() != "deflate":
+        raise _not_ported(f"codec {codec!r}", "other codecs with v1 containers")
+
+
+def _resolve_device(device: DeviceLike) -> torch.device:
+    """The device a caller asked for. Never picks one itself: ``"cuda"``
+    without a usable GPU raises instead of running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "device 'cuda' requested but torch.cuda.is_available() is "
+                "False; pass device='cpu' to run the plain torch versions"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"device must be cuda or cpu, not {dev}")
+    return dev
+
+
+def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """numpy -> tensor on ``dev``; copies first when the array is read-only
+    (``np.frombuffer`` results), which ``torch.from_numpy`` must not wrap."""
+    if not (arr.flags.writeable and arr.flags.c_contiguous):
+        arr = np.array(arr, order="C", copy=True)
+    return torch.from_numpy(arr).to(dev)
+
+
+def _plane_bucket(s: int, dtype_bits: int) -> int:
+    """Plane count of the kernels' plan: 4, 8 or dtype width."""
+    if s <= 4:
+        return min(4, dtype_bits)
+    if s <= 8:
+        return min(8, dtype_bits)
+    return dtype_bits
+
+
+@dataclass
+class EncodeResult:
+    container: bytes
+    stego: np.ndarray
+    meta: container_io.ContainerMeta
+    decomposition: decompose_ops.DecompositionResult
+    metrics: Optional[Dict[str, float]] = None
+
+    @property
+    def s(self) -> int:
+        return self.meta.s
+
+
+@dataclass
+class DecodeResult:
+    payload_bits: np.ndarray
+    stego: np.ndarray
+    meta: container_io.ContainerMeta
+    original: Optional[np.ndarray] = None   # restored via XOR maps if present
+
+    @property
+    def payload(self) -> bytes:
+        return bit_utils.bits_to_bytes(self.payload_bits)
+
+    @property
+    def message(self) -> str:
+        return self.payload.decode("utf-8", errors="replace")
+
+
+def _as_payload_bits(payload: Union[bytes, str, np.ndarray]) -> np.ndarray:
+    if isinstance(payload, str):
+        return bit_utils.message_to_bits(payload)
+    if isinstance(payload, (bytes, bytearray)):
+        return bit_utils.bytes_to_bits(bytes(payload))
+    return np.asarray(payload, dtype=np.uint8)
+
+
+def _host_xor_maps(original: np.ndarray, stego: np.ndarray, s: int) -> np.ndarray:
+    """(s, H, W) uint8 XOR location maps computed on host (the reference's
+    ``orig ^ stego`` bitmaps, src/codec.py:309-311) — the raw-map branch for
+    geometries with ``H*W % 8 != 0``, which the packed maps cannot hold."""
+    diff = original ^ stego
+    out = np.empty((s,) + diff.shape, np.uint8)
+    for k in range(s):
+        np.bitwise_and(diff >> k, 1, out=out[k], casting="unsafe")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# encode
+# ---------------------------------------------------------------------------
+
+
+def encode_array(
+    image: np.ndarray,
+    payload: Union[bytes, str, np.ndarray],
+    config: EncodeConfig = EncodeConfig(),
+    *,
+    bits_stored: Optional[int] = None,
+    device: DeviceLike = "cuda",
+) -> EncodeResult:
+    """Embed ``payload`` into ``image`` and build an STGC container."""
+    config = config.validate()
+    dev = _resolve_device(device)
+    _check_ported(config.strategy, config.codec, config.container_version)
+
+    image = np.asarray(image)
+    if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
+        raise ValueError("image must be 2-D uint8/uint16")
+    h, w = image.shape
+    n = h * w
+    dtype_bits = image.dtype.itemsize * 8
+    if config.device_policy == "host" or config.resolve_host_route(n):
+        raise _not_ported(
+            "the host embed route (device_policy='host', or 'auto' with "
+            "compute_metrics=False)", "host route",
+        )
+
+    nbits = config.nbits
+    if nbits is None:
+        if config.use_bits_stored and bits_stored:
+            nbits = bits_stored     # defect B6 fixed (opt-out via config)
+        else:
+            nbits = dtype_bits      # reference default (src/codec.py:567)
+    nbits = min(nbits, dtype_bits)
+
+    msg_bits = _as_payload_bits(payload)
+    total_bits = int(msg_bits.size)
+
+    # upload once: the histogram, the block scan, K1 and the metric moments
+    # all read the device copy
+    image_dev = _upload(image, dev)
+
+    # 1. decomposition: one device histogram + exact host cut-point math
+    with stage("decompose"):
+        dec = decompose_ops.decompose(image_dev, beta=config.beta, nbits=nbits)
+    s = dec.s
+
+    # 2. segment plan (host scalar work)
+    plan = segment_ops.distribute_segments(s, total_bits, config.seed)
+    dropped = total_bits - sum(min(e, n) for e in plan.eff_lengths)
+    if dropped > 0 and not config.allow_capacity_overflow:
+        raise CapacityError(
+            f"payload of {total_bits} bits exceeds the usable capacity of "
+            f"{segment_ops.usable_capacity_bits(s, n, config.seed)} bits at "
+            f"s={s} ({dropped} bits would be silently dropped by the "
+            f"per-plane clamp); shrink the payload, raise beta, or set "
+            f"allow_capacity_overflow=True for reference-identical clamping"
+        )
+
+    # 3. strategy-specific plane plan (the hybrid start comes from the
+    # device block scan of plane 0)
+    kernel_bits = _plane_bucket(s, dtype_bits)
+    if config.strategy == "hybrid":
+        with stage("block_scan"):
+            counts0 = block_ops.block_bit_counts(
+                image_dev, 0, config.search_block_size
+            ).cpu().numpy()
+            start = block_ops.best_offset_from_counts(
+                counts0, h, w, config.search_block_size
+            )
+        pp = segment_ops.raster_plane_plan(
+            plan, n, kernel_bits, start, config.align_across_planes
+        )
+    else:  # multi_plane
+        pp = segment_ops.raster_plane_plan(plan, n, kernel_bits, 0, True)
+
+    # v2.1 bit-packed maps when the geometry packs; raw maps otherwise
+    bitmaps_packed = config.store_bitmaps and n % 8 == 0
+    with stage("embed"):
+        # 4. K1: stego + packed XOR maps in one launch, then the moments
+        msg_dev = _upload(msg_bits, dev)
+        stego_dev, packed_dev = raster_kernels.raster_embed(
+            image_dev, msg_dev, pp.starts, pp.lengths, pp.offsets, s,
+            emit_maps=bitmaps_packed,
+        )
+        metrics = None
+        if config.compute_metrics:
+            metrics = metric_ops.quality_report(
+                metric_ops.pair_stats(image_dev, stego_dev)
+            )
+        stego = stego_dev.cpu().numpy()
+        packed_maps = None if packed_dev is None else packed_dev.cpu().numpy()
+
+    # 5. transport codec + container
+    with stage("transport_codec"):
+        codec = get_codec(config.codec)
+        stego_blob = codec.encode(stego)
+        if not config.store_bitmaps:
+            bitmaps_blob = b""
+        elif bitmaps_packed:
+            bitmaps_blob = container_io.compress_bitmaps_packed(packed_maps)
+        else:
+            bitmaps_blob = container_io.compress_bitmaps(
+                _host_xor_maps(image, stego, s)
+            )
+
+    meta = container_io.ContainerMeta(
+        version=config.container_version,
+        codec=config.codec,
+        strategy=config.strategy,
+        s=s,
+        nbits=nbits,
+        bits_stored=bits_stored or nbits,
+        dtype=image.dtype,
+        width=w,
+        height=h,
+        start_offset=pp.base_start_offset,
+        seed=config.seed,
+        payload_bits=total_bits,
+        align_across_planes=pp.align_across_planes,
+        has_bitmaps=config.store_bitmaps,
+        bitmaps_packed=bitmaps_packed,
+        sizes=plan.sizes,
+        indices=plan.indices,
+        eff_lengths=tuple(int(v) for v in pp.lengths[:s]),
+        plane_starts=tuple(int(v) for v in pp.starts[:s]),
+    )
+    blob = container_io.pack(meta, bitmaps_blob, stego_blob)
+
+    logger.info(
+        "encoded: s=%d strategy=%s codec=%s payload=%d bits container=%d bytes",
+        s, config.strategy, config.codec, total_bits, len(blob),
+    )
+    return EncodeResult(
+        container=blob, stego=stego, meta=meta, decomposition=dec, metrics=metrics
+    )
+
+
+def encode_dicom(
+    path: str,
+    payload: Union[bytes, str, np.ndarray],
+    config: EncodeConfig = EncodeConfig(),
+    *,
+    device: DeviceLike = "cuda",
+) -> EncodeResult:
+    """Encode a DICOM file (BitsStored plumbed through)."""
+    image, ds = dicom.load_image(path)
+    if image.dtype == np.int16:
+        image = image.astype(np.uint16)
+    return encode_array(
+        image, payload, config, bits_stored=ds.bits_stored, device=device
+    )
+
+
+# ---------------------------------------------------------------------------
+# decode
+# ---------------------------------------------------------------------------
+
+
+def _plane_plan_from_meta(meta: container_io.ContainerMeta, n: int, kernel_bits: int):
+    """Rebuild the device plan from container metadata alone (no re-derivation
+    from the seed needed — v2 stores the resolved plan)."""
+    starts = np.zeros(kernel_bits, dtype=np.int32)
+    lengths = np.zeros(kernel_bits, dtype=np.int32)
+    offsets = np.zeros(kernel_bits, dtype=np.int32)
+    # message offsets replay the reference's cumulative walk in segment order
+    bit_idx = 0
+    for plane in meta.indices:
+        offsets[plane] = max(bit_idx, 0)
+        # sizes are plane-indexed in both versions (the reference walks
+        # distributed_sizes[dest_plane_idx] in segment order, codec.py:269-272)
+        bit_idx += meta.sizes[plane]
+    for plane in range(meta.s):
+        lengths[plane] = meta.eff_lengths[plane]
+    if meta.version == 1:
+        # v1 stores only the base start_offset + align flag; replay the
+        # hybrid strategy's sequential-advance walk (src/codec.py:482-485)
+        offset = meta.start_offset % n if n else 0
+        for plane in meta.indices:
+            starts[plane] = offset
+            if not meta.align_across_planes:
+                offset = (offset + min(int(lengths[plane]), n)) % n
+    else:
+        for plane in range(meta.s):
+            starts[plane] = meta.plane_starts[plane]
+    return starts, lengths, offsets
+
+
+def decode_container(
+    data: Union[bytes, container_io.Container],
+    *,
+    restore_original: bool = True,
+    device: DeviceLike = "cuda",
+) -> DecodeResult:
+    dev = _resolve_device(device)
+    cont = container_io.parse(data) if isinstance(data, (bytes, bytearray)) else data
+    meta = cont.meta
+    _check_ported(meta.strategy, meta.codec, meta.version)
+
+    with stage("transport_decode"):
+        codec = get_codec(meta.codec)
+        stego = codec.decode(cont.stego_blob)
+    if stego.dtype != meta.dtype:
+        stego = stego.astype(meta.dtype)
+    h, w = meta.height, meta.width
+    if stego.shape != (h, w):
+        raise ValueError(f"Decoded stego shape {stego.shape} != header {(h, w)}")
+    n = h * w
+    kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
+
+    starts, lengths, offsets = _plane_plan_from_meta(meta, n, kernel_bits)
+    out_len = max(int(meta.payload_bits), 1)
+
+    with stage("extract"):
+        # K2 reads only the payload's pixels and writes them in message
+        # order: the only download is the payload itself
+        bits = raster_kernels.raster_extract(
+            _upload(stego, dev), starts, lengths, offsets, meta.s, out_len
+        ).cpu().numpy()[: meta.payload_bits]
+
+    original = None
+    if restore_original and meta.has_bitmaps:
+        with stage("restore"):
+            # O(payload) window restore for raster v2.1 containers (exact
+            # full-diff fallback otherwise — container.restore_original)
+            original = cont.restore_original(stego)
+    return DecodeResult(bits, stego, meta, original)
+
+
+def decode_file(
+    path: str, *, restore_original: bool = True, device: DeviceLike = "cuda"
+) -> DecodeResult:
+    with open(path, "rb") as f:
+        return decode_container(
+            f.read(), restore_original=restore_original, device=device
+        )

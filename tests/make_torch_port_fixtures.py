@@ -1,0 +1,66 @@
+"""Write ``tests/data/torch_port_parity.json``: the JAX package's containers
+for every case of ``tests/torch_port_cases.py``, as hashes.
+
+Per case it records the cut point ``s``, the payload size and sha256 (of
+the uint8 0/1 bit array), and the container's length and sha256, all from
+``codec_tcc_tpu.encode_array`` on the CPU. The torch port must reproduce
+them byte for byte (``chip_smoke.py`` on the GPU,
+``tests/test_torch_pipeline.py`` on the CPU).
+
+Regenerate from the repository root with:
+
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.dirname(HERE))
+sys.path.insert(0, HERE)
+
+import torch_port_cases as cases  # noqa: E402
+
+
+def jax_entry(case: cases.Case) -> dict:
+    """Encode one case with the JAX package; return its JSON entry."""
+    from codec_tcc_tpu import EncodeConfig, encode_array
+    from codec_tcc_tpu.ops.decompose import decompose
+    from codec_tcc_tpu.ops.segments import usable_capacity_bits
+
+    img = cases.image(case)
+    s = decompose(img, beta=0.4, nbits=case.bits_stored).s
+    bits = cases.payload_bits(case, usable_capacity_bits(s, img.size, 42))
+    res = encode_array(
+        img, bits, EncodeConfig(strategy=case.strategy),
+        bits_stored=case.bits_stored,
+    )
+    assert res.s == s
+    return {
+        "s": int(s),
+        "payload_bits": int(bits.size),
+        "payload_sha256": cases.sha256(bits),
+        "container_len": len(res.container),
+        "container_sha256": cases.sha256(res.container),
+    }
+
+
+def main() -> int:
+    out = {
+        "generator": "tests/make_torch_port_fixtures.py",
+        "reference": "codec_tcc_tpu.encode_array, EncodeConfig defaults "
+                     "except strategy, container v2, deflate",
+        "cases": {c.name: jax_entry(c) for c in cases.CASES},
+    }
+    with open(cases.PARITY_JSON, "w", encoding="utf-8") as f:
+        json.dump(out, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(json.dumps(out["cases"], indent=1, sort_keys=True))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

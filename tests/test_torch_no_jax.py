@@ -1,0 +1,61 @@
+"""The port runs where jax does not exist: in a fresh interpreter that
+cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
+the CPU, and nothing of the JAX package gets loaded."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import sys
+sys.modules["jax"] = None          # any `import jax` now raises ImportError
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import codec_tcc_tpu_torch as port
+
+img = (np.arange(48 * 40, dtype=np.uint16).reshape(48, 40) * 7) % 4096
+res = port.encode_array(img, "no jax here", bits_stored=12, device="cpu")
+dec = port.decode_container(res.container, device="cpu")
+assert dec.message == "no jax here", dec.message
+assert np.array_equal(dec.original, img)
+loaded = sorted(m for m in sys.modules
+                if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
+                or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))
+assert loaded == ["jax"], loaded   # only the blocked placeholder
+print("OK")
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (REPO, env.get("PYTHONPATH")) if p)
+    proc = subprocess.run(
+        [sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_sources_never_import_jax():
+    pkg = os.path.join(REPO, "codec_tcc_tpu_torch")
+    offenders = []
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path, encoding="utf-8") as f:
+                for i, line in enumerate(f, 1):
+                    code = line.strip()
+                    if code.startswith(("import jax", "from jax",
+                                        "import codec_tcc_tpu ",
+                                        "import codec_tcc_tpu.",
+                                        "from codec_tcc_tpu ",
+                                        "from codec_tcc_tpu.")):
+                        offenders.append(f"{path}:{i}: {code}")
+    assert offenders == []

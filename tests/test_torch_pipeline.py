@@ -1,0 +1,175 @@
+"""The port's encode/decode pipeline (on the CPU, through the kernels' plain
+versions) against the JAX package's: containers byte-identical, each side
+decoding the other's, the committed goldens and parity hashes, and the
+requests that are not yet ported."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import codec_tcc_tpu as jax_pkg
+import codec_tcc_tpu_torch as port
+from codec_tcc_tpu.ops.segments import usable_capacity_bits
+from codec_tcc_tpu_torch.io import container as port_container
+from codec_tcc_tpu_torch.ops import raster_kernels
+
+import torch_port_cases as cases
+
+torch.set_num_threads(1)
+
+DATA = os.path.join(os.path.dirname(__file__), "data")
+TEXT = cases.TEXT_PAYLOAD
+
+
+def _image(h, w, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    hi = 255 if dtype == np.uint8 else 4095
+    y, x = np.mgrid[0:h, 0:w]
+    base = (x * 3 + y) / (3 * w + h) * hi * 0.8
+    return np.clip(base + rng.normal(0, hi * 0.02, (h, w)), 0, hi).astype(dtype)
+
+
+def _payload(kind, img, bits_stored):
+    if kind == "text":
+        return np.unpackbits(np.frombuffer(TEXT.encode(), np.uint8))
+    s = jax_pkg.encode_array(img, b"", bits_stored=bits_stored).s
+    cap = usable_capacity_bits(s, img.size, 42)
+    return np.random.default_rng(1).integers(0, 2, cap, dtype=np.uint8)
+
+
+@pytest.mark.parametrize("payload", ["text", "capacity"])
+@pytest.mark.parametrize("h,w", [(64, 64), (37, 53)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("strategy", ["hybrid", "multi_plane"])
+def test_encode_byte_identical_and_cross_decode(strategy, dtype, h, w, payload):
+    bits_stored = 8 if dtype == np.uint8 else 12
+    img = _image(h, w, dtype)
+    bits = _payload(payload, img, bits_stored)
+    res_p = port.encode_array(img, bits, port.EncodeConfig(strategy=strategy),
+                              bits_stored=bits_stored, device="cpu")
+    res_j = jax_pkg.encode_array(img, bits,
+                                 jax_pkg.EncodeConfig(strategy=strategy),
+                                 bits_stored=bits_stored)
+    assert res_p.container == res_j.container
+    np.testing.assert_array_equal(res_p.stego, res_j.stego)
+    assert res_p.s == res_j.s
+    assert res_p.metrics["changed_pixels"] == res_j.metrics["changed_pixels"]
+    assert res_p.meta.bitmaps_packed == ((h * w) % 8 == 0)
+
+    dec_p = port.decode_container(res_j.container, device="cpu")
+    dec_j = jax_pkg.decode_container(res_p.container)
+    for dec in (dec_p, dec_j):
+        np.testing.assert_array_equal(dec.payload_bits, bits)
+        np.testing.assert_array_equal(dec.stego, res_j.stego)
+        np.testing.assert_array_equal(dec.original, img)
+
+
+def test_capacity_error_one_bit_over():
+    img = _image(64, 64, np.uint16)
+    s = port.encode_array(img, b"", bits_stored=12, device="cpu").s
+    cap = usable_capacity_bits(s, img.size, 42)
+    bits = np.ones(cap + 1, np.uint8)
+    with pytest.raises(port.CapacityError):
+        port.encode_array(img, bits, bits_stored=12, device="cpu")
+    with pytest.raises(jax_pkg.CapacityError):
+        jax_pkg.encode_array(img, bits, bits_stored=12)
+
+
+@pytest.mark.parametrize("name", ["hybrid", "hybrid_packed", "multi_plane"])
+def test_golden_raster_containers_decode(name):
+    img = np.load(os.path.join(DATA, "golden_image.npy"))
+    with open(os.path.join(DATA, "golden_payload.bin"), "rb") as f:
+        payload = f.read()
+    with open(os.path.join(DATA, f"golden_{name}.stgc"), "rb") as f:
+        blob = f.read()
+    dec = port.decode_container(blob, device="cpu")
+    assert dec.payload == payload
+    np.testing.assert_array_equal(dec.original, img)
+
+
+@pytest.mark.parametrize("name", ["mr512_u16", "ot512_u8"])
+def test_parity_fixture_regenerates(name):
+    """Both packages reproduce the committed hashes the GPU run checks."""
+    case = cases.BY_NAME[name]
+    want = cases.load_parity()[name]
+    img = cases.image(case)
+    bits = cases.payload_bits(case, 0)
+    assert cases.sha256(bits) == want["payload_sha256"]
+    res_j = jax_pkg.encode_array(
+        img, bits, jax_pkg.EncodeConfig(strategy=case.strategy),
+        bits_stored=case.bits_stored)
+    res_p = port.encode_array(
+        img, bits, port.EncodeConfig(strategy=case.strategy),
+        bits_stored=case.bits_stored, device="cpu")
+    for res in (res_j, res_p):
+        assert res.s == want["s"]
+        assert len(res.container) == want["container_len"]
+        assert cases.sha256(res.container) == want["container_sha256"]
+
+
+def test_encode_counts_no_kernel_launch_on_cpu():
+    raster_kernels.reset_launch_counts()
+    res = port.encode_array(_image(32, 32, np.uint16), TEXT, bits_stored=12,
+                            device="cpu")
+    port.decode_container(res.container, device="cpu")
+    assert raster_kernels.LAUNCHES == {"raster_embed": 0, "raster_extract": 0}
+
+
+def test_cuda_default_raises_without_gpu():
+    """No entry point falls back to the CPU: the default device is cuda."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present; this checks the no-GPU refusal")
+    img = _image(32, 32, np.uint16)
+    with pytest.raises(RuntimeError, match="cuda"):
+        port.encode_array(img, TEXT)
+    blob = jax_pkg.encode_array(img, TEXT).container
+    with pytest.raises(RuntimeError, match="cuda"):
+        port.decode_container(blob)
+
+
+@pytest.mark.parametrize("overrides,item", [
+    ({"strategy": "pee"}, "PEE kernels"),
+    ({"strategy": "block_adaptive"}, "block_adaptive"),
+    ({"device_policy": "host"}, "host route"),
+    ({"compute_metrics": False}, "host route"),
+    ({"container_version": 1}, "v1 containers"),
+    ({"codec": "png"}, "other codecs"),
+], ids=["pee", "block_adaptive", "host", "auto_no_metrics", "v1", "png"])
+def test_unported_encode_requests_raise(overrides, item):
+    img = _image(32, 32, np.uint16)
+    with pytest.raises(NotImplementedError, match=item):
+        port.encode_array(img, TEXT, port.EncodeConfig(**overrides),
+                          device="cpu")
+
+
+def test_device_policy_device_without_metrics_is_ported():
+    img = _image(32, 32, np.uint16)
+    cfg = dict(compute_metrics=False, device_policy="device")
+    res_p = port.encode_array(img, TEXT, port.EncodeConfig(**cfg), device="cpu")
+    res_j = jax_pkg.encode_array(img, TEXT, jax_pkg.EncodeConfig(**cfg))
+    assert res_p.metrics is None
+    assert res_p.container == res_j.container
+
+
+@pytest.mark.parametrize("fixture,item", [
+    ("golden_pee.stgc", "PEE kernels"),
+    ("golden_block_adaptive.stgc", "block_adaptive"),
+    ("ref_v1_pe.bin", "v1 containers"),
+])
+def test_unported_containers_raise_on_decode(fixture, item):
+    with open(os.path.join(DATA, fixture), "rb") as f:
+        blob = f.read()
+    with pytest.raises(NotImplementedError, match=item):
+        port.decode_container(blob, device="cpu")
+
+
+def test_unported_codec_container_raises_on_decode():
+    img = _image(32, 32, np.uint8)
+    cont = port_container.parse(
+        port.encode_array(img, TEXT, bits_stored=8, device="cpu").container)
+    cont.meta.codec = "png"
+    blob = port_container.pack(cont.meta, cont.bitmaps_blob, cont.stego_blob)
+    with pytest.raises(NotImplementedError, match="other codecs"):
+        port.decode_container(blob, device="cpu")

@@ -1,0 +1,96 @@
+"""Realistic encode cases for parity between the JAX package and its torch
+port — numpy only, so the machine with the GPU (which has no jax) can
+rebuild every input bit for bit.
+
+Each case is a seeded image (a smooth body-like phantom plus
+``default_rng`` noise, clipped to BitsStored) and a payload. The JAX
+package's containers for these inputs are not committed (the largest is
+several MB); their hashes are, in ``tests/data/torch_port_parity.json``,
+written by ``tests/make_torch_port_fixtures.py``. ``chip_smoke.py`` checks
+every case on the GPU; ``tests/test_torch_pipeline.py`` regenerates the
+small ones with both packages on the CPU.
+
+Geometries follow the bundled 512x512 DICOMs and common radiograph sizes;
+``odd500x501_u8`` has ``H*W % 8 != 0`` (raw XOR maps, no v2.1 packing).
+All cases use STGC v2 and the default ``deflate`` codec.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+from dataclasses import dataclass
+from typing import Dict
+
+import numpy as np
+
+DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+PARITY_JSON = os.path.join(DATA, "torch_port_parity.json")
+
+TEXT_PAYLOAD = "Mensagem de teste para esteganografia!"   # 304 bits
+
+
+@dataclass(frozen=True)
+class Case:
+    name: str
+    height: int
+    width: int
+    dtype: str           # "uint8" / "uint16"
+    bits_stored: int
+    payload: str         # "text", "capacity" or "bits:<n>"
+    strategy: str
+    seed: int
+
+
+CASES = (
+    Case("mr512_u16", 512, 512, "uint16", 12, "text", "hybrid", 11),
+    Case("mr512_u16_full", 512, 512, "uint16", 12, "capacity", "hybrid", 12),
+    Case("ot512_u8", 512, 512, "uint8", 8, "text", "hybrid", 13),
+    Case("cr2048_u16_full", 2048, 2048, "uint16", 12, "capacity", "hybrid", 14),
+    Case("odd640x480_u16", 480, 640, "uint16", 12, "bits:4096", "multi_plane", 15),
+    Case("odd500x501_u8", 500, 501, "uint8", 8, "bits:4096", "hybrid", 16),
+)
+BY_NAME = {c.name: c for c in CASES}
+
+
+def image(case: Case) -> np.ndarray:
+    """Smooth phantom (an elliptic body with two inner structures and a
+    gentle gradient) plus seeded Gaussian noise, clipped to BitsStored."""
+    h, w = case.height, case.width
+    maxval = (1 << case.bits_stored) - 1
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    y = (y - h / 2) / (h / 2)
+    x = (x - w / 2) / (w / 2)
+    body = ((x / 0.85) ** 2 + (y / 0.75) ** 2 < 1.0) * 0.45
+    organ = ((x + 0.3) ** 2 / 0.04 + y ** 2 / 0.09 < 1.0) * 0.25
+    bone = ((x - 0.35) ** 2 + (y + 0.2) ** 2 < 0.01) * 0.35
+    smooth = 0.05 + body + organ + bone + 0.1 * (x + 1.0)
+    rng = np.random.default_rng(case.seed)
+    noisy = smooth * maxval + rng.normal(0.0, 0.02 * maxval, (h, w))
+    return np.clip(np.rint(noisy), 0, maxval).astype(case.dtype)
+
+
+def payload_bits(case: Case, capacity_bits: int) -> np.ndarray:
+    """The case's payload as uint8 0/1 bits. ``capacity_bits`` — the
+    caller's ``usable_capacity_bits(s, H*W, 42)`` for the image's cut
+    point — sizes the ``capacity`` cases and is ignored otherwise."""
+    if case.payload == "text":
+        return np.unpackbits(np.frombuffer(TEXT_PAYLOAD.encode(), np.uint8))
+    if case.payload == "capacity":
+        nbits = capacity_bits
+    else:
+        nbits = int(case.payload.split(":", 1)[1])
+    rng = np.random.default_rng(case.seed + 1000)
+    return rng.integers(0, 2, nbits, dtype=np.uint8)
+
+
+def sha256(data) -> str:
+    if isinstance(data, np.ndarray):
+        data = np.ascontiguousarray(data).tobytes()
+    return hashlib.sha256(data).hexdigest()
+
+
+def load_parity() -> Dict[str, dict]:
+    with open(PARITY_JSON, encoding="utf-8") as f:
+        return json.load(f)["cases"]
