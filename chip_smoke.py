@@ -3,31 +3,48 @@
 
     python3 chip_smoke.py
 
-Drives the port's default encode/decode path through its two hand-written
-CUDA kernels (K1 ``raster_embed``, K2 ``raster_extract``) and checks it,
-phase by phase; any failure exits non-zero:
+Drives the port's encode/decode paths (raster and PEE) through its four
+hand-written CUDA kernels (K1 ``raster_embed``, K2 ``raster_extract``, K3
+``pee_embed``, K4 ``pee_extract``) and checks them, phase by phase; any
+failure exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
-   kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a);
-2. K1/K2 against their plain torch versions on the card, exact, at
-   512x512 / 2048x2048 / 480x640 uint16 and 500x501 uint8, s in {1, 4, 8},
-   with wrapping, aliased and past-s windows;
-3. every case of ``tests/data/torch_port_parity.json`` through
-   ``encode_array(device="cuda")``: the container's sha256 must equal the
-   JAX package's, ``decode_container(device="cuda")`` must give the payload
-   back and the restored original must be exact;
-4. the committed golden raster containers decode on the card;
+   kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
+   compile per source, all at once, linked into one library);
+2. every kernel against its plain torch version on the card, exact, at
+   512x512 / 2048x2048 / 480x640 uint16 and 500x501 uint8: K1/K2 with s in
+   {1, 4, 8} and wrapping, aliased and past-s windows; K3/K4 on batches of
+   three with both parities, T in {1, 2, 47, 128}, per-image wants of 0,
+   under capacity and over it (saturated), then 2**30 (the message-index
+   clamp), and an ``out_len`` below the expanded count;
+3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
+   PEE) through ``encode_array(device="cuda")``: the container's sha256
+   (and for PEE the ext tuple) must equal the JAX package's, and
+   ``decode_container(device="cuda")`` must give the payload and the
+   original back exactly; then ``encode_pee_batch``/``decode_pee_batch`` on
+   the four 512x512 uint16 case images as one batch of mixed T;
+4. the committed golden raster and PEE containers decode on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
-   a DICOM written by the port: message and restored pixels exact;
-6. the launch counts of K1 and K2 over phases 3-4 (the main path) are > 0;
-7. times, printed and not asserted: per call of K1/K2 and of their plain
-   versions at the main path's 512x512 and 2048x2048 uint16 plans (median
-   of 20 CUDA-event reps, wrapper included; and device time alone from
-   ``torch.profiler``), and one warm encode+decode at 512x512 (host wall,
-   stage means, device busy share).
+   DICOMs written by the port, default strategy and ``--strategy pee``:
+   container, message and restored pixels exact;
+6. the launch counts of each path, set to 0 just before it and read just
+   after it: the raster cases (K1 and K2 once per encode and decode), the
+   PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
+   twice per decode group), and the golden decodes; every count must be
+   exactly what the path should launch, so every kernel runs on the path
+   that needs it;
+7. times, printed and not asserted: per call of each kernel and of its
+   plain version (median of 20 CUDA-event reps, wrapper included; and
+   device time alone from ``torch.profiler``) at the main path's shapes:
+   K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans, K3/K4 at the
+   2048x2048 3 Mbit PEE plan (pass 0 and pass 1); warm encode+decode
+   cycles (host wall, stage means, device busy share): raster 512x512 with
+   304 bits, PEE 512x512 with 304 bits and PEE 2048x2048 with 3 Mbit.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
-``{"kernels": [...]}``; the last line is
+``{"kernels": [...]}`` (per kernel: launches, max abs error, times, and the
+bound: the larger of its bytes over 3.35 TB/s and its integer operations
+over 67 TOP/s, from this run's shapes); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -45,6 +62,13 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPS = 20
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
+INT_OPS_PER_S = 67e12         # H100 SXM peak outside the tensor cores
+# Essential integer operations per unit of work, counted from the
+# functions (not from the kernels' index arithmetic): K1 3 per embedded
+# (pixel, plane) and 1 per map bit, K2 3 per payload bit, K3/K4 20 per
+# pixel (prediction 5, error and classification 10, rank and update 5).
+K3_K4_OPS_PER_PIXEL = 20
 
 
 def fail(msg: str) -> None:
@@ -106,6 +130,27 @@ def fmt_ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f} ms"
 
 
+def bound(nbytes: int, ops: int):
+    """(bound_ms, bound_by): the larger of the bytes' and the operations'
+    least times on the card."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def max_abs_diff(got, ref) -> int:
+    """Largest |got - ref| over the tensors of two equal-length tuples."""
+    import torch
+
+    err = 0
+    for g, r in zip(got, ref):
+        if g is None and r is None:
+            continue
+        d = (g.to(torch.int64) - r.to(torch.int64)).abs()
+        err = max(err, int(d.max()) if d.numel() else 0)
+    return err
+
+
 def kernel_vs_plain_cases(rng, n):
     """(s, starts, lens, offs) plans for phase 2: random windows that wrap
     past the raster end, plus aliased message offsets and a past-s plane
@@ -124,6 +169,360 @@ def kernel_vs_plain_cases(rng, n):
     return plans
 
 
+PHASE2_SHAPES = ((512, 512, "uint16", 12), (2048, 2048, "uint16", 12),
+                 (480, 640, "uint16", 12), (500, 501, "uint8", 8))
+
+
+def phase2_raster(rng, dev) -> dict:
+    import numpy as np
+    import torch
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    max_err = {"raster_embed": 0, "raster_extract": 0}
+    for h, w, dt, _ in PHASE2_SHAPES:
+        dt = np.dtype(dt)
+        n = h * w
+        hi = 1 << (8 * dt.itemsize)
+        img = torch.from_numpy(rng.integers(0, hi, (h, w)).astype(dt)).to(dev)
+        msg = torch.from_numpy(
+            rng.integers(0, 2, 5 * n).astype(np.uint8)).to(dev)
+        for s, starts, lens, offs in kernel_vs_plain_cases(rng, n):
+            emit = n % 8 == 0
+            got = rk.raster_embed(img, msg, starts, lens, offs, s,
+                                  emit_maps=emit)
+            torch.cuda.synchronize()
+            ref = rk.raster_embed_plain(img, msg, starts, lens, offs, s,
+                                        emit_maps=emit)
+            err = max_abs_diff(got, ref)
+            max_err["raster_embed"] = max(max_err["raster_embed"], err)
+            check(err == 0, f"K1 != plain at {h}x{w} {dt.name} s={s}")
+            out_len = int(max(int(o) + int(ln) for o, ln in zip(offs, lens)))
+            ex_k = rk.raster_extract(got[0], starts, lens, offs, s, out_len)
+            torch.cuda.synchronize()
+            ex_p = rk.raster_extract_plain(got[0], starts, lens, offs, s,
+                                           out_len)
+            err = max_abs_diff((ex_k,), (ex_p,))
+            max_err["raster_extract"] = max(max_err["raster_extract"], err)
+            check(err == 0, f"K2 != plain at {h}x{w} {dt.name} s={s}")
+    return max_err
+
+
+def phase2_pee(dev) -> dict:
+    """K3/K4 against their plain versions on batches of three phantoms with
+    a row at the ceiling and a column at 0 (overflow pixels)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(2025)
+    max_err = {"pee_embed": 0, "pee_extract": 0}
+    i32 = dict(dtype=torch.int32, device=dev)
+    for h, w, dt, bits_stored in PHASE2_SHAPES:
+        n = h * w
+        max_val = (1 << bits_stored) - 1
+        imgs = np.stack([cases.image(cases.Case(
+            "k", h, w, dt, bits_stored, "text", "pee", 300 + k))
+            for k in range(3)])
+        imgs[:, h // 3, :] = max_val
+        imgs[:, :, w // 4] = 0
+        imgs = torch.from_numpy(imgs).to(dev)
+        msg = torch.from_numpy(
+            rng.integers(0, 2, (3, n // 2)).astype(np.uint8)).to(dev)
+        base = torch.tensor([0, 5, 11], **i32)
+        for t in (1, 2, 47, 128):
+            for parity in (0, 1):
+                cap = pk.pee_embed(imgs, msg, base, torch.zeros(3, **i32),
+                                   parity, t, max_val)[4].cpu()
+                mixed = torch.tensor(
+                    [0, int(cap[1]) // 2, int(cap[2]) + 1], **i32)
+                for want in (mixed, torch.full((3,), 1 << 30, **i32)):
+                    got = pk.pee_embed(imgs, msg, base, want, parity, t,
+                                       max_val)
+                    torch.cuda.synchronize()
+                    ref = pk.pee_embed_plain(imgs, msg, base, want, parity,
+                                             t, max_val)
+                    err = max_abs_diff(got, ref)
+                    max_err["pee_embed"] = max(max_err["pee_embed"], err)
+                    check(err == 0, f"K3 != plain at {h}x{w} {dt} T={t} "
+                                    f"parity={parity} want={want.tolist()}")
+                    stego, over, _, nproc, _ = got
+                    for out_len in (8, n):
+                        gx = pk.pee_extract(stego, over, nproc, parity, t,
+                                            out_len)
+                        torch.cuda.synchronize()
+                        rx = pk.pee_extract_plain(stego, over, nproc, parity,
+                                                  t, out_len)
+                        err = max_abs_diff(gx, rx)
+                        max_err["pee_extract"] = max(max_err["pee_extract"],
+                                                     err)
+                        check(err == 0,
+                              f"K4 != plain at {h}x{w} {dt} T={t} parity="
+                              f"{parity} out_len={out_len}")
+                        check(torch.equal(gx[0], imgs),
+                              f"K4 did not restore {h}x{w} {dt} T={t}")
+    return max_err
+
+
+def case_payload(case):
+    from codec_tcc_tpu_torch.ops.decompose import decompose
+    from codec_tcc_tpu_torch.ops.segments import usable_capacity_bits
+    import torch
+    import torch_port_cases as cases
+
+    img = cases.image(case)
+    if case.strategy == "pee":
+        return img, 0, cases.payload_bits(case, 0)
+    s = decompose(torch.from_numpy(img).to("cuda"), 0.4, case.bits_stored).s
+    return img, s, cases.payload_bits(case, usable_capacity_bits(s, img.size,
+                                                                 42))
+
+
+def pee_start_thresholds(imgs, nbits, bits_stored, cfg, dev):
+    """The T each image's first PEE attempt uses (the encoders' histogram
+    choice), to work out the K3 launches a path must make."""
+    import torch
+    from codec_tcc_tpu_torch.models.pee import max_value
+    from codec_tcc_tpu_torch.parallel import batch_pee
+
+    dtype_bits = imgs.dtype.itemsize * 8
+    eff = bits_stored if cfg.use_bits_stored else dtype_bits
+    return batch_pee._start_thresholds(
+        torch.from_numpy(imgs).to(dev), nbits,
+        max_value(int(imgs.max()), dtype_bits, eff), cfg.pee_threshold)
+
+
+def phase3_batch(port, results, parity, counted, dev):
+    """encode_pee_batch/decode_pee_batch on the four 512x512 uint16 case
+    images: every container equals the single-image one (and, for the PEE
+    cases, the JAX package's). Returns the text for phase 3 and the
+    launches the batch path must make."""
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import batch_pee
+
+    names = ("mr512_u16", "mr512_u16_full", "pee_mr512_u16_text",
+             "pee_mr512_u16_100k")
+    rng = np.random.default_rng(512)
+    imgs, pays = [], []
+    for name in names:
+        img, _, bits = results[name][:3]
+        if not name.startswith("pee_"):
+            bits = (bits if bits.size < 1000
+                    else rng.integers(0, 2, 20000, dtype=np.uint8))
+        imgs.append(img)
+        pays.append(bits)
+    imgs = np.stack(imgs)
+    cfg = port.EncodeConfig(strategy="pee")
+    wants = [parity[name]["container_sha256"] if name.startswith("pee_")
+             else cases.sha256(port.encode_array(
+                 img, bits, cfg, bits_stored=12, device="cuda").container)
+             for name, img, bits in zip(names, imgs, pays)]
+
+    def batch_path():
+        res = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
+                                         device="cuda")
+        return res, batch_pee.decode_pee_batch(res.containers, device="cuda")
+
+    res, decs = counted("pee_batch", batch_path)
+    check(len(set(res.thresholds.tolist())) > 1,
+          f"batch thresholds not mixed: {res.thresholds.tolist()}")
+    for name, blob, want in zip(names, res.containers, wants):
+        check(cases.sha256(blob) == want,
+              f"batch container of {name} differs from the single-image one")
+    for name, img, bits, dec in zip(names, imgs, pays, decs):
+        check(np.array_equal(dec.payload_bits, bits),
+              f"batch decode of {name}: payload differs")
+        check(np.array_equal(dec.original, img),
+              f"batch decode of {name}: original differs")
+    t_start = pee_start_thresholds(imgs, [p.size for p in pays], 12, cfg, dev)
+    expected = {"raster_embed": 0, "raster_extract": 0,
+                "pee_embed": 2 * cases.pee_attempt_groups(t_start,
+                                                          res.thresholds),
+                "pee_extract": 2 * len(set(res.thresholds.tolist()))}
+    return (f"T={res.thresholds.tolist()} from {t_start.tolist()}",
+            expected)
+
+
+def run_cli(tmp, env, args):
+    proc = subprocess.run(
+        [sys.executable, "-m", "codec_tcc_tpu_torch", *args],
+        cwd=tmp, env=env, capture_output=True, text=True, timeout=300,
+    )
+    check(proc.returncode == 0,
+          f"CLI {args[0]} failed:\n{proc.stdout}\n{proc.stderr}")
+
+
+def phase5_cli(parity) -> None:
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.io import dicom
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    for name, extra in (("mr512_u16", []),
+                        ("pee_mr512_u16_text", ["--strategy", "pee"])):
+        case = cases.BY_NAME[name]
+        img = cases.image(case)
+        with tempfile.TemporaryDirectory() as tmp:
+            dicom.save_image(img, os.path.join(tmp, "in.dcm"),
+                             bits_stored=case.bits_stored)
+            run_cli(tmp, env, ["encode", "in.dcm", "out.stgc", "--message",
+                               cases.TEXT_PAYLOAD, *extra])
+            run_cli(tmp, env, ["decode", "out.stgc", "--output-prefix", "dec"])
+            with open(os.path.join(tmp, "out.stgc"), "rb") as f:
+                check(cases.sha256(f.read())
+                      == parity[name]["container_sha256"],
+                      f"CLI container ({name}) differs from the JAX package's")
+            with open(os.path.join(tmp, "dec_message.txt"),
+                      encoding="utf-8") as f:
+                check(f.read() == cases.TEXT_PAYLOAD,
+                      f"CLI message differs ({name})")
+            restored, _ = dicom.load_image(os.path.join(tmp, "dec_original.dcm"))
+            check(np.array_equal(restored, img),
+                  f"CLI restored pixels differ ({name})")
+
+
+def cycle_report(label: str, cycle, reps: int) -> None:
+    """Warm encode+decode: host wall (median), stage means, busy share."""
+    from codec_tcc_tpu_torch.profiling import get_profiler
+
+    cycle()
+    profiler = get_profiler()
+    profiler.reset()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        cycle()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    e2e = statistics.median(walls)
+    stages = {k: round(v["mean_ms"], 3) for k, v in profiler.report().items()}
+    busy = device_ms(cycle, reps=reps)
+    busy_txt = ("not measured" if busy is None else
+                f"{busy:.4f} ms device time = {100 * busy / e2e:.2f}% busy")
+    print(f"  {label} stage means (host wall ms): {stages}")
+    print(f"  {label}: {e2e:.2f} ms host wall (median of {reps}), {busy_txt}",
+          flush=True)
+
+
+def time_raster(results, dev) -> dict:
+    import numpy as np
+    import torch
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    timing = {}
+    for name, label in (("mr512_u16_full", "512x512"),
+                        ("cr2048_u16_full", "2048x2048")):
+        img, _, bits, res = results[name]
+        meta = res.meta
+        n = img.size
+        starts, lens, offs = pipeline._plane_plan_from_meta(
+            meta, n, pipeline._plane_bucket(meta.s, 16))
+        img_d = torch.from_numpy(img).to(dev)
+        msg_d = torch.from_numpy(bits).to(dev)
+        out_len = int(meta.payload_bits)
+        stego_d = torch.from_numpy(res.stego).to(dev)
+        k1 = lambda: rk.raster_embed(img_d, msg_d, starts, lens, offs, meta.s,
+                                     emit_maps=True)
+        k1p = lambda: rk.raster_embed_plain(img_d, msg_d, starts, lens, offs,
+                                            meta.s, emit_maps=True)
+        k2 = lambda: rk.raster_extract(stego_d, starts, lens, offs, meta.s,
+                                       out_len)
+        k2p = lambda: rk.raster_extract_plain(stego_d, starts, lens, offs,
+                                              meta.s, out_len)
+        row = {k: cuda_median_ms(f) for k, f in
+               (("k1", k1), ("k1_plain", k1p), ("k2", k2), ("k2_plain", k2p))}
+        dev_row = {k: device_ms(f) for k, f in
+                   (("k1", k1), ("k1_plain", k1p), ("k2", k2),
+                    ("k2_plain", k2p))}
+        # bytes each function must move: K1 reads the image and the message
+        # bits once and writes the stego and s packed maps; K2 reads the
+        # pixels its windows cover and writes the payload bits
+        covered = np.zeros(n, bool)
+        for p in range(meta.s):
+            span = (int(starts[p]) + np.arange(min(int(lens[p]), n))) % n
+            covered[span] = True
+        k1_bytes = 2 * n * 2 + meta.s * n // 8 + out_len
+        k1_ops = 3 * int(sum(min(int(v), n) for v in lens[:meta.s])) \
+            + meta.s * n
+        k2_bytes = 2 * int(covered.sum()) + out_len
+        row["k1_bound"] = bound(k1_bytes, k1_ops)
+        row["k2_bound"] = bound(k2_bytes, 3 * out_len)
+        row.update({f"dev_{k}": v for k, v in dev_row.items()})
+        timing[label] = row
+        print(f"  {label} u16 s={meta.s} payload={out_len} bits, per call "
+              f"(CUDA events, wrapper included): K1 {row['k1']:.4f} ms "
+              f"(plain {row['k1_plain']:.4f} ms), K2 {row['k2']:.4f} ms "
+              f"(plain {row['k2_plain']:.4f} ms)")
+        print(f"  {label} u16 device time only (profiler): K1 "
+              f"{fmt_ms(dev_row['k1'])} (plain {fmt_ms(dev_row['k1_plain'])}),"
+              f" K2 {fmt_ms(dev_row['k2'])} "
+              f"(plain {fmt_ms(dev_row['k2_plain'])}); bounds K1 "
+              f"{row['k1_bound'][0]:.4f} ms ({k1_bytes} B), K2 "
+              f"{row['k2_bound'][0]:.4f} ms ({k2_bytes} B)", flush=True)
+    return timing
+
+
+def time_pee(results, dev) -> dict:
+    """K3/K4 at the 2048x2048 3 Mbit plan, pass by pass."""
+    import torch
+    from codec_tcc_tpu_torch.io.container import parse_pee_ext
+    from codec_tcc_tpu_torch.models.pee import message_buffer
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    img, _, bits, res = results["pee_cr2048_u16_3m"]
+    t = parse_pee_ext(res.meta.ext)[0]
+    n = img.size
+    max_val = 4095
+    i32 = dict(dtype=torch.int32, device=dev)
+    img_d = torch.from_numpy(img).to(dev)[None]
+    msg_d = message_buffer([bits], dev)
+    want = torch.tensor([bits.size], **i32)
+    zero = torch.zeros(1, **i32)
+    s0, o0, u0, n0, _ = pk.pee_embed(img_d, msg_d, zero, want, 0, t, max_val)
+    s1, o1, u1, n1, _ = pk.pee_embed(s0, msg_d, u0, want - u0, 1, t, max_val)
+    over = o0 | o1
+    out_len = 1 << max(3, (bits.size - 1).bit_length())
+    r1 = pk.pee_extract(s1, over, n1, 1, t, out_len)[0]
+    used = (int(u0), int(u1))
+    calls = {
+        "k3_pass0": (lambda: pk.pee_embed(img_d, msg_d, zero, want, 0, t,
+                                          max_val),
+                     lambda: pk.pee_embed_plain(img_d, msg_d, zero, want, 0,
+                                                t, max_val)),
+        "k3_pass1": (lambda: pk.pee_embed(s0, msg_d, u0, want - u0, 1, t,
+                                          max_val),
+                     lambda: pk.pee_embed_plain(s0, msg_d, u0, want - u0, 1,
+                                                t, max_val)),
+        "k4_pass1": (lambda: pk.pee_extract(s1, over, n1, 1, t, out_len),
+                     lambda: pk.pee_extract_plain(s1, over, n1, 1, t,
+                                                  out_len)),
+        "k4_pass0": (lambda: pk.pee_extract(r1, over, n0, 0, t, out_len),
+                     lambda: pk.pee_extract_plain(r1, over, n0, 0, t,
+                                                  out_len)),
+    }
+    timing = {}
+    ops = K3_K4_OPS_PER_PIXEL * n
+    for key, (kern, plain) in calls.items():
+        if key.startswith("k3"):
+            # image read, stego and overflow map written, this pass's bits
+            nbytes = 2 * n + 2 * n + n + used[int(key[-1])]
+        else:
+            # stego and overflow map read, restored image and bits written
+            nbytes = 2 * n + n + 2 * n + out_len
+        row = {"ms": cuda_median_ms(kern), "plain_ms": cuda_median_ms(plain),
+               "dev_ms": device_ms(kern), "dev_plain_ms": device_ms(plain),
+               "bound": bound(nbytes, ops), "bytes": nbytes}
+        timing[key] = row
+        print(f"  2048x2048 u16 T={t} {key}: per call {row['ms']:.4f} ms "
+              f"(plain {row['plain_ms']:.4f} ms), device "
+              f"{fmt_ms(row['dev_ms'])} (plain {fmt_ms(row['dev_plain_ms'])}),"
+              f" bound {row['bound'][0]:.4f} ms ({nbytes} B)", flush=True)
+    return timing
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -134,12 +533,10 @@ def main() -> int:
     sys.path.insert(0, os.path.join(HERE, "tests"))
     import codec_tcc_tpu_torch as port
     import torch_port_cases as cases
-    from codec_tcc_tpu_torch import pipeline
-    from codec_tcc_tpu_torch.io import dicom
+    from codec_tcc_tpu_torch.io.container import parse_pee_ext
+    from codec_tcc_tpu_torch.ops import kernel_library
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
-    from codec_tcc_tpu_torch.ops.decompose import decompose
-    from codec_tcc_tpu_torch.ops.segments import usable_capacity_bits
-    from codec_tcc_tpu_torch.profiling import get_profiler
 
     dev = torch.device("cuda")
 
@@ -150,202 +547,175 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi)
     t0 = time.perf_counter()
-    lib_path = rk.build_library()
-    rk._library()
+    lib_path = kernel_library.build_library()
+    kernel_library.library()
     phase(1, f"kernels built in {time.perf_counter() - t0:.2f} s -> "
              f"{os.path.relpath(lib_path, HERE)}")
 
     # -- phase 2: kernels vs plain versions on the card ----------------------
-    rng = np.random.default_rng(2024)
-    max_err = {"raster_embed": 0, "raster_extract": 0}
-    for h, w, dt in ((512, 512, np.uint16), (2048, 2048, np.uint16),
-                     (480, 640, np.uint16), (500, 501, np.uint8)):
-        n = h * w
-        hi = 1 << (8 * np.dtype(dt).itemsize)
-        img = torch.from_numpy(rng.integers(0, hi, (h, w)).astype(dt)).to(dev)
-        msg = torch.from_numpy(
-            rng.integers(0, 2, 5 * n).astype(np.uint8)).to(dev)
-        for s, starts, lens, offs in kernel_vs_plain_cases(rng, n):
-            emit = n % 8 == 0
-            st_k, mp_k = rk.raster_embed(img, msg, starts, lens, offs, s,
-                                         emit_maps=emit)
-            torch.cuda.synchronize()
-            st_p, mp_p = rk.raster_embed_plain(img, msg, starts, lens, offs,
-                                               s, emit_maps=emit)
-            err = int((st_k.to(torch.int32) - st_p.to(torch.int32))
-                      .abs().max())
-            if emit:
-                err = max(err, int((mp_k.to(torch.int32)
-                                    - mp_p.to(torch.int32)).abs().max()))
-            max_err["raster_embed"] = max(max_err["raster_embed"], err)
-            check(err == 0, f"K1 != plain at {h}x{w} {dt.__name__} s={s}")
-            out_len = int(max(int(o) + int(ln) for o, ln in zip(offs, lens)))
-            ex_k = rk.raster_extract(st_k, starts, lens, offs, s, out_len)
-            torch.cuda.synchronize()
-            ex_p = rk.raster_extract_plain(st_k, starts, lens, offs, s, out_len)
-            err = int((ex_k.to(torch.int32) - ex_p.to(torch.int32)).abs().max())
-            max_err["raster_extract"] = max(max_err["raster_extract"], err)
-            check(err == 0, f"K2 != plain at {h}x{w} {dt.__name__} s={s}")
-    phase(2, f"K1/K2 == plain on the card (max abs err {max_err})")
+    max_err = phase2_raster(np.random.default_rng(2024), dev)
+    max_err.update(phase2_pee(dev))
+    phase(2, f"K1-K4 == plain on the card (max abs err {max_err})")
 
     # -- phase 3: the parity cases through the main path ---------------------
+    # Each path runs with the launch counts set to 0 just before it and is
+    # read just after it (phase 6 checks them).
     parity = cases.load_parity()
-    rk.reset_launch_counts()
+    paths, expected = {}, {}
+
+    def counted(path, fn):
+        rk.reset_launch_counts()
+        pk.reset_launch_counts()
+        out = fn()
+        paths[path] = {**rk.LAUNCHES, **pk.LAUNCHES}
+        return out
+
     results = {}
+
+    def run_cases(strategy_pee):
+        for case in cases.CASES:
+            if (case.strategy == "pee") != strategy_pee:
+                continue
+            want = parity[case.name]
+            img, s, bits = case_payload(case)
+            check(cases.sha256(bits) == want["payload_sha256"],
+                  f"{case.name}: payload differs from the fixture's")
+            res = port.encode_array(
+                img, bits, port.EncodeConfig(strategy=case.strategy),
+                bits_stored=case.bits_stored, device="cuda",
+            )
+            check(res.s == want["s"] == s,
+                  f"{case.name}: s={res.s} != {want['s']}")
+            if case.strategy == "pee":
+                ext = list(parse_pee_ext(res.meta.ext))
+                check(ext == want["pee_ext"],
+                      f"{case.name}: PEE ext (T, passes, nproc0, nproc1, "
+                      f"bits0, bits1) {ext} != the JAX package's "
+                      f"{want['pee_ext']}")
+            check(cases.sha256(res.container) == want["container_sha256"],
+                  f"{case.name}: container differs from the JAX package's")
+            dec = port.decode_container(res.container, device="cuda")
+            check(np.array_equal(dec.payload_bits, bits),
+                  f"{case.name}: decoded payload differs")
+            check(dec.original is not None
+                  and np.array_equal(dec.original, img),
+                  f"{case.name}: restored original differs")
+            results[case.name] = (img, s, bits, res)
+            print(f"  {case.name}: s={res.s} payload={bits.size} bits "
+                  f"container={len(res.container)} B sha256 ok, decode ok",
+                  flush=True)
+
+    counted("raster", lambda: run_cases(False))
+    n_raster = sum(c.strategy != "pee" for c in cases.CASES)
+    expected["raster"] = {"raster_embed": n_raster,
+                          "raster_extract": n_raster,
+                          "pee_embed": 0, "pee_extract": 0}
+    counted("pee", lambda: run_cases(True))
+    pee_cfg = port.EncodeConfig(strategy="pee")
+    groups = 0
     for case in cases.CASES:
-        want = parity[case.name]
-        img = cases.image(case)
-        s = decompose(torch.from_numpy(img).to(dev), 0.4, case.bits_stored).s
-        bits = cases.payload_bits(case, usable_capacity_bits(s, img.size, 42))
-        check(cases.sha256(bits) == want["payload_sha256"],
-              f"{case.name}: payload differs from the fixture's")
-        res = port.encode_array(
-            img, bits, port.EncodeConfig(strategy=case.strategy),
-            bits_stored=case.bits_stored, device="cuda",
-        )
-        check(res.s == want["s"], f"{case.name}: s={res.s} != {want['s']}")
-        check(cases.sha256(res.container) == want["container_sha256"],
-              f"{case.name}: container differs from the JAX package's")
-        dec = port.decode_container(res.container, device="cuda")
-        check(np.array_equal(dec.payload_bits, bits),
-              f"{case.name}: decoded payload differs")
-        check(dec.original is not None and np.array_equal(dec.original, img),
-              f"{case.name}: restored original differs")
-        results[case.name] = (img, bits, res)
-        print(f"  {case.name}: s={res.s} payload={bits.size} bits "
-              f"container={len(res.container)} B sha256 ok, decode ok")
+        if case.strategy == "pee":
+            img, _, bits, res = results[case.name]
+            t0 = pee_start_thresholds(img[None], [bits.size],
+                                      case.bits_stored, pee_cfg, dev)
+            groups += cases.pee_attempt_groups(
+                t0, [parse_pee_ext(res.meta.ext)[0]])
+    expected["pee"] = {"raster_embed": 0, "raster_extract": 0,
+                       "pee_embed": 2 * groups,
+                       "pee_extract": 2 * (len(cases.CASES) - n_raster)}
+    batch_txt, expected["pee_batch"] = phase3_batch(port, results, parity,
+                                                    counted, dev)
     phase(3, f"{len(cases.CASES)} parity cases byte-identical to the JAX "
-             f"package, decoded and restored exactly")
+             f"package, decoded and restored exactly; PEE batch of four "
+             f"512x512 ({batch_txt}) equal to single-image encodes")
 
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
-    golden_img = np.load(os.path.join(data, "golden_image.npy"))
     with open(os.path.join(data, "golden_payload.bin"), "rb") as f:
         golden_payload = f.read()
-    for name in ("hybrid", "hybrid_packed", "multi_plane"):
+    goldens = (("hybrid", "golden_image.npy"),
+               ("hybrid_packed", "golden_image.npy"),
+               ("multi_plane", "golden_image.npy"),
+               ("pee", "golden_pee_image.npy"))
+    blobs = {}
+    for name, _ in goldens:
         with open(os.path.join(data, f"golden_{name}.stgc"), "rb") as f:
-            dec = port.decode_container(f.read(), device="cuda")
-        check(dec.payload == golden_payload, f"golden_{name}: payload differs")
-        check(np.array_equal(dec.original, golden_img),
+            blobs[name] = f.read()
+    decs = counted("golden", lambda: {
+        name: port.decode_container(blob, device="cuda")
+        for name, blob in blobs.items()})
+    expected["golden"] = {"raster_embed": 0, "raster_extract": 3,
+                          "pee_embed": 0, "pee_extract": 2}
+    for name, image in goldens:
+        golden_img = np.load(os.path.join(data, image))
+        check(decs[name].payload == golden_payload,
+              f"golden_{name}: payload differs")
+        check(np.array_equal(decs[name].original, golden_img),
               f"golden_{name}: original differs")
-    phase(4, "golden hybrid / hybrid_packed / multi_plane containers decode")
-
-    # -- phase 6 (counts of the main path, read right after it) --------------
-    launches = dict(rk.LAUNCHES)
+    phase(4, "golden hybrid / hybrid_packed / multi_plane / pee containers "
+             "decode")
 
     # -- phase 5: the CLI in subprocesses ------------------------------------
-    case = cases.BY_NAME["mr512_u16"]
-    img = cases.image(case)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (HERE, env.get("PYTHONPATH")) if p)
-    with tempfile.TemporaryDirectory() as tmp:
-        dicom.save_image(img, os.path.join(tmp, "in.dcm"),
-                         bits_stored=case.bits_stored)
-        for args in (["encode", "in.dcm", "out.stgc", "--message",
-                      cases.TEXT_PAYLOAD],
-                     ["decode", "out.stgc", "--output-prefix", "dec"]):
-            proc = subprocess.run(
-                [sys.executable, "-m", "codec_tcc_tpu_torch", *args],
-                cwd=tmp, env=env, capture_output=True, text=True, timeout=300,
-            )
-            check(proc.returncode == 0,
-                  f"CLI {args[0]} failed:\n{proc.stdout}\n{proc.stderr}")
-        with open(os.path.join(tmp, "out.stgc"), "rb") as f:
-            check(cases.sha256(f.read())
-                  == parity["mr512_u16"]["container_sha256"],
-                  "CLI container differs from the JAX package's")
-        with open(os.path.join(tmp, "dec_message.txt"), encoding="utf-8") as f:
-            check(f.read() == cases.TEXT_PAYLOAD, "CLI message differs")
-        restored, _ = dicom.load_image(os.path.join(tmp, "dec_original.dcm"))
-        check(np.array_equal(restored, img), "CLI restored pixels differ")
-    phase(5, "CLI encode/decode on the card: container, message and "
-             "original exact")
+    phase5_cli(parity)
+    phase(5, "CLI encode/decode on the card (hybrid and pee): container, "
+             "message and original exact")
 
-    check(launches["raster_embed"] > 0 and launches["raster_extract"] > 0,
-          f"the main path did not launch both kernels: {launches}")
-    phase(6, f"main-path launches {launches}")
+    # -- phase 6: each path's launches, read right after it ran --------------
+    for path, counts in paths.items():
+        check(counts == expected[path],
+              f"path {path} launched {counts}, expected {expected[path]}")
+    launches = {name: sum(counts[name] for counts in paths.values())
+                for name in expected["raster"]}
+    check(all(v > 0 for v in launches.values()),
+          f"the main path did not launch every kernel: {launches}")
+    phase(6, f"launches per path {paths} (each as expected)")
 
     # -- phase 7: times -------------------------------------------------------
-    timing = {}
-    for name, label in (("mr512_u16_full", "512x512"),
-                        ("cr2048_u16_full", "2048x2048")):
-        img, bits, res = results[name]
-        meta = res.meta
-        n = img.size
-        starts, lens, offs = pipeline._plane_plan_from_meta(
-            meta, n, pipeline._plane_bucket(meta.s, 16))
-        img_d = torch.from_numpy(img).to(dev)
-        msg_d = torch.from_numpy(bits).to(dev)
-        out_len = int(meta.payload_bits)
-        stego_d = torch.from_numpy(res.stego).to(dev)
-        row = {
-            "k1": cuda_median_ms(lambda: rk.raster_embed(
-                img_d, msg_d, starts, lens, offs, meta.s, emit_maps=True)),
-            "k1_plain": cuda_median_ms(lambda: rk.raster_embed_plain(
-                img_d, msg_d, starts, lens, offs, meta.s, emit_maps=True)),
-            "k2": cuda_median_ms(lambda: rk.raster_extract(
-                stego_d, starts, lens, offs, meta.s, out_len)),
-            "k2_plain": cuda_median_ms(lambda: rk.raster_extract_plain(
-                stego_d, starts, lens, offs, meta.s, out_len)),
-        }
-        dev_row = {
-            "k1": device_ms(lambda: rk.raster_embed(
-                img_d, msg_d, starts, lens, offs, meta.s, emit_maps=True)),
-            "k1_plain": device_ms(lambda: rk.raster_embed_plain(
-                img_d, msg_d, starts, lens, offs, meta.s, emit_maps=True)),
-            "k2": device_ms(lambda: rk.raster_extract(
-                stego_d, starts, lens, offs, meta.s, out_len)),
-            "k2_plain": device_ms(lambda: rk.raster_extract_plain(
-                stego_d, starts, lens, offs, meta.s, out_len)),
-        }
-        timing[label] = row
-        print(f"  {label} u16 s={meta.s} payload={out_len} bits, per call "
-              f"(CUDA events, wrapper included): K1 {row['k1']:.4f} ms "
-              f"(plain {row['k1_plain']:.4f} ms), K2 {row['k2']:.4f} ms "
-              f"(plain {row['k2_plain']:.4f} ms)")
-        print(f"  {label} u16 device time only (profiler): K1 "
-              f"{fmt_ms(dev_row['k1'])} (plain {fmt_ms(dev_row['k1_plain'])}),"
-              f" K2 {fmt_ms(dev_row['k2'])} "
-              f"(plain {fmt_ms(dev_row['k2_plain'])})")
-    img, bits, _ = results["mr512_u16"]
+    raster = time_raster(results, dev)
+    pee = time_pee(results, dev)
     cfg = port.EncodeConfig()
 
-    def cycle():
-        res = port.encode_array(img, bits, cfg, bits_stored=12, device="cuda")
-        port.decode_container(res.container, device="cuda")
+    def cycle_of(name, config):
+        img, _, bits, _ = results[name]
 
-    cycle()
-    profiler = get_profiler()
-    profiler.reset()
-    walls = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        cycle()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    e2e = statistics.median(walls)
-    stages = {k: round(v["mean_ms"], 3) for k, v in profiler.report().items()}
-    busy = device_ms(cycle, reps=5)
-    busy_txt = ("not measured" if busy is None else
-                f"{busy:.4f} ms device time = {100 * busy / e2e:.2f}% busy")
-    print(f"  encode+decode 512x512 u16 stage means (host wall ms): {stages}")
-    phase(7, f"warm encode+decode 512x512 u16 (304 bits): {e2e:.2f} ms host "
-             f"wall (median of 5), {busy_txt}")
+        def cycle():
+            res = port.encode_array(img, bits, config, bits_stored=12,
+                                    device="cuda")
+            port.decode_container(res.container, device="cuda")
+        return cycle
 
-    big = timing["2048x2048"]
+    cycle_report("raster encode+decode 512x512 u16 (304 bits)",
+                 cycle_of("mr512_u16", cfg), 5)
+    cycle_report("pee encode+decode 512x512 u16 (304 bits)",
+                 cycle_of("pee_mr512_u16_text", pee_cfg), 5)
+    cycle_report("pee encode+decode 2048x2048 u16 (3 Mbit)",
+                 cycle_of("pee_cr2048_u16_3m", pee_cfg), 3)
+    phase(7, "times printed above")
+
+    big = raster["2048x2048"]
+    rows = (
+        ("raster_embed", "raster_embed.cu", "pallas_embed.py:835",
+         big["k1"], big["k1_plain"], big["k1_bound"]),
+        ("raster_extract", "raster_extract.cu", "pallas_embed.py:897",
+         big["k2"], big["k2_plain"], big["k2_bound"]),
+        ("pee_embed", "pee_embed.cu", "pallas_pee.py:621",
+         pee["k3_pass0"]["ms"], pee["k3_pass0"]["plain_ms"],
+         pee["k3_pass0"]["bound"]),
+        ("pee_extract", "pee_extract.cu", "pallas_pee.py:781",
+         pee["k4_pass1"]["ms"], pee["k4_pass1"]["plain_ms"],
+         pee["k4_pass1"]["bound"]),
+    )
     kernels = [
-        {"name": "raster_embed", "route": "cuda",
-         "source": "codec_tcc_tpu_torch/csrc/raster_embed.cu",
-         "replaces": "codec_tcc_tpu/ops/pallas_embed.py:835",
-         "launches": launches["raster_embed"],
-         "max_abs_err": max_err["raster_embed"],
-         "ms": big["k1"], "plain_ms": big["k1_plain"]},
-        {"name": "raster_extract", "route": "cuda",
-         "source": "codec_tcc_tpu_torch/csrc/raster_extract.cu",
-         "replaces": "codec_tcc_tpu/ops/pallas_embed.py:897",
-         "launches": launches["raster_extract"],
-         "max_abs_err": max_err["raster_extract"],
-         "ms": big["k2"], "plain_ms": big["k2_plain"]},
+        {"name": name, "route": "cuda",
+         "source": f"codec_tcc_tpu_torch/csrc/{src}",
+         "replaces": f"codec_tcc_tpu/ops/{tpu}",
+         "launches": launches[name],
+         "launches_by_path": {path: counts[name]
+                              for path, counts in paths.items()},
+         "max_abs_err": max_err[name],
+         "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+         "bound_by": bnd[1], "library_ms": None}
+        for name, src, tpu, ms, plain_ms, bnd in rows
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

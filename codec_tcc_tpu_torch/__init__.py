@@ -2,14 +2,16 @@
 
 Reversible steganography for medical (DICOM) images on an NVIDIA Hopper GPU:
 adaptive bit-plane decomposition, raster LSB embedding (``hybrid`` and
-``multi_plane``) with XOR location maps, the STGC v2 container with the
-``deflate`` transport codec, exact payload extraction and original-image
-restoration. Containers are byte-identical to the JAX package's
-(``codec_tcc_tpu``), which stays in the repository as the reference.
+``multi_plane``) with XOR location maps, prediction-error expansion
+(``pee``, single images and batches in :mod:`.parallel.batch_pee`), the
+STGC v2 container with the ``deflate`` transport codec, exact payload
+extraction and original-image restoration. Containers are byte-identical
+to the JAX package's (``codec_tcc_tpu``), which stays in the repository as
+the reference.
 
-The raster embed and extract run as two hand-written CUDA kernels
-(:mod:`codec_tcc_tpu_torch.ops.raster_kernels`). This package imports
-torch and never jax.
+The raster embed and extract and the PEE passes run as four hand-written
+CUDA kernels (:mod:`.ops.raster_kernels`, :mod:`.ops.pee_kernels`). This
+package imports torch and never jax.
 """
 
 from .config import EncodeConfig

@@ -3,6 +3,7 @@
 """Command-line interface: ``encode`` / ``decode`` subcommands.
 
     python -m codec_tcc_tpu_torch encode in.dcm out.stgc --message "..." [--beta ...]
+    python -m codec_tcc_tpu_torch encode in.dcm out.stgc --message "..." --strategy pee
     python -m codec_tcc_tpu_torch decode out.stgc --output-prefix decoded
 
 Both run on ``--device cuda`` (the default, through the hand-written

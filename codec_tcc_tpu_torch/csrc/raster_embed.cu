@@ -113,7 +113,8 @@ int raster_embed_u16(const void* img, const void* msg, long long msg_len,
                                   s, n, emit_maps, stego, maps, stream);
 }
 
-const char* raster_kernels_error_string(int code) {
+// Message of a CUDA error code, for the wrappers of every kernel.
+const char* codec_kernels_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 

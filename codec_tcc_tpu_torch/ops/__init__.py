@@ -9,5 +9,9 @@ Modules:
 * :mod:`.blocks`         — device tile popcounts + exact host ranking
 * :mod:`.embed`          — plain torch raster embed/extract + XOR maps
 * :mod:`.raster_kernels` — CUDA kernels K1/K2, their wrappers and counts
+* :mod:`.pee`            — plain torch PEE passes, histograms, both-pass
+                           chains
+* :mod:`.pee_kernels`    — CUDA kernels K3/K4, their wrappers and counts
+* :mod:`.kernel_library` — builds and binds the kernels' one library
 * :mod:`.metrics`        — fused quality reductions
 """

@@ -1,5 +1,5 @@
-# Port of codec_tcc_tpu/ops/embed.py, raster half: the plain torch versions
-# of the raster embed and extract. The hand-written kernels that replace
+# Port of codec_tcc_tpu/ops/embed.py, raster half plus pack_bits_batch: the
+# plain torch versions of the raster embed and extract. The hand-written kernels that replace
 # them on the GPU live in ops/raster_kernels.py.
 """Plain torch raster embed / extract and XOR location maps.
 
@@ -34,6 +34,7 @@ __all__ = [
     "assemble_message_device",
     "extract_message_device",
     "xor_maps_packed_batch",
+    "pack_bits_batch",
     "restore_original",
     "pad_message",
 ]
@@ -181,6 +182,21 @@ def xor_maps_packed_batch(
     return (
         (planes.view(b, nbits, n // 8, 8) * w).sum(dim=-1).to(torch.uint8)
     )
+
+
+def pack_bits_batch(bits: torch.Tensor) -> torch.Tensor:
+    """``(B, ...)`` 0/1 -> ``(B, ceil(n/8)) uint8``, MSB-first with zero
+    padding: per item the bytes of ``np.packbits`` for any length ``n``
+    (``H*W % 8 != 0`` included). The PEE encoders pack the overflow
+    location maps with it on the device; the packed form is the container
+    blob's zlib input."""
+    b = bits.shape[0]
+    flat = bits.reshape(b, -1).to(torch.int32)
+    pad = (-flat.shape[1]) % 8
+    if pad:
+        flat = torch.nn.functional.pad(flat, (0, pad))
+    w = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=flat.device)
+    return (flat.view(b, -1, 8) * w).sum(dim=-1).to(torch.uint8)
 
 
 def restore_original(

@@ -12,12 +12,12 @@ Two kernels carry the default encode/decode path on an NVIDIA Hopper GPU:
   extract tiers (``extract_aligned_batch``, ``extract_aligned_batch_padded``,
   ``extract_raster_batch``) and the device assembly that followed them.
 
-Both are built from the package's own sources with ``nvcc`` into
-``codec_tcc_tpu_torch/build/`` at first use (again whenever a source changes)
-and bound through ``ctypes`` with a plain C interface. A wrapper given a CUDA
-tensor launches its kernel on the current stream or raises; given a CPU
-tensor it runs the plain torch version from :mod:`.embed`. Nothing falls
-back from the kernel to the plain version.
+Both are built from the package's own sources, with the PEE kernels, into
+one library (:mod:`.kernel_library`) and bound through ``ctypes`` with a
+plain C interface. A wrapper given a CUDA tensor launches its kernel on the
+current stream or raises; given a CPU tensor it runs the plain torch
+version from :mod:`.embed`. Nothing falls back from the kernel to the plain
+version.
 
 :data:`LAUNCHES` counts kernel launches per wrapper (plain-version calls do
 not count), so a run can show that it went through the kernels.
@@ -25,24 +25,17 @@ not count), so a run can show that it went through the kernels.
 
 from __future__ import annotations
 
-import ctypes
-import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import embed as embed_ops
+from .kernel_library import check, library, stream_ptr
 
 __all__ = [
     "LAUNCHES",
     "MAX_PLANES",
-    "build_library",
     "raster_embed",
     "raster_embed_plain",
     "raster_extract",
@@ -55,84 +48,10 @@ _INT32_MAX = (1 << 31) - 1
 
 LAUNCHES = {"raster_embed": 0, "raster_extract": 0}
 
-_PKG = Path(__file__).resolve().parent.parent
-CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "build"
-SOURCES = ("raster_embed.cu", "raster_extract.cu")
-HEADERS = ("raster_common.cuh",)
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
-
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cand = os.path.join(cuda_home or "/usr/local/cuda", "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError(
-        "nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): the "
-        "raster kernels are built from codec_tcc_tpu_torch/csrc at first use"
-    )
-
-
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library (cached by a hash of
-    the sources and flags) and return its path."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        digest.update(name.encode())
-        digest.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"libraster_kernels_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)          # atomic: concurrent builds agree
-    return out
-
-
-@functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for dt in ("u8", "u16"):
-        fn = getattr(lib, f"raster_embed_{dt}")
-        # img, msg, msg_len, starts, lens, offs, np, s, n, emit_maps,
-        # stego, maps, stream
-        fn.argtypes = [ptr, ptr, i64, ptr, ptr, ptr, i32, i32, i64, i32,
-                       ptr, ptr, ptr]
-        fn.restype = i32
-        fn = getattr(lib, f"raster_extract_{dt}")
-        # stego, starts, lens, offs, np, s, n, out_len, out, stream
-        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i64, ptr, ptr]
-        fn.restype = i32
-    lib.raster_kernels_error_string.argtypes = [i32]
-    lib.raster_kernels_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.raster_kernels_error_string(err).decode()
-        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def _plan_arrays(starts, lens, offs, s: int, n: int) -> Tuple[np.ndarray, ...]:
@@ -166,10 +85,6 @@ def _check_cuda_image(t: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what} must be uint8/uint16, got {t.dtype}")
     if t.dim() != 2 or not t.is_contiguous():
         raise ValueError(f"{what} must be a contiguous 2-D tensor")
-
-
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -225,16 +140,16 @@ def raster_embed(
         torch.empty((s, n // 8), dtype=torch.uint8, device=image.device)
         if emit_maps else None
     )
-    lib = _library()
+    lib = library()
     fn = lib.raster_embed_u8 if image.dtype == torch.uint8 else lib.raster_embed_u16
     err = fn(
         image.data_ptr(), msg.data_ptr() if msg.numel() else None, msg.numel(),
         st.ctypes.data, ln.ctypes.data, of.ctypes.data, st.size, s, n,
         int(emit_maps), stego.data_ptr(),
         maps.data_ptr() if maps is not None and maps.numel() else None,
-        _stream_ptr(image),
+        stream_ptr(image),
     )
-    _check(lib, err, "raster_embed")
+    check(lib, err, "raster_embed")
     LAUNCHES["raster_embed"] += 1
     return stego, maps
 
@@ -277,13 +192,13 @@ def raster_extract(
     n = stego.numel()
     st, ln, of = _plan_arrays(starts, lens, offs, s, n)
     out = torch.empty(out_len, dtype=torch.uint8, device=stego.device)
-    lib = _library()
+    lib = library()
     fn = (lib.raster_extract_u8 if stego.dtype == torch.uint8
           else lib.raster_extract_u16)
     err = fn(
         stego.data_ptr(), st.ctypes.data, ln.ctypes.data, of.ctypes.data,
-        st.size, s, n, out_len, out.data_ptr(), _stream_ptr(stego),
+        st.size, s, n, out_len, out.data_ptr(), stream_ptr(stego),
     )
-    _check(lib, err, "raster_extract")
+    check(lib, err, "raster_extract")
     LAUNCHES["raster_extract"] += 1
     return out

@@ -1,7 +1,7 @@
 # Port of codec_tcc_tpu/pipeline.py (encode/decode of the raster strategies).
 """End-to-end encode / decode pipelines (host orchestration shell).
 
-The default path of the JAX package, in torch: the image is uploaded once;
+The raster path of the JAX package, in torch: the image is uploaded once;
 the value histogram, the hybrid block scan, the raster embed (kernel K1,
 which also emits the bit-packed XOR maps) and the metric moments run on the
 device; the float64 cut-point replay, the segment plan, the deflate codec
@@ -9,9 +9,11 @@ and the STGC container stay host code. Decode inflates the stego on the
 host, uploads it, extracts the payload bits with kernel K2 and restores the
 original from the container's maps on the host.
 
+Strategy ``pee`` dispatches early to :mod:`.models.pee` (kernels K3/K4).
+
 Containers are byte-identical to the JAX package's for the strategies,
-codecs and container versions ported so far (``hybrid`` and
-``multi_plane``; ``deflate``; STGC v2/v2.1). Everything else raises
+codecs and container versions ported so far (``hybrid``, ``multi_plane``
+and ``pee``; ``deflate``; STGC v2/v2.1). Everything else raises
 ``NotImplementedError`` naming its ROADMAP.md item.
 
 Every entry point takes ``device`` (default ``"cuda"``). The CPU runs the
@@ -54,8 +56,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 def _check_ported(strategy: str, codec: str, version: int) -> None:
-    if strategy == "pee":
-        raise _not_ported("strategy 'pee'", "PEE kernels K3/K4")
     if strategy == "block_adaptive":
         raise _not_ported("strategy 'block_adaptive'", "block_adaptive")
     if version == 1:
@@ -163,6 +163,14 @@ def encode_array(
     config = config.validate()
     dev = _resolve_device(device)
     _check_ported(config.strategy, config.codec, config.container_version)
+    if config.strategy == "pee":
+        # before the host-route check: as in the JAX package, PEE always
+        # runs its passes on the device, whatever device_policy says
+        from .models.pee import encode_pee_array
+
+        return encode_pee_array(
+            image, payload, config, bits_stored=bits_stored, device=dev
+        )
 
     image = np.asarray(image)
     if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
@@ -347,6 +355,12 @@ def decode_container(
     cont = container_io.parse(data) if isinstance(data, (bytes, bytearray)) else data
     meta = cont.meta
     _check_ported(meta.strategy, meta.codec, meta.version)
+    if meta.strategy == "pee":
+        from .models.pee import decode_pee_container
+
+        return decode_pee_container(
+            cont, restore_original=restore_original, device=dev
+        )
 
     with stage("transport_decode"):
         codec = get_codec(meta.codec)

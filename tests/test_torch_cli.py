@@ -1,6 +1,7 @@
 """``python -m codec_tcc_tpu_torch encode|decode --device cpu`` on a DICOM
-that the port's own writer made: the message and the restored original
-come back exact."""
+that the port's own writer made, with the default strategy and with
+``--strategy pee``: the message and the restored original come back
+exact."""
 
 import os
 import subprocess
@@ -54,8 +55,23 @@ def test_cli_encode_decode_roundtrip_on_cpu(tmp_path, dicom_input):
     assert stego.shape == img.shape and stego.dtype == img.dtype
 
 
+def test_cli_pee_roundtrip_on_cpu(tmp_path, dicom_input):
+    img, path = dicom_input
+    enc = _run(["encode", str(path), "out.stgc", "--message", MESSAGE,
+                "--strategy", "pee", "--device", "cpu"], tmp_path)
+    assert enc.returncode == 0, enc.stderr
+    assert "strategy             : pee" in enc.stdout
+    dec = _run(["decode", "out.stgc", "--output-prefix", "dec",
+                "--device", "cpu"], tmp_path)
+    assert dec.returncode == 0, dec.stderr
+    assert (tmp_path / "dec_message.txt").read_text(encoding="utf-8") == MESSAGE
+    original, _ = dicom.load_image(str(tmp_path / "dec_original.dcm"))
+    np.testing.assert_array_equal(original, img)
+
+
 def test_cli_reports_unported_request(tmp_path, dicom_input, capsys):
     _, path = dicom_input
     rc = cli.main(["encode", str(path), str(tmp_path / "o.stgc"),
-                   "--message", "x", "--strategy", "pee", "--device", "cpu"])
+                   "--message", "x", "--strategy", "block_adaptive",
+                   "--device", "cpu"])
     assert rc == 1 and "not yet ported" in capsys.readouterr().err

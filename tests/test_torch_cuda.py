@@ -1,5 +1,5 @@
-"""The port's CUDA kernels on a GPU: K1/K2 against their plain versions and
-the encode path against the CPU path. Marked ``cuda``: they skip where no
+"""The port's CUDA kernels on a GPU: K1-K4 against their plain versions and
+the raster and PEE encode paths against the CPU path. Marked ``cuda``: they skip where no
 GPU is present and run on the GPU machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -62,3 +62,112 @@ def test_gpu_encode_equals_cpu_encode(cuda):
     np.testing.assert_array_equal(dec.original, img)
     assert rk.LAUNCHES["raster_embed"] == 1
     assert rk.LAUNCHES["raster_extract"] == 1
+
+
+def _pee_batch(rng, b, h, w, dtype):
+    """Smooth carriers plus small noise: a realistic mix of expandable,
+    shifted and (at the dtype's ceiling and floor) overflow pixels."""
+    hi = (1 << (8 * np.dtype(dtype).itemsize)) - 1
+    y, x = np.mgrid[0:h, 0:w]
+    base = (x + 2 * y) / (w + 2 * h) * hi
+    imgs = np.clip(base[None] + rng.normal(0, 2.0, (b, h, w)), 0, hi)
+    imgs = imgs.astype(dtype)
+    imgs[:, h // 3, :] = hi           # a row at the ceiling
+    imgs[:, :, w // 4] = 0            # a column at the floor
+    return imgs
+
+
+@pytest.mark.parametrize("h,w,dtype", [(64, 64, np.uint16), (37, 53, np.uint8),
+                                       (500, 501, np.uint8),
+                                       (512, 512, np.uint16)])
+@pytest.mark.parametrize("t", [1, 2, 47])
+def test_pee_kernels_match_plain_on_gpu(cuda, h, w, dtype, t):
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(h + w + t)
+    b = 3
+    max_val = (1 << (8 * np.dtype(dtype).itemsize)) - 1
+    imgs = torch.from_numpy(_pee_batch(rng, b, h, w, dtype)).to(cuda)
+    msg = torch.from_numpy(
+        rng.integers(0, 2, (b, h * w // 2)).astype(np.uint8)).to(cuda)
+    for parity in (0, 1):
+        cap = pk.pee_embed_plain(
+            imgs, msg, torch.zeros(b, dtype=torch.int32, device=cuda),
+            torch.zeros(b, dtype=torch.int32, device=cuda), parity, t,
+            max_val)[4].cpu()
+        want = torch.tensor([0, int(cap[1]) // 2, int(cap[2]) + 7],
+                            dtype=torch.int32, device=cuda)
+        for w_ in (want, torch.full((b,), 1 << 30, dtype=torch.int32,
+                                    device=cuda)):
+            base = torch.tensor([0, 5, 11], dtype=torch.int32, device=cuda)
+            got = pk.pee_embed(imgs, msg, base, w_, parity, t, max_val)
+            ref = pk.pee_embed_plain(imgs, msg, base, w_, parity, t, max_val)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert torch.equal(g.cpu().to(torch.int32),
+                                   r.cpu().to(torch.int32))
+            stego, over, _, nproc, _ = got
+            for out_len in (8, h * w):
+                got = pk.pee_extract(stego, over, nproc, parity, t, out_len)
+                ref = pk.pee_extract_plain(stego, over, nproc, parity, t,
+                                           out_len)
+                torch.cuda.synchronize()
+                for g, r in zip(got, ref):
+                    assert torch.equal(g.cpu().to(torch.int32),
+                                       r.cpu().to(torch.int32))
+            restored = got[0]
+            assert torch.equal(restored.cpu().to(torch.int32),
+                               imgs.cpu().to(torch.int32))
+
+
+def test_gpu_pee_encode_equals_cpu_encode(cuda):
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(2)
+    img = _pee_batch(rng, 1, 96, 80, np.uint16)[0] >> 4
+    # fits pass 0 at the first T: one attempt, so K3 launches exactly twice
+    bits = rng.integers(0, 2, 600).astype(np.uint8)
+    cfg = port.EncodeConfig(strategy="pee")
+    pk.reset_launch_counts()
+    res_g = port.encode_array(img, bits, cfg, bits_stored=12, device=cuda)
+    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 0}
+    res_c = port.encode_array(img, bits, cfg, bits_stored=12, device="cpu")
+    assert res_g.container == res_c.container
+    dec = port.decode_container(res_g.container, device=cuda)
+    np.testing.assert_array_equal(dec.payload_bits, bits)
+    np.testing.assert_array_equal(dec.original, img)
+    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 2}
+
+
+def test_gpu_pee_batch_equals_cpu_batch(cuda):
+    """Mixed thresholds: uint16 subgroups are gathered on the card, and K3
+    and K4 launch exactly twice per attempt group and per decode group."""
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.models.pee import max_value
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import batch_pee
+
+    imgs = np.stack([cases.image(cases.Case(
+        "t", 48, 40, "uint16", 12, "text", "pee", 110 + i)) for i in range(4)])
+    rng = np.random.default_rng(6)
+    pays = [rng.integers(0, 2, n, dtype=np.uint8) for n in (100, 900, 400)]
+    pays.append(cases.TEXT_PAYLOAD)
+    cfg = port.EncodeConfig(strategy="pee")
+    pk.reset_launch_counts()
+    res_g = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
+                                       device=cuda)
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(imgs), [100, 900, 400, 304],
+        max_value(int(imgs.max()), 16, 12), cfg.pee_threshold)
+    groups = cases.pee_attempt_groups(t_start, res_g.thresholds)
+    assert pk.LAUNCHES == {"pee_embed": 2 * groups, "pee_extract": 0}
+    res_c = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
+                                       device="cpu")
+    assert len(set(res_g.thresholds.tolist())) > 1
+    assert res_g.containers == res_c.containers
+    for dec, img in zip(batch_pee.decode_pee_batch(res_g.containers,
+                                                   device=cuda), imgs):
+        np.testing.assert_array_equal(dec.original, img)
+    assert pk.LAUNCHES == {
+        "pee_embed": 2 * groups,
+        "pee_extract": 2 * len(set(res_g.thresholds.tolist()))}

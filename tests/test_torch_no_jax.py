@@ -1,6 +1,7 @@
 """The port runs where jax does not exist: in a fresh interpreter that
 cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
-the CPU, and nothing of the JAX package gets loaded."""
+the CPU (raster and PEE, single image and batch), and nothing of the JAX
+package gets loaded."""
 
 import os
 import subprocess
@@ -21,6 +22,16 @@ res = port.encode_array(img, "no jax here", bits_stored=12, device="cpu")
 dec = port.decode_container(res.container, device="cpu")
 assert dec.message == "no jax here", dec.message
 assert np.array_equal(dec.original, img)
+pee = port.EncodeConfig(strategy="pee")
+res = port.encode_array(img, "pee, no jax", pee, bits_stored=12, device="cpu")
+dec = port.decode_container(res.container, device="cpu")
+assert dec.message == "pee, no jax", dec.message
+assert np.array_equal(dec.original, img)
+from codec_tcc_tpu_torch.parallel import batch_pee
+batch = batch_pee.encode_pee_batch(np.stack([img, img]), ["a", "bc"], pee,
+                                   bits_stored=12, device="cpu")
+decs = batch_pee.decode_pee_batch(batch.containers, device="cpu")
+assert [d.message for d in decs] == ["a", "bc"]
 loaded = sorted(m for m in sys.modules
                 if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
                 or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))

@@ -1,7 +1,8 @@
 """The port's encode/decode pipeline (on the CPU, through the kernels' plain
 versions) against the JAX package's: containers byte-identical, each side
-decoding the other's, the committed goldens and parity hashes, and the
-requests that are not yet ported."""
+decoding the other's, the committed goldens and parity hashes, strategy
+``pee`` through the same entry points, and the requests that are not yet
+ported."""
 
 import os
 
@@ -89,6 +90,33 @@ def test_golden_raster_containers_decode(name):
     np.testing.assert_array_equal(dec.original, img)
 
 
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_pee_encodes_on_the_port(dtype):
+    bits_stored = 8 if dtype == np.uint8 else 12
+    img = _image(40, 36, dtype)
+    cfg = dict(strategy="pee")
+    res_p = port.encode_array(img, TEXT, port.EncodeConfig(**cfg),
+                              bits_stored=bits_stored, device="cpu")
+    res_j = jax_pkg.encode_array(img, TEXT, jax_pkg.EncodeConfig(**cfg),
+                                 bits_stored=bits_stored)
+    assert res_p.container == res_j.container
+    assert res_p.meta.strategy == "pee" and res_p.s == 0
+    dec = port.decode_container(res_p.container, device="cpu")
+    assert dec.message == TEXT
+    np.testing.assert_array_equal(dec.original, img)
+
+
+def test_golden_pee_container_decodes():
+    img = np.load(os.path.join(DATA, "golden_pee_image.npy"))
+    with open(os.path.join(DATA, "golden_payload.bin"), "rb") as f:
+        payload = f.read()
+    with open(os.path.join(DATA, "golden_pee.stgc"), "rb") as f:
+        dec = port.decode_container(f.read(), device="cpu")
+    assert dec.meta.strategy == "pee"
+    assert dec.payload == payload
+    np.testing.assert_array_equal(dec.original, img)
+
+
 @pytest.mark.parametrize("name", ["mr512_u16", "ot512_u8"])
 def test_parity_fixture_regenerates(name):
     """Both packages reproduce the committed hashes the GPU run checks."""
@@ -130,13 +158,13 @@ def test_cuda_default_raises_without_gpu():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"strategy": "pee"}, "PEE kernels"),
     ({"strategy": "block_adaptive"}, "block_adaptive"),
     ({"device_policy": "host"}, "host route"),
     ({"compute_metrics": False}, "host route"),
     ({"container_version": 1}, "v1 containers"),
     ({"codec": "png"}, "other codecs"),
-], ids=["pee", "block_adaptive", "host", "auto_no_metrics", "v1", "png"])
+    ({"strategy": "pee", "codec": "png"}, "other codecs"),
+], ids=["block_adaptive", "host", "auto_no_metrics", "v1", "png", "pee_png"])
 def test_unported_encode_requests_raise(overrides, item):
     img = _image(32, 32, np.uint16)
     with pytest.raises(NotImplementedError, match=item):
@@ -154,7 +182,6 @@ def test_device_policy_device_without_metrics_is_ported():
 
 
 @pytest.mark.parametrize("fixture,item", [
-    ("golden_pee.stgc", "PEE kernels"),
     ("golden_block_adaptive.stgc", "block_adaptive"),
     ("ref_v1_pe.bin", "v1 containers"),
 ])

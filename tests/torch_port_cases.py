@@ -13,6 +13,11 @@ small ones with both packages on the CPU.
 Geometries follow the bundled 512x512 DICOMs and common radiograph sizes;
 ``odd500x501_u8`` has ``H*W % 8 != 0`` (raw XOR maps, no v2.1 packing).
 All cases use STGC v2 and the default ``deflate`` codec.
+
+The ``pee_*`` cases run strategy ``pee`` (no cut point: ``s = 0``). Between
+them they take every branch of the PEE path: one pass and two, threshold
+escalation after a shortfall, a saturated pass 0, u8 overflow pixels and
+geometries with odd widths and ``H*W % 8 != 0``.
 """
 
 from __future__ import annotations
@@ -50,6 +55,16 @@ CASES = (
     Case("cr2048_u16_full", 2048, 2048, "uint16", 12, "capacity", "hybrid", 14),
     Case("odd640x480_u16", 480, 640, "uint16", 12, "bits:4096", "multi_plane", 15),
     Case("odd500x501_u8", 500, 501, "uint8", 8, "bits:4096", "hybrid", 16),
+    Case("pee_mr512_u16_text", 512, 512, "uint16", 12, "text", "pee", 21),
+    Case("pee_mr512_u16_100k", 512, 512, "uint16", 12, "bits:100000", "pee",
+         22),
+    Case("pee_ot512_u8_100k", 512, 512, "uint8", 8, "bits:100000", "pee", 23),
+    Case("pee_odd640x480_u16_4k", 480, 640, "uint16", 12, "bits:4096", "pee",
+         24),
+    Case("pee_odd500x501_u8_50k", 500, 501, "uint8", 8, "bits:50000", "pee",
+         25),
+    Case("pee_cr2048_u16_3m", 2048, 2048, "uint16", 12, "bits:3000000", "pee",
+         26),
 )
 BY_NAME = {c.name: c for c in CASES}
 
@@ -83,6 +98,15 @@ def payload_bits(case: Case, capacity_bits: int) -> np.ndarray:
         nbits = int(case.payload.split(":", 1)[1])
     rng = np.random.default_rng(case.seed + 1000)
     return rng.integers(0, 2, nbits, dtype=np.uint8)
+
+
+def pee_attempt_groups(t_start, t_final) -> int:
+    """Equal-T groups the PEE encoders' escalation loop embeds, each with
+    one K3 launch per pass: an image that starts at ``t_start`` is in round
+    ``k`` at ``T = t_start + k`` until it fits at ``t_final``, and the
+    images of one round that share a T form one group."""
+    return len({(k, int(s) + k) for s, f in zip(t_start, t_final)
+                for k in range(int(f) - int(s) + 1)})
 
 
 def sha256(data) -> str:
