@@ -16,7 +16,12 @@ failure exits non-zero:
    {1, 4, 8} and wrapping, aliased and past-s windows; K3/K4 on batches of
    three with both parities, T in {1, 2, 47, 128}, per-image wants of 0,
    under capacity and over it (saturated), then 2**30 (the message-index
-   clamp), and an ``out_len`` below the expanded count;
+   clamp), and an ``out_len`` below the expanded count; then K3's
+   look-back on the stress cases of ``tests/torch_pee_stress.py`` (wants
+   at and beside K3's tile boundaries, 0, 1, cap, cap + 1; narrow, wide
+   and unaligned batches), each exact against the plain version with K4
+   restoring the image, and a launch of 8 x 2048x2048 uint16 (8,192
+   tiles) repeated 20 times with identical outputs;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE) through ``encode_array(device="cuda")``: the container's sha256
    (and for PEE the ext tuple) must equal the JAX package's, and
@@ -262,6 +267,63 @@ def phase2_pee(dev) -> dict:
                         check(torch.equal(gx[0], imgs),
                               f"K4 did not restore {h}x{w} {dt} T={t}")
     return max_err
+
+
+def k3_stress_case(imgs, msg, base, want, parity, t, max_val, what):
+    """K3 once against its plain version (all five outputs exact), and K4
+    restoring the image from its output. Returns K3's outputs."""
+    import torch
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    got = pk.pee_embed(imgs, msg, base, want, parity, t, max_val)
+    torch.cuda.synchronize()
+    ref = pk.pee_embed_plain(imgs, msg, base, want, parity, t, max_val)
+    check(max_abs_diff(got, ref) == 0, f"K3 != plain on {what}")
+    restored = pk.pee_extract(got[0], got[1], got[3], parity, t, 8)[0]
+    check(torch.equal(restored, imgs), f"K4 did not restore {what}")
+    return got
+
+
+def phase2_pee_stress(dev) -> str:
+    """K3's look-back on the stress cases of ``tests/torch_pee_stress.py``:
+    wants at and beside K3's tile boundaries, 0, 1, cap and cap + 1, narrow
+    and wide images, unaligned batches; then the many-tile launch, 20 times,
+    every output identical."""
+    import torch
+    import torch_pee_stress as stress
+    from codec_tcc_tpu_torch.ops import kernel_library
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    tile_px = kernel_library.library().pee_embed_tile_px()
+    n_cases = 0
+    for shape in stress.SHAPES:
+        imgs, msg, base = (torch.from_numpy(a).to(dev)
+                           for a in stress.inputs(shape))
+        for t in stress.T_VALUES:
+            for parity in (0, 1):
+                for label, want in stress.wants(imgs, parity, t, shape[5],
+                                                tile_px):
+                    k3_stress_case(imgs, msg, base, want, parity, t, shape[5],
+                                   f"{shape[0]} T={t} parity={parity} "
+                                   f"want={label} {want.tolist()}")
+                    n_cases += 1
+    shape = stress.MANY_TILES
+    imgs, msg, base = (torch.from_numpy(a).to(dev)
+                       for a in stress.inputs(shape))
+    t, parity, max_val = 2, 0, shape[5]
+    cases = dict(stress.wants(imgs, parity, t, max_val, tile_px))
+    for label in ("cap", f"tile{-(-imgs[0].numel() // tile_px) // 2}+0"):
+        first = k3_stress_case(imgs, msg, base, cases[label], parity, t,
+                               max_val, f"{shape[0]} want={label}")
+        n_cases += 1
+        for rep in range(20):
+            again = pk.pee_embed(imgs, msg, base, cases[label], parity, t,
+                                 max_val)
+            check(all(torch.equal(a, b) for a, b in zip(again, first)),
+                  f"K3 repeat {rep} on {shape[0]} want={label} differs: a "
+                  f"race in the look-back")
+    return (f"K3 look-back stress: {n_cases} cases exact (tile "
+            f"{tile_px} px), 2 x 20 identical repeats on {shape[0]}")
 
 
 def case_payload(case):
@@ -555,7 +617,9 @@ def main() -> int:
     # -- phase 2: kernels vs plain versions on the card ----------------------
     max_err = phase2_raster(np.random.default_rng(2024), dev)
     max_err.update(phase2_pee(dev))
-    phase(2, f"K1-K4 == plain on the card (max abs err {max_err})")
+    stress_txt = phase2_pee_stress(dev)
+    phase(2, f"K1-K4 == plain on the card (max abs err {max_err}); "
+             f"{stress_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is

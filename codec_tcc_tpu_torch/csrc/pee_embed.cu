@@ -23,140 +23,277 @@
 // and the overflow byte once; it reads one message byte per embedded bit.
 // At 2048x2048 u16 that is ~21 MB plus the message, ~6.5 us at 3.35 TB/s.
 //
-// Design. The TPU kernel ran its grid in order on one core and carried the
-// running eligible count across tiles in SMEM; CUDA blocks run in no order,
-// so the global rank is a three-launch scan written here:
-//   (a) count: each block counts its tile's eligible pixels
-//       (__syncthreads_count per round);
-//   (b) scan: one block per image turns the tile counts into exclusive
-//       prefixes and derives cap, used and the saturation seed of nproc;
-//   (c) apply: each block recomputes the classification, ranks its pixels
-//       with a warp ballot + popcount and a prefix over the 8 warp counts,
-//       adds its tile prefix, and writes stego and overflow; nproc is a
-//       block max of the embedded set ranks, folded in with atomicMax.
+// Design: ONE launch per pass (after one memset of its scratch), and the
+// image is read from device memory once. The TPU kernel ran its grid in
+// order on one core and carried the running eligible count across tiles in
+// SMEM; CUDA blocks run in no order, so:
+//   * a block takes a ticket (its tile, in start order, over all tiles of
+//     the batch) and owns PEE_EMBED_TILE_PX consecutive pixels of one image;
+//     each thread owns a run of PEE_EMBED_RUN of them. The run and the runs
+//     above and below it (+-w) come in 16-byte vector loads where aligned
+//     (scalar loads, which hit L1/L2, where not), all issued before any is
+//     used. One division gives the run's (y, x); inside one interior row
+//     the in-set pixels are every other pixel, so only those eight are
+//     classified and applied, branch-free (a run that crosses a row end
+//     takes all sixteen). Each pixel stays in a register as x | alt << 16
+//     (alt: what it becomes if processed), with expandable and overflow
+//     bit masks;
+//   * one block scan of the runs' eligible counts (warp shuffles plus a
+//     scan of the warp totals), then a decoupled look-back over the tiles
+//     before it in the same image (pee_common.cuh) gives the tile's offset;
+//   * the apply needs no cap: embeds = eligible && grank <= want, processed
+//     = in_set && (grank < want || eligible && grank == want), so a run's
+//     processed pixels are its in-set pixels up to the want-th eligible
+//     pixel of the image. That one pixel writes nproc (its set rank); the
+//     image's last tile writes cap, used and, when want > cap, nproc = H*W.
+//     These writers exclude each other, so no atomics are needed, and the
+//     memset's zero stands where no pixel writes (want <= 0). A run's
+//     message bits are consecutive bytes, loaded together before use.
 // The 128-lane layout, halo DMAs, one-hot MXU fetches and lane networks of
 // the TPU kernel are gone: the image is indexed directly (any geometry, no
-// padding), neighbours are plain loads that hit L1/L2, and the message bit
-// is one indexed byte load. The pass is out of place: (c) reads only the
-// input image, so no block sees a neighbour another block rewrote. The
-// image is read twice, by (a) and (c); a single-launch decoupled look-back
-// would read it once (later work).
+// padding). The pass is out of place: only the input image is read, so no
+// tile sees a neighbour another one rewrote.
+//
+// What holds it back now (measured with tools/torch_pee_embed_probe.py,
+// which times copies of this source with one part stubbed out; numbers in
+// PERF.md): at 4 blocks per SM a 2048x2048 image is about two waves of
+// tiles that move in lockstep, and each wave pays in series the ticket's
+// atomic, the loads, the look-back's wait on the tiles before it and the
+// message loads that need the rank; the body alone (loads, classify,
+// scan, apply, stores) takes about twice the time of a plain copy of the
+// same bytes.
 #include "pee_common.cuh"
 
-struct PeeEmbedPixel {
-    int x = 0, pred = 0, e = 0;
-    bool in_set = false, expandable = false, overflow = false,
-         eligible = false;
-};
+#define PEE_EMBED_THREADS 256
+#define PEE_EMBED_RUN 16   // pixels per thread: one 16-bit mask, 16-byte vectors
+#define PEE_EMBED_TILE_PX (PEE_EMBED_THREADS * PEE_EMBED_RUN)
 
-template <typename T>
-__device__ __forceinline__ PeeEmbedPixel pee_embed_classify(
-    const T* __restrict__ im, int pos, int h, int w, int parity, int t,
-    int max_val) {
-    PeeEmbedPixel p;
-    const int y = pos / w;
-    const int xc = pos - y * w;
-    p.x = (int)im[pos];
-    p.in_set = pee_in_set(y, xc, h, w, parity);
-    if (!p.in_set) return p;
-    p.pred = pee_predict(im, pos, w);
-    p.e = p.x - p.pred;
-    p.expandable = p.e >= -t && p.e < t;
-    const bool exp_over =
-        p.pred + 2 * p.e + 1 > max_val || p.pred + 2 * p.e < 0;
-    const bool shift_over = p.e >= t ? p.x + t > max_val : p.x - t < 0;
-    p.overflow = p.expandable ? exp_over : shift_over;
-    p.eligible = p.expandable && !p.overflow;
-    return p;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(PEE_THREADS)
-pee_embed_count_kernel(const T* __restrict__ img, int h, int w, int parity,
-                       int t, int max_val, int tiles,
-                       int* __restrict__ counts) {
-    const int b = blockIdx.y;
-    const int n = h * w;
-    const T* im = img + (long long)b * n;
-    const int tile0 = blockIdx.x * PEE_TILE_PX;
-    int cnt = 0;
-    for (int r = 0; r < PEE_ROUNDS; ++r) {
-        const int pos = tile0 + r * PEE_THREADS + threadIdx.x;
-        bool elig = false;
-        if (pos < n) {
-            elig = pee_embed_classify(im, pos, h, w, parity, t, max_val)
-                       .eligible;
-        }
-        cnt += __syncthreads_count(elig);
+// Classifies pixels k = K0, K0 + STEP, ... of a run, from the run `c`, the
+// rows above and below it and its row neighbours: xa[k] = x | alt << 16,
+// where alt is what a processed pixel becomes before its message bit (the
+// expansion 2x - pred = pred + 2e when expandable, else the shift x +- t),
+// and bit k of `expm` (expandable) and `ovfm` (overflow). Branch-free; the
+// caller keeps only the bits of in-set pixels.
+template <int K0, int STEP, typename T, int RUN>
+__device__ __forceinline__ void pee_embed_classify(
+    const T (&c)[RUN], const T (&up)[RUN], const T (&dn)[RUN], int left,
+    int right, int t, int max_val, uint32_t (&xa)[RUN], unsigned& expm,
+    unsigned& ovfm) {
+#pragma unroll
+    for (int k = K0; k < RUN; k += STEP) {
+        const int x = c[k];
+        const int l = k == 0 ? left : (int)c[k - 1];
+        const int r = k == RUN - 1 ? right : (int)c[k + 1];
+        // the sum is >= 0: the shift is the floor division
+        const int pred = ((int)up[k] + (int)dn[k] + l + r) >> 2;
+        const int e = x - pred;
+        const bool expandable = e >= -t && e < t;
+        const int v = 2 * x - pred;
+        const int s = x + (e >= t ? t : -t);
+        const bool over = expandable ? v + 1 > max_val || v < 0
+                                     : (e >= t ? s > max_val : s < 0);
+        // alt fits 16 bits wherever it is used (no overflow)
+        xa[k] = (uint32_t)x | (uint32_t)(expandable ? v : s) << 16;
+        expm |= (unsigned)expandable << k;
+        ovfm |= (unsigned)over << k;
     }
-    if (threadIdx.x == 0) counts[(long long)b * tiles + blockIdx.x] = cnt;
+}
+
+// The stego run: pixels k = K0, K0 + STEP, ... with bit k of `change` set
+// (processed, no overflow) become alt, plus their message bit when
+// expandable: the r-th byte of `mw` for the pixel with r eligible pixels
+// before it in the run. Every other pixel keeps x.
+template <int K0, int STEP, typename T, int RUN>
+__device__ __forceinline__ void pee_embed_apply(
+    const uint32_t (&xa)[RUN], unsigned change, unsigned expm, unsigned elig,
+    const uint32_t (&mw)[RUN / 4], T (&out)[RUN]) {
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) out[k] = (T)(xa[k] & 0xffffu);
+#pragma unroll
+    for (int k = K0; k < RUN; k += STEP) {
+        const int r = __popc(elig & ((1u << k) - 1u));
+        const uint32_t lo = r < 8 ? mw[0] : mw[2];
+        const uint32_t hi = r < 8 ? mw[1] : mw[3];
+        const int bit = (expm >> k) & 1u
+                            ? (int)(__byte_perm(lo, hi, r & 7) & 0xffu)
+                            : 0;
+        if ((change >> k) & 1u) out[k] = (T)((int)(xa[k] >> 16) + bit);
+    }
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PEE_THREADS)
-pee_embed_apply_kernel(const T* __restrict__ img,
-                       const uint8_t* __restrict__ msg, long long msg_len,
-                       const int* __restrict__ msg_base,
-                       const int* __restrict__ want, int h, int w, int parity,
-                       int t, int max_val, int tiles,
-                       const int* __restrict__ offsets, T* __restrict__ stego,
-                       uint8_t* __restrict__ over, int* __restrict__ nproc) {
-    __shared__ int warp_cnt[PEE_WARPS];
-    __shared__ int warp_max[PEE_WARPS];
-    const int b = blockIdx.y;
+__global__ void __launch_bounds__(PEE_EMBED_THREADS)
+pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
+                 long long msg_len, const int* __restrict__ msg_base,
+                 const int* __restrict__ want, int h, int w, int parity, int t,
+                 int max_val, int tiles, T* __restrict__ stego,
+                 uint8_t* __restrict__ over, int* __restrict__ used,
+                 int* __restrict__ nproc, int* __restrict__ cap,
+                 unsigned* __restrict__ ticket,
+                 unsigned long long* __restrict__ status) {
+    constexpr int RUN = PEE_EMBED_RUN;
+    static_assert(RUN == 16, "the run's masks and overflow bytes are 16 wide");
+    __shared__ int s_tile, s_prefix;
+    __shared__ int s_warp[PEE_EMBED_THREADS / 32];
+    const int g = pee_take_ticket(ticket, &s_tile);
+    const int b = g / tiles;
+    const int tile = g - b * tiles;
     const int n = h * w;
     const long long img_off = (long long)b * n;
     const T* im = img + img_off;
-    const uint8_t* m = msg + b * msg_len;
-    const long long mbase = msg_base[b];
-    const int wv = want[b];
-    const int tile0 = blockIdx.x * PEE_TILE_PX;
-    int carry = offsets[(long long)b * tiles + blockIdx.x];
-    int best = 0;   // largest set rank this thread embedded into
-    for (int r = 0; r < PEE_ROUNDS; ++r) {
-        const int pos = tile0 + r * PEE_THREADS + threadIdx.x;
-        const bool valid = pos < n;
-        PeeEmbedPixel p;
-        if (valid) p = pee_embed_classify(im, pos, h, w, parity, t, max_val);
-        int round_total;
-        const int excl = pee_block_rank(p.eligible, warp_cnt, &round_total);
-        const int grank = carry + excl + (p.eligible ? 1 : 0);   // inclusive
-        carry += round_total;
-        if (!valid) continue;
-        const bool embeds = p.eligible && grank <= wv;
-        const bool processed =
-            p.in_set && (grank < wv || (p.eligible && grank == wv));
-        int out = p.x;
-        if (processed && !p.overflow && (embeds || !p.expandable)) {
-            int e_new;
-            if (p.expandable) {
-                long long idx = mbase + grank - 1;
-                idx = idx < 0 ? 0 : (idx >= msg_len ? msg_len - 1 : idx);
-                e_new = 2 * p.e + (int)m[idx];
-            } else {
-                e_new = p.e + (p.e >= t ? t : -t);
+    const int p0 = tile * PEE_EMBED_TILE_PX + threadIdx.x * RUN;
+    const bool live = p0 < n;
+
+    // 1. the run, its rows above and below and its row neighbours, all
+    // loads issued before any is used
+    T c[RUN], up[RUN], dn[RUN];
+    int left = 0, right = 0;
+    const bool vec = live && pee_rows_vectorizable<T, RUN>(im, p0, w, n);
+    if (vec) {
+        left = im[p0 - 1];
+        right = im[p0 + RUN];
+        pee_load_vec(im + p0, c);
+        pee_load_vec(im + p0 - w, up);
+        pee_load_vec(im + p0 + w, dn);
+    } else if (live) {
+        // an in-set pixel is interior, so its row neighbours are in range
+        left = p0 > 0 ? im[p0 - 1] : 0;
+        right = p0 + RUN < n ? im[p0 + RUN] : 0;
+        pee_load_scalar(im, p0, n, c);
+        pee_load_scalar(im, p0 - w, n, up);
+        pee_load_scalar(im, p0 + w, n, dn);
+    }
+
+    // 2. the in-set pixels of the run. Inside one interior row they are
+    // every other pixel from k0 (mode k0: only those are classified);
+    // elsewhere, pixel by pixel (mode 2: all sixteen are)
+    unsigned in_set = 0;
+    int mode = 2;
+    if (live) {
+        const int y0 = p0 / w;
+        const int x0 = p0 - y0 * w;
+        if (x0 + RUN <= w) {
+            const int lo = max(1 - x0, 0);              // first k with x >= 1
+            const int hi = min(w - 2 - x0, RUN - 1);    // last k, x <= w - 2
+            if (y0 >= 1 && y0 <= h - 2 && lo <= hi) {
+                const int k0 = (x0 + y0 + parity) & 1;
+                in_set = (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo) &
+                         (k0 ? 0xaaaaaaaau : 0x55555555u);
+                if (vec) mode = k0;
             }
-            out = p.pred + e_new;
-        }
-        stego[img_off + pos] = (T)out;
-        over[img_off + pos] = (processed && p.overflow) ? 1 : 0;
-        if (embeds) {
-            const int y = pos / w;
-            best = max(best, pee_set_rank(y, pos - y * w, h, w, parity));
-        }
-    }
-    // block max of the embedded set ranks -> nproc[b]
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    best = __reduce_max_sync(0xffffffffu, best);
-    if (lane == 0) warp_max[warp] = best;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int bm = 0;
+        } else {
+            int y = y0, x = x0;
 #pragma unroll
-        for (int k = 0; k < PEE_WARPS; ++k) bm = max(bm, warp_max[k]);
-        if (bm > 0) atomicMax(nproc + b, bm);
+            for (int k = 0; k < RUN; ++k) {   // false past n (y >= h)
+                if (pee_in_set(y, x, h, w, parity)) in_set |= 1u << k;
+                if (++x == w) {
+                    x = 0;
+                    ++y;
+                }
+            }
+        }
     }
+
+    // 3. classify: x | alt << 16 per pixel, expandable and overflow bits
+    uint32_t xa[RUN];
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) xa[k] = (uint32_t)c[k];
+    unsigned expm = 0, ovfm = 0;
+    if (mode == 0) {
+        pee_embed_classify<0, 2>(c, up, dn, left, right, t, max_val, xa, expm,
+                                 ovfm);
+    } else if (mode == 1) {
+        pee_embed_classify<1, 2>(c, up, dn, left, right, t, max_val, xa, expm,
+                                 ovfm);
+    } else if (in_set) {
+        pee_embed_classify<0, 1>(c, up, dn, left, right, t, max_val, xa, expm,
+                                 ovfm);
+    }
+    expm &= in_set;
+    ovfm &= in_set;
+    const unsigned elig = expm & ~ovfm;
+
+    // 4. rank: block scan of the runs' counts, then the look-back
+    const int cnt = __popc(elig);
+    int agg;
+    const int thread_excl =
+        pee_block_excl_scan<PEE_EMBED_THREADS>(cnt, s_warp, &agg);
+    if (threadIdx.x < 32) {
+        const unsigned excl = pee_lookback(status + (long long)b * tiles, tile,
+                                           (unsigned)agg);
+        if (threadIdx.x == 0) s_prefix = (int)excl;
+    }
+    __syncthreads();
+    const int prefix = s_prefix;
+    const int wv = want[b];
+    if (tile == tiles - 1 && threadIdx.x == 0) {
+        const int total = prefix + agg;
+        cap[b] = total;
+        used[b] = min(wv, total);
+        if (wv > total) nproc[b] = n;   // saturated: the whole set is processed
+    }
+    if (!live) return;
+
+    // 5. the processed pixels of the run: with `base` eligible pixels before
+    // it, all in-set ones if the want-th eligible pixel lies past the run,
+    // none if before it, else those up to it (that pixel writes nproc)
+    const int base = prefix + thread_excl;
+    unsigned proc = 0;
+    if (wv > base + cnt) {
+        proc = in_set;
+    } else if (wv > base) {
+        unsigned rest = elig;
+        for (int i = base + 1; i < wv; ++i) rest &= rest - 1;
+        const int kw = __ffs(rest) - 1;
+        proc = in_set & ((2u << kw) - 1u);
+        const int pos = p0 + kw;
+        const int y = pos / w;
+        nproc[b] = pee_set_rank(y, pos - y * w, h, w, parity);
+    }
+    // the processed eligible pixels embed the run's message bits, which are
+    // consecutive: load them all first, one byte each
+    const int n_emb = __popc(proc & elig);
+    uint32_t mw[RUN / 4];
+#pragma unroll
+    for (int j = 0; j < RUN / 4; ++j) mw[j] = 0;
+    const uint8_t* m = msg + (long long)b * msg_len;
+    const long long m0 = (long long)msg_base[b] + base;   // its first bit
+    if (m0 >= 0 && m0 + n_emb <= msg_len) {
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+            if (j < n_emb) mw[j / 4] |= (uint32_t)m[m0 + j] << (8 * (j % 4));
+        }
+    } else {   // the index clamped to [0, msg_len)
+#pragma unroll
+        for (int j = 0; j < RUN; ++j) {
+            long long idx = m0 + j;
+            idx = idx < 0 ? 0 : (idx >= msg_len ? msg_len - 1 : idx);
+            if (j < n_emb) mw[j / 4] |= (uint32_t)m[idx] << (8 * (j % 4));
+        }
+    }
+
+    // 6. apply, from the registers
+    T out[RUN];
+    const unsigned change = proc & ~ovfm;
+    if (mode == 0) {
+        pee_embed_apply<0, 2>(xa, change, expm, elig, mw, out);
+    } else if (mode == 1) {
+        pee_embed_apply<1, 2>(xa, change, expm, elig, mw, out);
+    } else {
+        pee_embed_apply<0, 1>(xa, change, expm, elig, mw, out);
+    }
+    pee_store_run(stego + img_off, p0, n, out);
+    pee_store_mask16(over + img_off, p0, n, proc & ovfm);
+}
+
+// Scratch of one launch, in int32s: used[B], nproc[B], cap[B], the ticket,
+// then one 64-bit status word per tile of the batch (8-byte aligned).
+static long long pee_embed_tiles(int h, int w) {
+    return ((long long)h * w + PEE_EMBED_TILE_PX - 1) / PEE_EMBED_TILE_PX;
+}
+
+static long long pee_embed_status_offset(int batch) {
+    return (3LL * batch + 2) & ~1LL;   // 3B + 1 rounded up to even
 }
 
 template <typename T>
@@ -164,53 +301,61 @@ static int launch_pee_embed(const void* img, const void* msg,
                             long long msg_len, const int* msg_base,
                             const int* want, int batch, int h, int w,
                             int parity, int t, int max_val, void* stego,
-                            void* over, int* used, int* nproc, int* cap,
-                            int* scratch, int tiles, void* stream) {
-    if (!pee_shape_ok(batch, h, w, tiles) || msg_len < 1 ||
-        (parity != 0 && parity != 1) || t < 1) {
+                            void* over, int* scratch, void* stream) {
+    // int pixel indices: n + w plus a tile stays below 2**31
+    if (batch < 1 || h < 1 || w < 1 || msg_len < 1 ||
+        (parity != 0 && parity != 1) || t < 1 ||
+        ((long long)h + 1) * w > 0x7fffffffLL - PEE_EMBED_TILE_PX ||
+        batch * pee_embed_tiles(h, w) > 0x7fffffffLL) {
         return (int)cudaErrorInvalidValue;
     }
+    const long long tiles = pee_embed_tiles(h, w);
+    const long long st_off = pee_embed_status_offset(batch);
     cudaStream_t s = (cudaStream_t)stream;
-    const dim3 grid((unsigned)tiles, (unsigned)batch);
-    pee_embed_count_kernel<T><<<grid, PEE_THREADS, 0, s>>>(
-        (const T*)img, h, w, parity, t, max_val, tiles, scratch);
-    int err = (int)cudaGetLastError();
+    int err = (int)cudaMemsetAsync(
+        scratch, 0, (size_t)(st_off + 2 * batch * tiles) * sizeof(int), s);
     if (err) return err;
-    pee_scan_kernel<<<(unsigned)batch, PEE_SCAN_THREADS, 0, s>>>(
-        scratch, tiles, cap, want, used, nproc, h * w);
-    err = (int)cudaGetLastError();
-    if (err) return err;
-    pee_embed_apply_kernel<T><<<grid, PEE_THREADS, 0, s>>>(
-        (const T*)img, (const uint8_t*)msg, msg_len, msg_base, want, h, w,
-        parity, t, max_val, tiles, scratch, (T*)stego, (uint8_t*)over, nproc);
+    pee_embed_kernel<T>
+        <<<(unsigned)(batch * tiles), PEE_EMBED_THREADS, 0, s>>>(
+            (const T*)img, (const uint8_t*)msg, msg_len, msg_base, want, h, w,
+            parity, t, max_val, (int)tiles, (T*)stego, (uint8_t*)over,
+            scratch, scratch + batch, scratch + 2 * batch,
+            (unsigned*)(scratch + 3 * batch),
+            (unsigned long long*)(scratch + st_off));
     return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Pixels per block of both PEE kernels: the wrappers size the per-tile
+// Pixels per block of K4 (pee_extract.cu): its wrapper sizes the per-tile
 // scratch from it.
 int pee_tile_px(void) { return PEE_TILE_PX; }
+
+// K3's tile (pixels per block) and the int32s of scratch a launch takes;
+// the wrapper allocates them and reads used, nproc and cap from its front.
+int pee_embed_tile_px(void) { return PEE_EMBED_TILE_PX; }
+
+long long pee_embed_scratch_ints(int batch, int h, int w) {
+    return pee_embed_status_offset(batch) +
+           2LL * batch * pee_embed_tiles(h, w);
+}
 
 int pee_embed_u8(const void* img, const void* msg, long long msg_len,
                  const int* msg_base, const int* want, int batch, int h, int w,
                  int parity, int t, int max_val, void* stego, void* over,
-                 int* used, int* nproc, int* cap, int* scratch, int tiles,
-                 void* stream) {
+                 int* scratch, void* stream) {
     return launch_pee_embed<uint8_t>(img, msg, msg_len, msg_base, want, batch,
                                      h, w, parity, t, max_val, stego, over,
-                                     used, nproc, cap, scratch, tiles, stream);
+                                     scratch, stream);
 }
 
 int pee_embed_u16(const void* img, const void* msg, long long msg_len,
                   const int* msg_base, const int* want, int batch, int h,
                   int w, int parity, int t, int max_val, void* stego,
-                  void* over, int* used, int* nproc, int* cap, int* scratch,
-                  int tiles, void* stream) {
+                  void* over, int* scratch, void* stream) {
     return launch_pee_embed<uint16_t>(img, msg, msg_len, msg_base, want,
                                       batch, h, w, parity, t, max_val, stego,
-                                      over, used, nproc, cap, scratch, tiles,
-                                      stream);
+                                      over, scratch, stream);
 }
 
 }  // extern "C"

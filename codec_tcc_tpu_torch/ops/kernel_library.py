@@ -102,9 +102,10 @@ def library() -> ctypes.CDLL:
         # stego, starts, lens, offs, np, s, n, out_len, out, stream
         "raster_extract": [ptr, ptr, ptr, ptr, i32, i32, i64, i64, ptr, ptr],
         # img, msg, msg_len, msg_base, want, batch, h, w, parity, t,
-        # max_val, stego, over, used, nproc, cap, scratch, tiles, stream
+        # max_val, stego, over, scratch (used, nproc, cap at its front),
+        # stream
         "pee_embed": [ptr, ptr, i64, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                      ptr, ptr, ptr, ptr, ptr, ptr, i32, ptr],
+                      ptr, ptr, ptr, ptr],
         # stego, over, nproc, batch, h, w, parity, t, out_len, restored,
         # bits, nbits, scratch, tiles, stream
         "pee_extract": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, ptr,
@@ -115,8 +116,11 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, f"{name}_{dt}")
             fn.argtypes = argtypes
             fn.restype = i32
-    lib.pee_tile_px.argtypes = []
-    lib.pee_tile_px.restype = i32
+    for name in ("pee_tile_px", "pee_embed_tile_px"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i32
+    lib.pee_embed_scratch_ints.argtypes = [i32, i32, i32]
+    lib.pee_embed_scratch_ints.restype = i64
     lib.codec_kernels_error_string.argtypes = [i32]
     lib.codec_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -18,8 +18,10 @@ runs the plain torch version from :mod:`.pee`. Nothing falls back from the
 kernel to the plain version. The kernels are built with the raster kernels
 into one library (:mod:`.kernel_library`).
 
-:data:`LAUNCHES` counts wrapper calls that launched a kernel (each is three
-CUDA launches: count, scan, apply); plain-version calls do not count.
+:data:`LAUNCHES` counts wrapper calls that launched a kernel; plain-version
+calls do not count. A K3 call is one memset of its scratch and ONE kernel
+launch (the tiles' global ranks come from a decoupled look-back); a K4 call
+is three launches (count, scan, apply).
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ def _check_pass(parity: int, t: int) -> None:
 
 
 def _tiles(lib, h: int, w: int) -> int:
-    """Tiles per image: the kernels' blocks (``PEE_TILE_PX`` pixels each,
+    """Tiles per image of K4: its blocks (``PEE_TILE_PX`` pixels each,
     ``csrc/pee_common.cuh``)."""
     return -(-(h * w) // lib.pee_tile_px())
 
@@ -126,22 +128,22 @@ def pee_embed(
     msg_base = msg_base.contiguous()
     want = want.contiguous()
     lib = library()
-    tiles = _tiles(lib, h, w)
     dev = imgs.device
     stego = torch.empty_like(imgs)
     over = torch.empty((b, h, w), dtype=torch.uint8, device=dev)
-    ints = torch.empty((3, b), dtype=torch.int32, device=dev)
-    used, nproc, cap = ints[0], ints[1], ints[2]
-    scratch = torch.empty((b, tiles), dtype=torch.int32, device=dev)
+    # used, nproc and cap, then the ticket and the tiles' status words: the
+    # kernel zeroes it all with one memset before its one launch
+    scratch = torch.empty(lib.pee_embed_scratch_ints(b, h, w),
+                          dtype=torch.int32, device=dev)
     fn = lib.pee_embed_u8 if imgs.dtype == torch.uint8 else lib.pee_embed_u16
     err = fn(
         imgs.data_ptr(), msg.data_ptr(), msg.shape[1], msg_base.data_ptr(),
         want.data_ptr(), b, h, w, parity, t, max_val, stego.data_ptr(),
-        over.data_ptr(), used.data_ptr(), nproc.data_ptr(), cap.data_ptr(),
-        scratch.data_ptr(), tiles, stream_ptr(imgs),
+        over.data_ptr(), scratch.data_ptr(), stream_ptr(imgs),
     )
     check(lib, err, "pee_embed")
     LAUNCHES["pee_embed"] += 1
+    used, nproc, cap = scratch[:3 * b].view(3, b)
     return stego, over, used, nproc, cap
 
 

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import codec_tcc_tpu_torch as port
+import torch_pee_stress as stress
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
 pytestmark = pytest.mark.cuda
@@ -118,6 +119,54 @@ def test_pee_kernels_match_plain_on_gpu(cuda, h, w, dtype, t):
             restored = got[0]
             assert torch.equal(restored.cpu().to(torch.int32),
                                imgs.cpu().to(torch.int32))
+
+
+def _k3_against_plain(imgs, msg, base, want, parity, t, max_val):
+    """K3 equals its plain version on all five outputs, and K4 restores the
+    image from K3's output. Returns K3's outputs."""
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    got = pk.pee_embed(imgs, msg, base, want, parity, t, max_val)
+    ref = pk.pee_embed_plain(imgs, msg, base, want, parity, t, max_val)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu().to(torch.int32), r.cpu().to(torch.int32))
+    restored = pk.pee_extract(got[0], got[1], got[3], parity, t, 8)[0]
+    assert torch.equal(restored, imgs)
+    return got
+
+
+@pytest.mark.parametrize("shape", [s[0] for s in stress.SHAPES])
+def test_pee_embed_lookback_stress_on_gpu(cuda, shape):
+    """Wants at and beside K3's tile boundaries, 0, 1, cap and cap + 1, in
+    narrow, wide and unaligned batches."""
+    from codec_tcc_tpu_torch.ops import kernel_library
+
+    tile_px = kernel_library.library().pee_embed_tile_px()
+    spec = next(s for s in stress.SHAPES if s[0] == shape)
+    imgs, msg, base = (torch.from_numpy(a).to(cuda)
+                       for a in stress.inputs(spec))
+    for t in stress.T_VALUES:
+        for parity in (0, 1):
+            for _, want in stress.wants(imgs, parity, t, spec[5], tile_px):
+                _k3_against_plain(imgs, msg, base, want, parity, t, spec[5])
+
+
+def test_pee_embed_many_tiles_repeats_on_gpu(cuda):
+    """Far more tiles than the card holds at once: the look-back waits on
+    tiles that started late; 20 repeats give identical outputs."""
+    from codec_tcc_tpu_torch.ops import kernel_library
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    tile_px = kernel_library.library().pee_embed_tile_px()
+    spec = stress.MANY_TILES
+    imgs, msg, base = (torch.from_numpy(a).to(cuda)
+                       for a in stress.inputs(spec))
+    want = dict(stress.wants(imgs, 0, 2, spec[5], tile_px))["cap"] // 2
+    first = _k3_against_plain(imgs, msg, base, want, 0, 2, spec[5])
+    for _ in range(20):
+        again = pk.pee_embed(imgs, msg, base, want, 0, 2, spec[5])
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 def test_gpu_pee_encode_equals_cpu_encode(cuda):

@@ -21,6 +21,7 @@ from codec_tcc_tpu.ops import pee as jax_pee
 from codec_tcc_tpu_torch.ops import pee as torch_pee
 from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
+import torch_pee_stress as stress
 from torch_parity import same_code
 
 torch.set_num_threads(1)
@@ -218,6 +219,34 @@ def test_plain_kernels_match_pallas(dtype, max_val, t):
             np.testing.assert_array_equal(
                 q[2].numpy(), np.asarray(cnts).sum(axis=1))
         np.testing.assert_array_equal(q0[0].numpy(), imgs)
+
+
+@pytest.mark.parametrize("shape", stress.SHAPES, ids=[s[0] for s in
+                                                     stress.SHAPES])
+def test_plain_k3_matches_xla_on_lookback_stress_cases(shape):
+    """The stress cases that hold K3's look-back on the card
+    (``tests/torch_pee_stress.py``) through the port's plain K3 and the XLA
+    ``embed_pass``, image by image. Tile boundaries of 4,096 pixels (K3's
+    tile on the card; here they only place the wants)."""
+    imgs, msgs, base = stress.inputs(shape)
+    max_val, t = shape[5], 2
+    img_t = torch.from_numpy(imgs)
+    msg_t, base_t = torch.from_numpy(msgs), torch.from_numpy(base)
+    for parity in (0, 1):
+        for label, want in stress.wants(img_t, parity, t, max_val, 4096):
+            got = pk.pee_embed(img_t, msg_t, base_t, want, parity, t, max_val)
+            for i in range(imgs.shape[0]):
+                ref = jax_pee.embed_pass(imgs[i], msgs[i], np.int32(base[i]),
+                                         np.int32(want[i]), parity, t,
+                                         max_val)
+                np.testing.assert_array_equal(got[0][i].numpy(),
+                                              np.asarray(ref[0]))
+                np.testing.assert_array_equal(got[1][i].numpy().astype(bool),
+                                              np.asarray(ref[1]))
+                assert int(got[2][i]) == int(ref[2]), label
+                assert int(got[3][i]) == int(ref[3]), label
+                assert int(got[4][i]) == int(
+                    jax_pee.capacity(imgs[i], parity, t, max_val))
 
 
 def test_message_index_clamps_to_the_buffer():
