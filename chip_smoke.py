@@ -16,12 +16,16 @@ failure exits non-zero:
    {1, 4, 8} and wrapping, aliased and past-s windows; K3/K4 on batches of
    three with both parities, T in {1, 2, 47, 128}, per-image wants of 0,
    under capacity and over it (saturated), then 2**30 (the message-index
-   clamp), and an ``out_len`` below the expanded count; then K3's
-   look-back on the stress cases of ``tests/torch_pee_stress.py`` (wants
-   at and beside K3's tile boundaries, 0, 1, cap, cap + 1; narrow, wide
-   and unaligned batches), each exact against the plain version with K4
-   restoring the image, and a launch of 8 x 2048x2048 uint16 (8,192
-   tiles) repeated 20 times with identical outputs;
+   clamp), and an ``out_len`` below the expanded count; then the K3 and
+   K4 look-back stress cases of ``tests/torch_pee_stress.py``: K3 at wants
+   at and beside the tile boundaries, 0, 1, cap, cap + 1 (narrow, wide and
+   unaligned batches), each inverted by K4 back to the image; K4 with
+   ``out_len`` at 1, 8 and the expanded count at and beside the tile
+   boundaries, ``nproc`` at 0, 1, H*W, 2**31 - 1 and -5, and on forged
+   stego and overflow bytes with ``nproc`` at set ranks that straddle the
+   tile boundaries; each exact against the plain version; then a launch of
+   each on 8 x 2048x2048 uint16 (8,192 tiles) repeated 20 times with
+   identical outputs;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE) through ``encode_array(device="cuda")``: the container's sha256
    (and for PEE the ext tuple) must equal the JAX package's, and
@@ -269,9 +273,23 @@ def phase2_pee(dev) -> dict:
     return max_err
 
 
+def k4_case(stego, over, nproc, parity, t, out_len, what):
+    """K4 once against its plain version, all three outputs exact. Returns
+    K4's outputs."""
+    import torch
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    got = pk.pee_extract(stego, over, nproc, parity, t, out_len)
+    torch.cuda.synchronize()
+    ref = pk.pee_extract_plain(stego, over, nproc, parity, t, out_len)
+    check(max_abs_diff(got, ref) == 0, f"K4 != plain on {what}")
+    return got
+
+
 def k3_stress_case(imgs, msg, base, want, parity, t, max_val, what):
     """K3 once against its plain version (all five outputs exact), and K4
-    restoring the image from its output. Returns K3's outputs."""
+    inverting its output, exact against its plain version and restoring the
+    image. Returns K3's outputs."""
     import torch
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
@@ -279,51 +297,85 @@ def k3_stress_case(imgs, msg, base, want, parity, t, max_val, what):
     torch.cuda.synchronize()
     ref = pk.pee_embed_plain(imgs, msg, base, want, parity, t, max_val)
     check(max_abs_diff(got, ref) == 0, f"K3 != plain on {what}")
-    restored = pk.pee_extract(got[0], got[1], got[3], parity, t, 8)[0]
+    restored = k4_case(got[0], got[1], got[3], parity, t, 8, what)[0]
     check(torch.equal(restored, imgs), f"K4 did not restore {what}")
     return got
 
 
 def phase2_pee_stress(dev) -> str:
-    """K3's look-back on the stress cases of ``tests/torch_pee_stress.py``:
-    wants at and beside K3's tile boundaries, 0, 1, cap and cap + 1, narrow
-    and wide images, unaligned batches; then the many-tile launch, 20 times,
-    every output identical."""
+    """The look-back stress cases of ``tests/torch_pee_stress.py``: K3 at
+    wants at and beside the tile boundaries, 0, 1, cap and cap + 1, narrow
+    and wide images, unaligned batches, each inverted by K4; K4 on the
+    carrier at cap with ``out_len`` and ``nproc`` at and beside its tile
+    boundaries, and on forged inputs; then the many-tile launch of each, 20
+    times, every output identical."""
     import torch
     import torch_pee_stress as stress
     from codec_tcc_tpu_torch.ops import kernel_library
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
-    tile_px = kernel_library.library().pee_embed_tile_px()
-    n_cases = 0
+    tile_px = kernel_library.library().pee_tile_pixels()
+    n_k3 = n_k4 = 0
     for shape in stress.SHAPES:
+        name, b, h, w, _, max_val = shape
         imgs, msg, base = (torch.from_numpy(a).to(dev)
                            for a in stress.inputs(shape))
         for t in stress.T_VALUES:
             for parity in (0, 1):
-                for label, want in stress.wants(imgs, parity, t, shape[5],
-                                                tile_px):
-                    k3_stress_case(imgs, msg, base, want, parity, t, shape[5],
-                                   f"{shape[0]} T={t} parity={parity} "
-                                   f"want={label} {want.tolist()}")
-                    n_cases += 1
+                wants = stress.wants(imgs, parity, t, max_val, tile_px)
+                for label, want in wants:
+                    got = k3_stress_case(imgs, msg, base, want, parity, t,
+                                         max_val, f"{name} T={t} parity="
+                                         f"{parity} want={label} "
+                                         f"{want.tolist()}")
+                    n_k3 += 1
+                    if label == "cap":
+                        carrier = got
+                if t != 2:
+                    continue
+                stego, over, used, nproc, _ = carrier
+                for label, np_, out_len in stress.extract_cases(
+                        wants, used, nproc, h, w):
+                    k4_case(stego, over, np_, parity, t, out_len,
+                            f"{name} T={t} parity={parity} {label}")
+                    n_k4 += 1
+        for parity in (0, 1):
+            stego, over = (torch.from_numpy(a).to(dev)
+                           for a in stress.forged(shape, 2))
+            for label, np_ in stress.set_rank_nprocs(h, w, parity, tile_px):
+                k4_case(stego, over, torch.full((b,), np_, dtype=torch.int32,
+                                                device=dev),
+                        parity, 2, h * w // 2 + 1,
+                        f"forged {name} parity={parity} nproc={label}")
+                n_k4 += 1
     shape = stress.MANY_TILES
     imgs, msg, base = (torch.from_numpy(a).to(dev)
                        for a in stress.inputs(shape))
     t, parity, max_val = 2, 0, shape[5]
+    out_len = imgs[0].numel() // 2 + 1
     cases = dict(stress.wants(imgs, parity, t, max_val, tile_px))
     for label in ("cap", f"tile{-(-imgs[0].numel() // tile_px) // 2}+0"):
         first = k3_stress_case(imgs, msg, base, cases[label], parity, t,
                                max_val, f"{shape[0]} want={label}")
-        n_cases += 1
+        n_k3 += 1
+        stego, over, _, nproc, _ = first
+        first_x = k4_case(stego, over, nproc, parity, t, out_len,
+                          f"{shape[0]} want={label} all bits")
+        n_k4 += 1
         for rep in range(20):
             again = pk.pee_embed(imgs, msg, base, cases[label], parity, t,
                                  max_val)
             check(all(torch.equal(a, b) for a, b in zip(again, first)),
                   f"K3 repeat {rep} on {shape[0]} want={label} differs: a "
                   f"race in the look-back")
-    return (f"K3 look-back stress: {n_cases} cases exact (tile "
-            f"{tile_px} px), 2 x 20 identical repeats on {shape[0]}")
+            again = pk.pee_extract(stego, over, nproc, parity, t, out_len)
+            check(all(torch.equal(a, b) for a, b in zip(again, first_x)),
+                  f"K4 repeat {rep} on {shape[0]} want={label} differs: a "
+                  f"race in the look-back")
+    return (f"look-back stress (tile {tile_px} px): K3 {n_k3} cases exact, "
+            f"each inverted by K4 exactly; K4 {n_k4} more cases exact "
+            f"(out_len and nproc at tile boundaries, forged inputs); 2 x 20 "
+            f"identical repeats of each on {shape[0]}")
 
 
 def case_payload(case):

@@ -1,17 +1,14 @@
-// Shared pieces of the PEE kernels (pee_embed.cu, pee_extract.cu).
+// Shared pieces of the PEE kernels K3 (pee_embed.cu) and K4 (pee_extract.cu).
 //
-// The three-launch scan (pee_extract.cu) walks each image of a (B, H, W)
-// batch in raster tiles of PEE_TILE_PX pixels: block (tile, b) owns pixels
-// [tile * PEE_TILE_PX, (tile + 1) * PEE_TILE_PX) of image b and visits them
-// in PEE_ROUNDS rounds of PEE_THREADS consecutive pixels, so every load and
-// store of a round is coalesced and raster order inside a block is (round,
-// warp, lane). The single-pass pieces at the end (pee_embed.cu) give each
-// thread a run of consecutive pixels instead and find a tile's rank offset
-// by a decoupled look-back, in one launch.
+// Both are ONE launch per pass over a (B, H, W) batch: a block takes a tile
+// of PEE_TILE_PX consecutive raster pixels of one image by ticket, each of
+// its PEE_THREADS threads owns a run of PEE_RUN consecutive pixels in
+// registers, and the tile's offset into the image's global rank comes from
+// a decoupled look-back over the status words of the tiles before it.
 //
 // The geometry is the closed form of codec_tcc_tpu/ops/pallas_pee.py
 // `_geometry`: the in-set pixels of a pass are the interior pixels of one
-// checkerboard colour, and their inclusive raster rank among the set is a
+// checkerboard colour, and their count before any raster position is a
 // function of (y, x) alone, so no scan is needed for it.
 #pragma once
 
@@ -19,10 +16,13 @@
 #include <stdint.h>
 
 #define PEE_THREADS 256
-#define PEE_ROUNDS 16
-#define PEE_TILE_PX (PEE_THREADS * PEE_ROUNDS)   // exported as pee_tile_px()
-#define PEE_WARPS (PEE_THREADS / 32)
-#define PEE_SCAN_THREADS 1024
+#define PEE_RUN 16   // pixels per thread: one 16-bit mask, 16-byte vectors
+#define PEE_TILE_PX (PEE_THREADS * PEE_RUN)   // exported as pee_tile_pixels()
+
+// Tiles per image.
+static inline long long pee_tiles(int h, int w) {
+    return ((long long)h * w + PEE_TILE_PX - 1) / PEE_TILE_PX;
+}
 
 // Interior pixel of checkerboard colour `parity`: the pixels a pass may touch.
 __device__ __forceinline__ bool pee_in_set(int y, int x, int h, int w,
@@ -31,126 +31,26 @@ __device__ __forceinline__ bool pee_in_set(int y, int x, int h, int w,
            ((y + x) & 1) == parity;
 }
 
-// Inclusive raster rank of in-set pixel (y, x) among the in-set pixels
-// (ops/pee.py `_set_rank`); meaningful on in-set pixels only, where every
-// term below is >= 0.
-__device__ __forceinline__ int pee_set_rank(int y, int x, int h, int w,
-                                            int parity) {
-    const int m = min(max(y - 1, 0), h - 2);   // interior rows before y
+// The number of in-set pixels before raster position (y, x), 0 <= x < w,
+// any y >= 0 (ops/pee.py `_set_rank` counts the same set). Interior rows
+// alternate between (w - 1) / 2 and (w - 2) / 2 in-set pixels; inside an
+// interior row they are the odd or the even columns in [1, w - 2].
+__device__ __forceinline__ int pee_set_count_before(int y, int x, int h,
+                                                    int w, int parity) {
+    const int m = max(min(y - 1, h - 2), 0);   // interior rows before y
     const int n_q1 = (parity & 1) == 0 ? (m + 1) / 2 : m / 2;
     const int n_q0 = m - n_q1;
     const int row_excl = n_q1 * ((w - 1) / 2) + n_q0 * ((w - 2) / 2);
-    const int in_row = ((parity + y) & 1) == 1 ? (x + 1) / 2 : x / 2;
-    return row_excl + in_row;
+    if (y < 1 || y > h - 2) return row_excl;
+    const int last = min(x - 1, w - 2);   // >= -1; the in-row columns <= it
+    return row_excl + (((parity + y) & 1) == 1 ? (last + 1) / 2 : last / 2);
 }
 
-// Rhombus prediction of an interior pixel: floor of the mean of its four
-// neighbours. The sum is >= 0, so the shift is the floor division.
-template <typename T>
-__device__ __forceinline__ int pee_predict(const T* __restrict__ im, int pos,
-                                           int w) {
-    const int s = (int)im[pos - w] + (int)im[pos + w] + (int)im[pos - 1] +
-                  (int)im[pos + 1];
-    return s >> 2;
+// Inclusive raster rank of in-set pixel (y, x) among the in-set pixels.
+__device__ __forceinline__ int pee_set_rank(int y, int x, int h, int w,
+                                            int parity) {
+    return pee_set_count_before(y, x, h, w, parity) + 1;
 }
-
-// Rank of this thread's predicate among the block's threads of this round,
-// in raster order (exclusive), and the round's total. Every thread of the
-// block must call it (it holds two barriers).
-__device__ __forceinline__ int pee_block_rank(bool pred, int* warp_cnt,
-                                              int* round_total) {
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const unsigned ballot = __ballot_sync(0xffffffffu, pred);
-    if (lane == 0) warp_cnt[warp] = __popc(ballot);
-    __syncthreads();
-    int before = 0;
-    int total = 0;
-#pragma unroll
-    for (int k = 0; k < PEE_WARPS; ++k) {
-        const int c = warp_cnt[k];
-        before += k < warp ? c : 0;
-        total += c;
-    }
-    __syncthreads();   // warp_cnt is rewritten by the next round
-    *round_total = total;
-    return before + __popc(ballot & ((1u << lane) - 1u));
-}
-
-// Cross-block step of the global rank: block b of the launch turns the
-// per-tile counts counts[b * tiles + i] into exclusive prefixes in place and
-// writes their sum to total[b]. With `want` (the embed), it also writes
-// used[b] = min(want, total) and seeds nproc[b] with the saturation rule:
-// n_pixels when want > total (the whole set is processed), else 0, which
-// the apply launch raises to the largest embedded set rank with atomicMax.
-// Launched with PEE_SCAN_THREADS threads and one block per image. Static:
-// each kernel's translation unit has its own copy (no device linking).
-static __global__ void pee_scan_kernel(int* __restrict__ counts, int tiles,
-                                       int* __restrict__ total,
-                                       const int* __restrict__ want,
-                                       int* __restrict__ used,
-                                       int* __restrict__ nproc,
-                                       int n_pixels) {
-    __shared__ int warp_sum[PEE_SCAN_THREADS / 32];
-    __shared__ int carry;
-    const int b = blockIdx.x;
-    const int lane = threadIdx.x & 31;
-    const int warp = threadIdx.x >> 5;
-    const int nwarps = PEE_SCAN_THREADS / 32;
-    int* c = counts + (long long)b * tiles;
-    if (threadIdx.x == 0) carry = 0;
-    __syncthreads();
-    for (int base = 0; base < tiles; base += PEE_SCAN_THREADS) {
-        const int i = base + threadIdx.x;
-        const int v = i < tiles ? c[i] : 0;
-        int x = v;   // inclusive scan within the warp
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-            const int y = __shfl_up_sync(0xffffffffu, x, o);
-            if (lane >= o) x += y;
-        }
-        if (lane == 31) warp_sum[warp] = x;
-        __syncthreads();
-        if (warp == 0) {   // inclusive scan of the warp totals
-            int s = lane < nwarps ? warp_sum[lane] : 0;
-#pragma unroll
-            for (int o = 1; o < 32; o <<= 1) {
-                const int y = __shfl_up_sync(0xffffffffu, s, o);
-                if (lane >= o) s += y;
-            }
-            if (lane < nwarps) warp_sum[lane] = s;
-        }
-        __syncthreads();
-        const int excl = carry + (warp > 0 ? warp_sum[warp - 1] : 0) + x - v;
-        if (i < tiles) c[i] = excl;
-        __syncthreads();   // every thread has read carry
-        if (threadIdx.x == 0) carry += warp_sum[nwarps - 1];
-        __syncthreads();
-    }
-    if (threadIdx.x == 0) {
-        total[b] = carry;
-        if (want != nullptr) {
-            const int wv = want[b];
-            used[b] = min(wv, carry);
-            nproc[b] = wv > carry ? n_pixels : 0;
-        }
-    }
-}
-
-// Grid shape checks of the three-launch scan (pee_extract.cu).
-static inline bool pee_shape_ok(int batch, int h, int w, int tiles) {
-    if (batch < 1 || batch > 65535 || h < 1 || w < 1) return false;
-    const long long n = (long long)h * w;
-    if (n > 0x7fffffffLL - PEE_TILE_PX) return false;
-    return tiles == (int)((n + PEE_TILE_PX - 1) / PEE_TILE_PX);
-}
-
-// ---------------------------------------------------------------------------
-// Single-pass pieces (pee_embed.cu): a block owns one tile of consecutive
-// raster pixels and each thread a run of them; the tile's offset into the
-// image's global rank comes from a decoupled look-back over the status words
-// of the tiles before it, so one launch reads the image once.
-// ---------------------------------------------------------------------------
 
 // A tile's status word packs {flag, value} into 64 bits, so that one store
 // publishes both and no reader sees half of it. Flag 0 (the word as zeroed
@@ -337,4 +237,72 @@ __device__ __forceinline__ void pee_store_mask16(uint8_t* __restrict__ base,
             if (start + k < n) p[k] = (mask >> k) & 1u;
         }
     }
+}
+
+// Bit k set where byte start + k of `base` is nonzero, for the 16 bytes at
+// `start`; the ones at or past n read as 0.
+__device__ __forceinline__ unsigned pee_load_nonzero16(
+    const uint8_t* __restrict__ base, int start, int n) {
+    const uint8_t* p = base + start;
+    if (start + 16 <= n && ((uintptr_t)p & 15) == 0) {
+        const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+        unsigned mask = 0;
+        const unsigned words[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const unsigned v = words[j];
+            // bit 7 of each nonzero byte, then bits 7, 15, 23, 31 gathered
+            // into the top nibble: 0x10204080 shifts bit 8i to bit 28 + i,
+            // and its other products land below bit 28 without carries
+            const unsigned hi = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) &
+                                0x80808080u;
+            mask |= ((hi >> 7) * 0x10204080u >> 28) << (4 * j);
+        }
+        return mask;
+    }
+    unsigned mask = 0;
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+        if (start + k < n && p[k] != 0) mask |= 1u << k;
+    }
+    return mask;
+}
+
+// The in-set pixels of the run of RUN pixels at raster position p0 (< n), as
+// bit k for pixel p0 + k, and the run's row y0 and column x0 (one division).
+// Inside one interior row they are every other pixel from k0 = (x0 + y0 +
+// parity) & 1, and `mode` becomes k0 where the caller's loads allow it to
+// take only those (`vec`); elsewhere, and for a run that crosses a row end,
+// `mode` is 2: pixel by pixel.
+template <int RUN>
+__device__ __forceinline__ unsigned pee_run_in_set(int p0, int h, int w,
+                                                   int parity, bool vec,
+                                                   int& mode, int& y0,
+                                                   int& x0) {
+    static_assert(RUN <= 16, "masks of 32 bits, with room for 2u << k");
+    y0 = p0 / w;
+    x0 = p0 - y0 * w;
+    mode = 2;
+    unsigned in_set = 0;
+    if (x0 + RUN <= w) {
+        const int lo = max(1 - x0, 0);              // first k with x >= 1
+        const int hi = min(w - 2 - x0, RUN - 1);    // last k, x <= w - 2
+        if (y0 >= 1 && y0 <= h - 2 && lo <= hi) {
+            const int k0 = (x0 + y0 + parity) & 1;
+            in_set = (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo) &
+                     (k0 ? 0xaaaaaaaau : 0x55555555u);
+            if (vec) mode = k0;
+        }
+    } else {
+        int y = y0, x = x0;
+#pragma unroll
+        for (int k = 0; k < RUN; ++k) {   // false past n (y >= h)
+            if (pee_in_set(y, x, h, w, parity)) in_set |= 1u << k;
+            if (++x == w) {
+                x = 0;
+                ++y;
+            }
+        }
+    }
+    return in_set;
 }

@@ -28,8 +28,8 @@
 // order on one core and carried the running eligible count across tiles in
 // SMEM; CUDA blocks run in no order, so:
 //   * a block takes a ticket (its tile, in start order, over all tiles of
-//     the batch) and owns PEE_EMBED_TILE_PX consecutive pixels of one image;
-//     each thread owns a run of PEE_EMBED_RUN of them. The run and the runs
+//     the batch) and owns PEE_TILE_PX consecutive pixels of one image;
+//     each thread owns a run of PEE_RUN of them. The run and the runs
 //     above and below it (+-w) come in 16-byte vector loads where aligned
 //     (scalar loads, which hit L1/L2, where not), all issued before any is
 //     used. One division gives the run's (y, x); inside one interior row
@@ -63,10 +63,6 @@
 // scan, apply, stores) takes about twice the time of a plain copy of the
 // same bytes.
 #include "pee_common.cuh"
-
-#define PEE_EMBED_THREADS 256
-#define PEE_EMBED_RUN 16   // pixels per thread: one 16-bit mask, 16-byte vectors
-#define PEE_EMBED_TILE_PX (PEE_EMBED_THREADS * PEE_EMBED_RUN)
 
 // Classifies pixels k = K0, K0 + STEP, ... of a run, from the run `c`, the
 // rows above and below it and its row neighbours: xa[k] = x | alt << 16,
@@ -122,7 +118,7 @@ __device__ __forceinline__ void pee_embed_apply(
 }
 
 template <typename T>
-__global__ void __launch_bounds__(PEE_EMBED_THREADS)
+__global__ void __launch_bounds__(PEE_THREADS)
 pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
                  long long msg_len, const int* __restrict__ msg_base,
                  const int* __restrict__ want, int h, int w, int parity, int t,
@@ -131,17 +127,17 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
                  int* __restrict__ nproc, int* __restrict__ cap,
                  unsigned* __restrict__ ticket,
                  unsigned long long* __restrict__ status) {
-    constexpr int RUN = PEE_EMBED_RUN;
+    constexpr int RUN = PEE_RUN;
     static_assert(RUN == 16, "the run's masks and overflow bytes are 16 wide");
     __shared__ int s_tile, s_prefix;
-    __shared__ int s_warp[PEE_EMBED_THREADS / 32];
+    __shared__ int s_warp[PEE_THREADS / 32];
     const int g = pee_take_ticket(ticket, &s_tile);
     const int b = g / tiles;
     const int tile = g - b * tiles;
     const int n = h * w;
     const long long img_off = (long long)b * n;
     const T* im = img + img_off;
-    const int p0 = tile * PEE_EMBED_TILE_PX + threadIdx.x * RUN;
+    const int p0 = tile * PEE_TILE_PX + threadIdx.x * RUN;
     const bool live = p0 < n;
 
     // 1. the run, its rows above and below and its row neighbours, all
@@ -170,28 +166,8 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
     unsigned in_set = 0;
     int mode = 2;
     if (live) {
-        const int y0 = p0 / w;
-        const int x0 = p0 - y0 * w;
-        if (x0 + RUN <= w) {
-            const int lo = max(1 - x0, 0);              // first k with x >= 1
-            const int hi = min(w - 2 - x0, RUN - 1);    // last k, x <= w - 2
-            if (y0 >= 1 && y0 <= h - 2 && lo <= hi) {
-                const int k0 = (x0 + y0 + parity) & 1;
-                in_set = (0xffffffffu >> (31 - hi)) & (0xffffffffu << lo) &
-                         (k0 ? 0xaaaaaaaau : 0x55555555u);
-                if (vec) mode = k0;
-            }
-        } else {
-            int y = y0, x = x0;
-#pragma unroll
-            for (int k = 0; k < RUN; ++k) {   // false past n (y >= h)
-                if (pee_in_set(y, x, h, w, parity)) in_set |= 1u << k;
-                if (++x == w) {
-                    x = 0;
-                    ++y;
-                }
-            }
-        }
+        int y0, x0;
+        in_set = pee_run_in_set<RUN>(p0, h, w, parity, vec, mode, y0, x0);
     }
 
     // 3. classify: x | alt << 16 per pixel, expandable and overflow bits
@@ -217,7 +193,7 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
     const int cnt = __popc(elig);
     int agg;
     const int thread_excl =
-        pee_block_excl_scan<PEE_EMBED_THREADS>(cnt, s_warp, &agg);
+        pee_block_excl_scan<PEE_THREADS>(cnt, s_warp, &agg);
     if (threadIdx.x < 32) {
         const unsigned excl = pee_lookback(status + (long long)b * tiles, tile,
                                            (unsigned)agg);
@@ -288,10 +264,6 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
 
 // Scratch of one launch, in int32s: used[B], nproc[B], cap[B], the ticket,
 // then one 64-bit status word per tile of the batch (8-byte aligned).
-static long long pee_embed_tiles(int h, int w) {
-    return ((long long)h * w + PEE_EMBED_TILE_PX - 1) / PEE_EMBED_TILE_PX;
-}
-
 static long long pee_embed_status_offset(int batch) {
     return (3LL * batch + 2) & ~1LL;   // 3B + 1 rounded up to even
 }
@@ -305,18 +277,18 @@ static int launch_pee_embed(const void* img, const void* msg,
     // int pixel indices: n + w plus a tile stays below 2**31
     if (batch < 1 || h < 1 || w < 1 || msg_len < 1 ||
         (parity != 0 && parity != 1) || t < 1 ||
-        ((long long)h + 1) * w > 0x7fffffffLL - PEE_EMBED_TILE_PX ||
-        batch * pee_embed_tiles(h, w) > 0x7fffffffLL) {
+        ((long long)h + 1) * w > 0x7fffffffLL - PEE_TILE_PX ||
+        batch * pee_tiles(h, w) > 0x7fffffffLL) {
         return (int)cudaErrorInvalidValue;
     }
-    const long long tiles = pee_embed_tiles(h, w);
+    const long long tiles = pee_tiles(h, w);
     const long long st_off = pee_embed_status_offset(batch);
     cudaStream_t s = (cudaStream_t)stream;
     int err = (int)cudaMemsetAsync(
         scratch, 0, (size_t)(st_off + 2 * batch * tiles) * sizeof(int), s);
     if (err) return err;
     pee_embed_kernel<T>
-        <<<(unsigned)(batch * tiles), PEE_EMBED_THREADS, 0, s>>>(
+        <<<(unsigned)(batch * tiles), PEE_THREADS, 0, s>>>(
             (const T*)img, (const uint8_t*)msg, msg_len, msg_base, want, h, w,
             parity, t, max_val, (int)tiles, (T*)stego, (uint8_t*)over,
             scratch, scratch + batch, scratch + 2 * batch,
@@ -327,17 +299,14 @@ static int launch_pee_embed(const void* img, const void* msg,
 
 extern "C" {
 
-// Pixels per block of K4 (pee_extract.cu): its wrapper sizes the per-tile
-// scratch from it.
-int pee_tile_px(void) { return PEE_TILE_PX; }
-
-// K3's tile (pixels per block) and the int32s of scratch a launch takes;
-// the wrapper allocates them and reads used, nproc and cap from its front.
-int pee_embed_tile_px(void) { return PEE_EMBED_TILE_PX; }
+// The tile of K3 and K4 (pixels per block), and the int32s of scratch a K3
+// launch takes: its wrapper allocates them and reads used, nproc and cap
+// from their front.
+int pee_tile_pixels(void) { return PEE_TILE_PX; }
 
 long long pee_embed_scratch_ints(int batch, int h, int w) {
     return pee_embed_status_offset(batch) +
-           2LL * batch * pee_embed_tiles(h, w);
+           2LL * batch * pee_tiles(h, w);
 }
 
 int pee_embed_u8(const void* img, const void* msg, long long msg_len,

@@ -107,20 +107,20 @@ def library() -> ctypes.CDLL:
         "pee_embed": [ptr, ptr, i64, ptr, ptr, i32, i32, i32, i32, i32, i32,
                       ptr, ptr, ptr, ptr],
         # stego, over, nproc, batch, h, w, parity, t, out_len, restored,
-        # bits, nbits, scratch, tiles, stream
+        # buf (scratch with nbits at its front, then the bit rows), stream
         "pee_extract": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, ptr,
-                        ptr, ptr, ptr, i32, ptr],
+                        ptr, ptr],
     }
     for name, argtypes in signatures.items():
         for dt in ("u8", "u16"):
             fn = getattr(lib, f"{name}_{dt}")
             fn.argtypes = argtypes
             fn.restype = i32
-    for name in ("pee_tile_px", "pee_embed_tile_px"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = i32
-    lib.pee_embed_scratch_ints.argtypes = [i32, i32, i32]
-    lib.pee_embed_scratch_ints.restype = i64
+    lib.pee_tile_pixels.argtypes = []
+    lib.pee_tile_pixels.restype = i32
+    for name in ("pee_embed_scratch_ints", "pee_extract_scratch_bytes"):
+        getattr(lib, name).argtypes = [i32, i32, i32]
+        getattr(lib, name).restype = i64
     lib.codec_kernels_error_string.argtypes = [i32]
     lib.codec_kernels_error_string.restype = ctypes.c_char_p
     return lib

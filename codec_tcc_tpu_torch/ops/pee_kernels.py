@@ -19,9 +19,10 @@ kernel to the plain version. The kernels are built with the raster kernels
 into one library (:mod:`.kernel_library`).
 
 :data:`LAUNCHES` counts wrapper calls that launched a kernel; plain-version
-calls do not count. A K3 call is one memset of its scratch and ONE kernel
-launch (the tiles' global ranks come from a decoupled look-back); a K4 call
-is three launches (count, scan, apply).
+calls do not count. A call of either wrapper is one memset and ONE kernel
+launch: the tiles' global ranks come from a decoupled look-back
+(``csrc/pee_common.cuh``). K3's memset zeroes its scratch, K4's its scratch
+and the bit rows, which share one allocation.
 """
 
 from __future__ import annotations
@@ -77,12 +78,6 @@ def _check_pass(parity: int, t: int) -> None:
         raise ValueError(f"parity must be 0 or 1, got {parity}")
     if t < 1:
         raise ValueError(f"threshold t must be >= 1, got {t}")
-
-
-def _tiles(lib, h: int, w: int) -> int:
-    """Tiles per image of K4: its blocks (``PEE_TILE_PX`` pixels each,
-    ``csrc/pee_common.cuh``)."""
-    return -(-(h * w) // lib.pee_tile_px())
 
 
 # ---------------------------------------------------------------------------
@@ -191,22 +186,22 @@ def pee_extract(
         over = over.view(torch.uint8)
     nproc = nproc.contiguous()
     lib = library()
-    tiles = _tiles(lib, h, w)
-    dev = stego.device
     restored = torch.empty_like(stego)
-    bits = torch.empty((b, out_len), dtype=torch.uint8, device=dev)
-    nbits = torch.empty(b, dtype=torch.int32, device=dev)
-    scratch = torch.empty((b, tiles), dtype=torch.int32, device=dev)
+    # nbits, the ticket and the tiles' status words, then the bit rows: the
+    # kernel zeroes it all with one memset before its one launch
+    nscratch = lib.pee_extract_scratch_bytes(b, h, w)
+    buf = torch.empty(nscratch + b * out_len, dtype=torch.uint8,
+                      device=stego.device)
     fn = (lib.pee_extract_u8 if stego.dtype == torch.uint8
           else lib.pee_extract_u16)
     err = fn(
         stego.data_ptr(), over.data_ptr(), nproc.data_ptr(), b, h, w, parity,
-        t, out_len, restored.data_ptr(), bits.data_ptr(), nbits.data_ptr(),
-        scratch.data_ptr(), tiles, stream_ptr(stego),
+        t, out_len, restored.data_ptr(), buf.data_ptr(), stream_ptr(stego),
     )
     check(lib, err, "pee_extract")
     LAUNCHES["pee_extract"] += 1
-    return restored, bits, nbits
+    nbits = buf[:4 * b].view(torch.int32)
+    return restored, buf[nscratch:].view(b, out_len), nbits
 
 
 # ---------------------------------------------------------------------------

@@ -121,9 +121,23 @@ def test_pee_kernels_match_plain_on_gpu(cuda, h, w, dtype, t):
                                imgs.cpu().to(torch.int32))
 
 
+def _k4_against_plain(stego, over, nproc, parity, t, out_len):
+    """K4 equals its plain version on all three outputs. Returns K4's
+    outputs."""
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    got = pk.pee_extract(stego, over, nproc, parity, t, out_len)
+    ref = pk.pee_extract_plain(stego, over, nproc, parity, t, out_len)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu().to(torch.int32), r.cpu().to(torch.int32))
+    return got
+
+
 def _k3_against_plain(imgs, msg, base, want, parity, t, max_val):
-    """K3 equals its plain version on all five outputs, and K4 restores the
-    image from K3's output. Returns K3's outputs."""
+    """K3 equals its plain version on all five outputs, and K4, equal to
+    its plain version, restores the image from K3's output. Returns K3's
+    outputs."""
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
     got = pk.pee_embed(imgs, msg, base, want, parity, t, max_val)
@@ -131,7 +145,7 @@ def _k3_against_plain(imgs, msg, base, want, parity, t, max_val):
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu().to(torch.int32), r.cpu().to(torch.int32))
-    restored = pk.pee_extract(got[0], got[1], got[3], parity, t, 8)[0]
+    restored = _k4_against_plain(got[0], got[1], got[3], parity, t, 8)[0]
     assert torch.equal(restored, imgs)
     return got
 
@@ -142,7 +156,7 @@ def test_pee_embed_lookback_stress_on_gpu(cuda, shape):
     narrow, wide and unaligned batches."""
     from codec_tcc_tpu_torch.ops import kernel_library
 
-    tile_px = kernel_library.library().pee_embed_tile_px()
+    tile_px = kernel_library.library().pee_tile_pixels()
     spec = next(s for s in stress.SHAPES if s[0] == shape)
     imgs, msg, base = (torch.from_numpy(a).to(cuda)
                        for a in stress.inputs(spec))
@@ -158,7 +172,7 @@ def test_pee_embed_many_tiles_repeats_on_gpu(cuda):
     from codec_tcc_tpu_torch.ops import kernel_library
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
-    tile_px = kernel_library.library().pee_embed_tile_px()
+    tile_px = kernel_library.library().pee_tile_pixels()
     spec = stress.MANY_TILES
     imgs, msg, base = (torch.from_numpy(a).to(cuda)
                        for a in stress.inputs(spec))
@@ -166,6 +180,53 @@ def test_pee_embed_many_tiles_repeats_on_gpu(cuda):
     first = _k3_against_plain(imgs, msg, base, want, 0, 2, spec[5])
     for _ in range(20):
         again = pk.pee_embed(imgs, msg, base, want, 0, 2, spec[5])
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("shape", [s[0] for s in stress.SHAPES])
+def test_pee_extract_lookback_stress_on_gpu(cuda, shape):
+    """K4 on K3's output at want cap with ``out_len`` and ``nproc`` at and
+    beside its tile boundaries, and on forged stego and overflow bytes with
+    ``nproc`` at set ranks that straddle them."""
+    from codec_tcc_tpu_torch.ops import kernel_library
+
+    tile_px = kernel_library.library().pee_tile_pixels()
+    spec = next(s for s in stress.SHAPES if s[0] == shape)
+    imgs, msg, base = (torch.from_numpy(a).to(cuda)
+                       for a in stress.inputs(spec))
+    b, h, w = imgs.shape
+    forged = [torch.from_numpy(a).to(cuda) for a in stress.forged(spec, 2)]
+    for parity in (0, 1):
+        wants = stress.wants(imgs, parity, 2, spec[5], tile_px)
+        stego, over, used, nproc, _ = _k3_against_plain(
+            imgs, msg, base, dict(wants)["cap"], parity, 2, spec[5])
+        for _, np_, out_len in stress.extract_cases(wants, used, nproc, h, w):
+            _k4_against_plain(stego, over, np_, parity, 2, out_len)
+        for _, np_ in stress.set_rank_nprocs(h, w, parity, tile_px):
+            _k4_against_plain(*forged, torch.full((b,), np_, dtype=torch.int32,
+                                                  device=cuda),
+                              parity, 2, h * w // 2 + 1)
+
+
+def test_pee_extract_many_tiles_repeats_on_gpu(cuda):
+    """K4 over 8,192 tiles, most of which start after others have
+    finished: 20 repeats give identical outputs, equal to the plain
+    version's."""
+    from codec_tcc_tpu_torch.ops import kernel_library
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    tile_px = kernel_library.library().pee_tile_pixels()
+    spec = stress.MANY_TILES
+    imgs, msg, base = (torch.from_numpy(a).to(cuda)
+                       for a in stress.inputs(spec))
+    want = dict(stress.wants(imgs, 0, 2, spec[5], tile_px))["cap"] // 2
+    stego, over, _, nproc, _ = pk.pee_embed(imgs, msg, base, want, 0, 2,
+                                            spec[5])
+    out_len = imgs[0].numel() // 2 + 1
+    first = _k4_against_plain(stego, over, nproc, 0, 2, out_len)
+    assert torch.equal(first[0], imgs)
+    for _ in range(20):
+        again = pk.pee_extract(stego, over, nproc, 0, 2, out_len)
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 

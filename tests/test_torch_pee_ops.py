@@ -249,6 +249,43 @@ def test_plain_k3_matches_xla_on_lookback_stress_cases(shape):
                     jax_pee.capacity(imgs[i], parity, t, max_val))
 
 
+@pytest.mark.parametrize("shape", stress.SHAPES, ids=[s[0] for s in
+                                                     stress.SHAPES])
+def test_plain_k4_matches_xla_on_lookback_stress_cases(shape):
+    """The stress cases that hold K4's look-back on the card
+    (``tests/torch_pee_stress.py``) through the port's plain K4 and the XLA
+    ``extract_pass``, image by image: K3's output at want ``cap`` with
+    ``out_len`` and ``nproc`` at and beside 4,096-pixel tile boundaries,
+    and forged stego and overflow bytes with ``nproc`` at set ranks that
+    straddle them."""
+    imgs, msgs, base = stress.inputs(shape)
+    max_val, t = shape[5], 2
+    b, h, w = imgs.shape
+    img_t = torch.from_numpy(imgs)
+    forged = tuple(torch.from_numpy(a) for a in stress.forged(shape, t))
+    for parity in (0, 1):
+        wants = stress.wants(img_t, parity, t, max_val, 4096)
+        stego, over, used, nproc, _ = pk.pee_embed(
+            img_t, torch.from_numpy(msgs), torch.from_numpy(base),
+            dict(wants)["cap"], parity, t, max_val)
+        cases = [(label, stego, over, np_, out_len) for label, np_, out_len
+                 in stress.extract_cases(wants, used, nproc, h, w)]
+        cases += [(label, *forged, torch.full((b,), v, dtype=torch.int32),
+                   h * w // 2 + 1)
+                  for label, v in stress.set_rank_nprocs(h, w, parity, 4096)]
+        for label, st, ov, np_, out_len in cases:
+            got = pk.pee_extract(st, ov, np_, parity, t, out_len)
+            for i in range(b):
+                ref = jax_pee.extract_pass(st[i].numpy(), ov[i].numpy() != 0,
+                                           np.int32(np_[i]), parity, t,
+                                           max_val, out_len)
+                np.testing.assert_array_equal(got[0][i].numpy(),
+                                              np.asarray(ref[0]))
+                np.testing.assert_array_equal(got[1][i].numpy(),
+                                              np.asarray(ref[1]))
+                assert int(got[2][i]) == int(ref[2]), label
+
+
 def test_message_index_clamps_to_the_buffer():
     """want = 2**30 with a short message reads its last bit, as the XLA
     ``jnp.take(..., mode="clip")`` does."""

@@ -1,16 +1,21 @@
-"""Stress cases for the cross-tile rank of K3 ``pee_embed`` (its decoupled
-look-back), shared by ``chip_smoke.py`` (phase 2), ``tests/test_torch_cuda.py``
-and the CPU test that holds them against the JAX package.
+"""Stress cases for the cross-tile rank of the PEE kernels (their decoupled
+look-back): K3 ``pee_embed`` and K4 ``pee_extract``, shared by
+``chip_smoke.py`` (phase 2), ``tests/test_torch_cuda.py`` and the CPU tests
+that hold them against the JAX package.
 
 Each case is a batch of seeded carriers (numpy) and a list of per-image
-``want`` vectors that put the end of the processed prefix where the rank
+``want`` vectors that put the end of K3's processed prefix where the rank
 is easiest to get wrong: 0 and 1, ``cap`` and ``cap + 1`` (saturation),
 far past ``cap``, and the eligible count at a tile boundary and one either
-side of it. The geometries cover several tiles per image in narrow images
-(``w`` = 3 and 5), a row longer than a tile (3 x 20,000), ``H*W`` that is not
-a multiple of the 16-byte vector (500x501 u8, so image ``b`` starts
-unaligned) and, in :data:`MANY_TILES`, far more tiles than the card holds
-at once.
+side of it. K4 inverts each of K3's outputs; on the carrier at ``cap`` it
+also runs with the ``out_len`` and ``nproc`` values of
+:func:`extract_cases`, and on forged inputs (:func:`forged`: noisy stego,
+random overflow bytes) with ``nproc`` at the set ranks that straddle its
+tile boundaries (:func:`set_rank_nprocs`). The geometries cover several
+tiles per image in narrow images (``w`` = 3 and 5), a row longer than a
+tile (3 x 20,000), ``H*W`` that is not a multiple of the 16-byte vector
+(500x501 u8, so image ``b`` starts unaligned) and, in :data:`MANY_TILES`,
+far more tiles than the card holds at once.
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ def wants(imgs: torch.Tensor, parity: int, t: int, max_val: int,
           tile_px: int) -> List[Tuple[str, torch.Tensor]]:
     """``(label, want (B,) int32)`` pairs for one pass over ``imgs``, from
     the plain version's eligible mask; boundaries are those of
-    ``tile_px``-pixel tiles (K3's tile on the card)."""
+    ``tile_px``-pixel tiles (the kernels' tile on the card)."""
     b, h, w = imgs.shape
     _, _, in_set, expandable, overflow = pee_ops._classify(imgs, parity, t,
                                                            max_val)
@@ -73,10 +78,62 @@ def wants(imgs: torch.Tensor, parity: int, t: int, max_val: int,
     out = [("0", torch.zeros_like(cap)), ("1", torch.ones_like(cap)),
            ("cap", cap), ("cap+1", cap + 1),
            ("2**30", torch.full_like(cap, 1 << 30))]
-    tiles = -(-(h * w) // tile_px)
-    for k in sorted({1, tiles // 2, tiles - 1}):
-        if 1 <= k < tiles:
-            at = cum[:, k * tile_px - 1]
-            for d in (-1, 0, 1):
-                out.append((f"tile{k}{d:+d}", (at + d).clamp(min=0)))
+    for k in _tile_ends(h, w, tile_px):
+        at = cum[:, k * tile_px - 1]
+        for d in (-1, 0, 1):
+            out.append((f"tile{k}{d:+d}", (at + d).clamp(min=0)))
     return [(label, v.to(torch.int32).to(imgs.device)) for label, v in out]
+
+
+def _tile_ends(h: int, w: int, tile_px: int) -> List[int]:
+    """The tiles whose first pixel is a stress boundary: the second, the
+    middle and the last tile of an image."""
+    tiles = -(-(h * w) // tile_px)
+    return [k for k in sorted({1, tiles // 2, tiles - 1}) if 1 <= k < tiles]
+
+
+def extract_cases(want_cases, nbits: torch.Tensor, nproc: torch.Tensor,
+                  h: int, w: int) -> List[Tuple[str, torch.Tensor, int]]:
+    """``(label, nproc (B,) int32, out_len)`` for K4 on K3's output at want
+    ``cap``, whose expanded count is ``nbits`` (K3's ``used``) and whose
+    boundary is ``nproc``: with that boundary, ``out_len`` at 1, 8, image
+    0's expanded count at each tile boundary of ``want_cases`` (the
+    ``tile*`` wants, one either side included), ``nbits`` and ``nbits + 1``;
+    then all bits (``out_len = H*W // 2 + 1``) at ``nproc`` = 0, 1, ``H*W``,
+    ``2**31 - 1`` and -5."""
+    n0 = int(nbits[0])
+    lens = [("1", 1), ("8", 8), ("nbits", n0), ("nbits+1", n0 + 1)]
+    lens += [(label, int(v[0])) for label, v in want_cases
+             if label.startswith("tile")]
+    out = [(f"out_len={label}", nproc, max(v, 1)) for label, v in lens]
+    for label, v in (("0", 0), ("1", 1), ("H*W", h * w),
+                     ("2**31-1", 2**31 - 1), ("-5", -5)):
+        out.append((f"nproc={label}", torch.full_like(nproc, v),
+                    h * w // 2 + 1))
+    return out
+
+
+def forged(shape, t: int, seed: int = 5) -> Tuple[np.ndarray, np.ndarray]:
+    """``(stego, overflow u8)`` that no encoder wrote, for one entry of
+    :data:`SHAPES`: the carriers plus uniform noise in ``[-3t, 3t]`` (a mix
+    of expanded and shifted pixels), and a random fifth of the overflow
+    bytes set to random nonzero values."""
+    _, b, h, w, dtype, hi = shape
+    rng = np.random.default_rng(seed + h * w + t)
+    imgs = carriers(rng, b, h, w, np.dtype(dtype), hi).astype(np.int64)
+    imgs += rng.integers(-3 * t, 3 * t + 1, imgs.shape)
+    over = rng.integers(1, 256, (b, h, w)) * (rng.random((b, h, w)) < 0.2)
+    return np.clip(imgs, 0, hi).astype(dtype), over.astype(np.uint8)
+
+
+def set_rank_nprocs(h: int, w: int, parity: int,
+                    tile_px: int) -> List[Tuple[str, int]]:
+    """``(label, nproc)`` at the set ranks that straddle a tile boundary:
+    the in-set count before the tile's first pixel (the tile then holds no
+    processed pixel) and one either side of it."""
+    cum = torch.cumsum(pee_ops.parity_mask(h, w, parity).reshape(-1), 0)
+    out = []
+    for k in _tile_ends(h, w, tile_px):
+        at = int(cum[k * tile_px - 1])
+        out += [(f"set{k}{d:+d}", at + d) for d in (-1, 0, 1)]
+    return out
