@@ -13,10 +13,17 @@ failure exits non-zero:
    compile per source, all at once, linked into one library);
 2. every kernel against its plain torch version on the card, exact, at
    512x512 / 2048x2048 / 480x640 uint16 and 500x501 uint8: K1/K2 with s in
-   {1, 4, 8} and wrapping, aliased and past-s windows; K3/K4 on batches of
-   three with both parities, T in {1, 2, 47, 128}, per-image wants of 0,
-   under capacity and over it (saturated), then 2**30 (the message-index
-   clamp), and an ``out_len`` below the expanded count; then the K3 and
+   {1, 4, 8} and wrapping, aliased and past-s windows; K2 on the boundary
+   plans of ``tests/torch_raster_cases.py`` (segment ends at every residue
+   mod 16, wraps mid-chunk, odd starts, ``out_len`` 1, 15, 16, 17 and past
+   every window) at uint8 and uint16, the stego at an aligned and an odd
+   element address, then a 2048x2048 five-plane plan launched 20 times with
+   identical outputs; K3/K4 on batches of three with both parities, T in
+   {1, 2, 47, 128}, per-image wants of 0, under capacity and over it
+   (saturated), then 2**30 (the message-index clamp), and an ``out_len``
+   below the expanded count, and on bright uint8 batches at ``max_val``
+   4095 (BitsStored 12: pixels wrap past 255, as in the JAX package); then
+   the K3 and
    K4 look-back stress cases of ``tests/torch_pee_stress.py``: K3 at wants
    at and beside the tile boundaries, 0, 1, cap, cap + 1 (narrow, wide and
    unaligned batches), each inverted by K4 back to the image; K4 with
@@ -45,7 +52,8 @@ failure exits non-zero:
 7. times, printed and not asserted: per call of each kernel and of its
    plain version (median of 20 CUDA-event reps, wrapper included; and
    device time alone from ``torch.profiler``) at the main path's shapes:
-   K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans, K3/K4 at the
+   K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans (and K2's share
+   of its bound's rate beside a torch copy of its bytes), K3/K4 at the
    2048x2048 3 Mbit PEE plan (pass 0 and pass 1); warm encode+decode
    cycles (host wall, stage means, device busy share): raster 512x512 with
    304 bits, PEE 512x512 with 304 bits and PEE 2048x2048 with 3 Mbit.
@@ -216,6 +224,58 @@ def phase2_raster(rng, dev) -> dict:
     return max_err
 
 
+K2_SHAPES = ((64, 64, "uint16"), (37, 53, "uint8"), (61, 67, "uint16"),
+             (500, 501, "uint8"))
+
+
+def phase2_k2(dev) -> tuple:
+    """K2 against its plain version on the boundary plans of
+    ``tests/torch_raster_cases.py``, the stego at an aligned and at an odd
+    element address (a view one element into its buffer), then on a
+    2048x2048 uint16 five-plane plan launched 20 times: every output
+    identical. Returns (max abs error, text for phase 2)."""
+    import numpy as np
+    import torch
+    import torch_raster_cases as rc
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    rng = np.random.default_rng(2026)
+    err = count = 0
+
+    def one(stego, plan, what):
+        nonlocal err, count
+        label, s, starts, lens, offs, out_len = plan
+        got = rk.raster_extract(stego, starts, lens, offs, s, out_len)
+        torch.cuda.synchronize()
+        ref = rk.raster_extract_plain(stego, starts, lens, offs, s, out_len)
+        e = max_abs_diff((got,), (ref,))
+        err = max(err, e)
+        count += 1
+        check(e == 0, f"K2 != plain on {label} ({what})")
+        return got
+
+    for h, w, dt in K2_SHAPES:
+        n = h * w
+        dt = np.dtype(dt)
+        for shift in (0, 1):
+            buf = torch.from_numpy(rng.integers(
+                0, 1 << (8 * dt.itemsize), n + shift).astype(dt)).to(dev)
+            stego = buf[shift:].view(h, w)
+            for plan in rc.boundary_plans(n, seed=n):
+                one(stego, plan, f"{h}x{w} {dt.name}, shift {shift}")
+    h = w = 2048
+    stego = torch.from_numpy(
+        rng.integers(0, 4096, (h, w)).astype(np.uint16)).to(dev)
+    plan = rc.five_plane_plan(h * w, seed=5)
+    first = one(stego, plan, "2048x2048 uint16")
+    for rep in range(20):
+        again = rk.raster_extract(stego, *plan[2:5], plan[1], plan[5])
+        check(torch.equal(again, first),
+              f"K2 repeat {rep} on the 2048x2048 five-plane plan differs")
+    return err, (f"K2 {count} boundary plans exact, 20 identical repeats of "
+                 f"the 2048x2048 five-plane plan ({plan[5]} bits)")
+
+
 def phase2_pee(dev) -> dict:
     """K3/K4 against their plain versions on batches of three phantoms with
     a row at the ceiling and a column at 0 (overflow pixels)."""
@@ -270,7 +330,48 @@ def phase2_pee(dev) -> dict:
                               f"{parity} out_len={out_len}")
                         check(torch.equal(gx[0], imgs),
                               f"K4 did not restore {h}x{w} {dt} T={t}")
+    phase2_pee_u8_wide(dev, max_err)
     return max_err
+
+
+def phase2_pee_u8_wide(dev, max_err) -> None:
+    """K3/K4 against their plain versions on bright uint8 images at
+    ``max_val`` 4095 (BitsStored 12): expanded pixels wrap past 255 as in
+    the JAX package, so only the plain version is the reference (the image
+    does not come back). Updates ``max_err``."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(4095)
+    i32 = dict(dtype=torch.int32, device=dev)
+    imgs = torch.from_numpy(np.stack([238 + cases.image(cases.Case(
+        "k", 500, 501, "uint8", 8, "text", "pee", 310 + k)) // 15
+        for k in range(3)]).astype(np.uint8)).to(dev)
+    msg = torch.from_numpy(
+        rng.integers(0, 2, (3, imgs[0].numel() // 2)).astype(np.uint8)).to(dev)
+    base = torch.tensor([0, 5, 11], **i32)
+    for t in (2, 47):
+        for parity in (0, 1):
+            for want in (torch.tensor([0, 700, 5000], **i32),
+                         torch.full((3,), 1 << 30, **i32)):
+                got = pk.pee_embed(imgs, msg, base, want, parity, t, 4095)
+                torch.cuda.synchronize()
+                ref = pk.pee_embed_plain(imgs, msg, base, want, parity, t,
+                                         4095)
+                err = max_abs_diff(got, ref)
+                max_err["pee_embed"] = max(max_err["pee_embed"], err)
+                check(err == 0, f"K3 != plain on uint8 max_val 4095 T={t} "
+                                f"parity={parity} want={want.tolist()}")
+                stego, over, _, nproc, _ = got
+                gx = pk.pee_extract(stego, over, nproc, parity, t, 8192)
+                torch.cuda.synchronize()
+                rx = pk.pee_extract_plain(stego, over, nproc, parity, t, 8192)
+                err = max_abs_diff(gx, rx)
+                max_err["pee_extract"] = max(max_err["pee_extract"], err)
+                check(err == 0, f"K4 != plain on uint8 max_val 4095 T={t} "
+                                f"parity={parity}")
 
 
 def k4_case(stego, over, nproc, parity, t, out_len, what):
@@ -565,6 +666,11 @@ def time_raster(results, dev) -> dict:
         row["k1_bound"] = bound(k1_bytes, k1_ops)
         row["k2_bound"] = bound(k2_bytes, 3 * out_len)
         row.update({f"dev_{k}": v for k, v in dev_row.items()})
+        # yardstick: one torch copy that moves K2's bytes (half read, half
+        # written)
+        src = torch.zeros(k2_bytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = device_ms(lambda: dst.copy_(src))
         timing[label] = row
         print(f"  {label} u16 s={meta.s} payload={out_len} bits, per call "
               f"(CUDA events, wrapper included): K1 {row['k1']:.4f} ms "
@@ -575,7 +681,12 @@ def time_raster(results, dev) -> dict:
               f" K2 {fmt_ms(dev_row['k2'])} "
               f"(plain {fmt_ms(dev_row['k2_plain'])}); bounds K1 "
               f"{row['k1_bound'][0]:.4f} ms ({k1_bytes} B), K2 "
-              f"{row['k2_bound'][0]:.4f} ms ({k2_bytes} B)", flush=True)
+              f"{row['k2_bound'][0]:.4f} ms ({k2_bytes} B)")
+        share = ("not measured" if dev_row["k2"] is None else
+                 f"{100 * row['k2_bound'][0] / dev_row['k2']:.1f}%")
+        print(f"  {label} u16 K2: {share} of its bound's rate; a torch copy "
+              f"of the same {k2_bytes} B takes {fmt_ms(copy_ms)} device",
+              flush=True)
     return timing
 
 
@@ -668,10 +779,12 @@ def main() -> int:
 
     # -- phase 2: kernels vs plain versions on the card ----------------------
     max_err = phase2_raster(np.random.default_rng(2024), dev)
+    k2_err, k2_txt = phase2_k2(dev)
+    max_err["raster_extract"] = max(max_err["raster_extract"], k2_err)
     max_err.update(phase2_pee(dev))
     stress_txt = phase2_pee_stress(dev)
     phase(2, f"K1-K4 == plain on the card (max abs err {max_err}); "
-             f"{stress_txt}")
+             f"{k2_txt}; {stress_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is

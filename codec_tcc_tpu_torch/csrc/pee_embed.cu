@@ -88,7 +88,8 @@ __device__ __forceinline__ void pee_embed_classify(
         const int s = x + (e >= t ? t : -t);
         const bool over = expandable ? v + 1 > max_val || v < 0
                                      : (e >= t ? s > max_val : s < 0);
-        // alt fits 16 bits wherever it is used (no overflow)
+        // alt fits 16 bits wherever it is used (no overflow: 0 <= alt <=
+        // max_val < 2**16, checked at the launch)
         xa[k] = (uint32_t)x | (uint32_t)(expandable ? v : s) << 16;
         expm |= (unsigned)expandable << k;
         ovfm |= (unsigned)over << k;
@@ -98,7 +99,9 @@ __device__ __forceinline__ void pee_embed_classify(
 // The stego run: pixels k = K0, K0 + STEP, ... with bit k of `change` set
 // (processed, no overflow) become alt, plus their message bit when
 // expandable: the r-th byte of `mw` for the pixel with r eligible pixels
-// before it in the run. Every other pixel keeps x.
+// before it in the run. Every other pixel keeps x. The (T) cast wraps a
+// uint8 pixel past 255 when max_val > 255 (BitsStored > 8), as the plain
+// version's .to(dtype) and the JAX package do.
 template <int K0, int STEP, typename T, int RUN>
 __device__ __forceinline__ void pee_embed_apply(
     const uint32_t (&xa)[RUN], unsigned change, unsigned expm, unsigned elig,
@@ -275,8 +278,10 @@ static int launch_pee_embed(const void* img, const void* msg,
                             int parity, int t, int max_val, void* stego,
                             void* over, int* scratch, void* stream) {
     // int pixel indices: n + w plus a tile stays below 2**31
+    // max_val < 2**16: a processed pixel's alt is packed in 16 bits
     if (batch < 1 || h < 1 || w < 1 || msg_len < 1 ||
-        (parity != 0 && parity != 1) || t < 1 ||
+        (parity != 0 && parity != 1) || t < 1 || max_val < 0 ||
+        max_val > 0xffff ||
         ((long long)h + 1) * w > 0x7fffffffLL - PEE_TILE_PX ||
         batch * pee_tiles(h, w) > 0x7fffffffLL) {
         return (int)cudaErrorInvalidValue;

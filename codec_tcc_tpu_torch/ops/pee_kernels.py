@@ -112,8 +112,12 @@ def pee_embed(
         raise ValueError(f"msg must be a (B, L) = ({b}, >=1) uint8 tensor on "
                          f"{imgs.device}, got {msg.dtype} {tuple(msg.shape)}")
     _check_scalars(b, imgs.device, msg_base=msg_base, want=want)
-    if not 0 <= max_val < (1 << (8 * imgs.element_size())):
-        raise ValueError(f"max_val {max_val} outside the {imgs.dtype} range")
+    # bounded by the pixel arithmetic, not by the dtype: a uint8 image with
+    # BitsStored > 8 embeds against 2**BitsStored - 1 and wraps past 255,
+    # as the JAX package does
+    if not 0 <= max_val < 1 << 16:
+        raise ValueError(f"max_val {max_val} outside [0, 65535]: the "
+                         f"kernels' pixel arithmetic holds 16 bits")
     if imgs.device.type == "cpu":
         return pee_embed_plain(imgs, msg, msg_base, want, parity, t, max_val)
     if imgs.device.type != "cuda":

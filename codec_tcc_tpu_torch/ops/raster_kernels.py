@@ -10,7 +10,9 @@ Two kernels carry the default encode/decode path on an NVIDIA Hopper GPU:
 * **K2** :func:`raster_extract` (``csrc/raster_extract.cu``) — the payload
   bits in message order, straight from the stego image. Replaces the Pallas
   extract tiers (``extract_aligned_batch``, ``extract_aligned_batch_padded``,
-  ``extract_raster_batch``) and the device assembly that followed them.
+  ``extract_raster_batch``) and the device assembly that followed them. Its
+  plan is resolved on the host into message-order segments
+  (:func:`extract_segments`).
 
 Both are built from the package's own sources, with the PEE kernels, into
 one library (:mod:`.kernel_library`) and bound through ``ctypes`` with a
@@ -36,14 +38,17 @@ from .kernel_library import check, library, stream_ptr
 __all__ = [
     "LAUNCHES",
     "MAX_PLANES",
+    "MAX_SEGMENTS",
     "raster_embed",
     "raster_embed_plain",
     "raster_extract",
     "raster_extract_plain",
+    "extract_segments",
     "reset_launch_counts",
 ]
 
 MAX_PLANES = 16       # RASTER_MAX_PLANES in csrc/raster_common.cuh
+MAX_SEGMENTS = 4 * MAX_PLANES + 1   # RASTER_MAX_SEGMENTS there
 _INT32_MAX = (1 << 31) - 1
 
 LAUNCHES = {"raster_embed": 0, "raster_extract": 0}
@@ -54,30 +59,33 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _plan_arrays(starts, lens, offs, s: int, n: int) -> Tuple[np.ndarray, ...]:
-    """Validate a plane plan and return it as int32 arrays with every start
-    reduced mod ``n`` (the kernels apply one ``+n`` wrap)."""
-    st = np.asarray(starts, dtype=np.int64).reshape(-1)
-    ln = np.asarray(lens, dtype=np.int64).reshape(-1)
-    of = np.asarray(offs, dtype=np.int64).reshape(-1)
-    npl = st.size
-    if not (ln.size == npl and of.size == npl and 0 < npl <= MAX_PLANES):
+def _plan_lists(starts, lens, offs, s: int, n: int) -> Tuple[list, ...]:
+    """Validate a plane plan and return it as lists of ints with every
+    start reduced mod ``n`` (the kernels apply one ``+n`` wrap)."""
+    st, ln, of = (np.asarray(v, dtype=np.int64).reshape(-1).tolist()
+                  for v in (starts, lens, offs))
+    npl = len(st)
+    if not (len(ln) == npl and len(of) == npl and 0 < npl <= MAX_PLANES):
         raise ValueError(
             f"plane plan needs 1..{MAX_PLANES} planes of equal length, got "
-            f"starts/lens/offs of {st.size}/{ln.size}/{of.size}"
+            f"starts/lens/offs of {len(st)}/{len(ln)}/{len(of)}"
         )
     if not 0 <= s <= npl:
         raise ValueError(f"cut point s={s} outside [0, {npl}]")
-    if (of < 0).any() or (ln < 0).any():
+    if min(of) < 0 or min(ln) < 0:
         raise ValueError("plane offsets and lengths must be >= 0")
-    if int(of.max()) + n > _INT32_MAX or int(ln.max()) > _INT32_MAX:
+    if max(of) + n > _INT32_MAX or max(ln) > _INT32_MAX:
         raise ValueError(
             "message offset + N or a plane length exceeds int32: the raster "
             "kernels index in int32 plans"
         )
-    return (
-        (st % n).astype(np.int32), ln.astype(np.int32), of.astype(np.int32)
-    )
+    return [v % n for v in st], ln, of
+
+
+def _plan_arrays(starts, lens, offs, s: int, n: int) -> Tuple[np.ndarray, ...]:
+    """:func:`_plan_lists` as int32 arrays."""
+    return tuple(np.asarray(v, np.int32)
+                 for v in _plan_lists(starts, lens, offs, s, n))
 
 
 def _check_cuda_image(t: torch.Tensor, what: str) -> None:
@@ -169,6 +177,54 @@ def raster_extract_plain(
     )
 
 
+def extract_segments(
+    starts, lens, offs, s: int, n: int, out_len: int, pixel_bits: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Resolve a plane plan into K2's segment plan: message order
+    ``[0, out_len)`` cut into ``count`` intervals, as int32 arrays
+    ``(begin, pos, plane)`` of ``count + 1``, ``count`` and ``count``
+    entries. Segment ``k`` holds bits ``begin[k] <= j < begin[k + 1]``
+    (``begin[count] = out_len``); bit ``j`` is bit ``plane[k]`` of pixel
+    ``pos[k] + j - begin[k]``, which stays below ``n`` (a window that wraps
+    past the raster end is two segments), or 0 where ``plane[k] = -1``.
+
+    The rules are the plain version's: the highest plane whose window
+    covers ``j`` wins; its bit is 0 when the plane is at or past ``s`` (or
+    ``pixel_bits``, the dtype's width) or when ``j`` lies ``n`` or more
+    bits into its window; uncovered bits are 0; starts are taken mod ``n``.
+    Neighbouring segments that continue each other are merged."""
+    if not 1 <= out_len <= _INT32_MAX:
+        raise ValueError(f"out_len {out_len} outside [1, 2**31 - 1]: K2 "
+                         f"indexes message order in int32")
+    st, ln, of = _plan_lists(starts, lens, offs, s, n)
+    planes = [p for p in range(len(st)) if ln[p] > 0]
+    cuts = {0, out_len}
+    for p in planes:
+        # window start and end, N bits in, and the wrap past the raster end
+        for c in (of[p], of[p] + ln[p], of[p] + n, of[p] + n - st[p]):
+            if 0 < c < out_len:
+                cuts.add(c)
+    bounds = sorted(cuts)
+    begin, pos, plane = [], [], []
+    for lo in bounds[:-1]:
+        read, px = -1, 0
+        for p in reversed(planes):          # the highest covering plane wins
+            rel = lo - of[p]
+            if 0 <= rel < ln[p]:
+                if p < min(s, pixel_bits) and rel < n:
+                    read, px = p, (st[p] + rel) % n
+                break
+        if plane and plane[-1] == read and (
+                read < 0 or pos[-1] + lo - begin[-1] == px):
+            continue                         # the previous segment runs on
+        begin.append(lo)
+        pos.append(px)
+        plane.append(read)
+    begin.append(out_len)
+    return (np.asarray(begin, np.int32), np.asarray(pos, np.int32),
+            np.asarray(plane, np.int32))
+
+
 def raster_extract(
     stego: torch.Tensor,          # (H, W) uint8/uint16
     starts: Sequence[int],
@@ -181,7 +237,8 @@ def raster_extract(
     highest plane whose window covers it (``0 <= j - off_p < len_p``):
     ``(stego[(start_p + j - off_p) mod N] >> p) & 1`` when ``p < s`` and
     ``j - off_p < N``, else 0; uncovered bits are 0 — exactly
-    ``codec_tcc_tpu.ops.host_extract.extract_raster_host``."""
+    ``codec_tcc_tpu.ops.host_extract.extract_raster_host``. On the GPU,
+    ``out_len`` must fit int32."""
     if out_len < 1:
         raise ValueError(f"out_len must be >= 1, got {out_len}")
     if stego.device.type == "cpu":
@@ -190,14 +247,16 @@ def raster_extract(
         raise ValueError(f"raster_extract runs on cuda or cpu, not {stego.device}")
     _check_cuda_image(stego, "stego")
     n = stego.numel()
-    st, ln, of = _plan_arrays(starts, lens, offs, s, n)
+    begin, pos, plane = extract_segments(starts, lens, offs, s, n, out_len,
+                                         8 * stego.element_size())
     out = torch.empty(out_len, dtype=torch.uint8, device=stego.device)
     lib = library()
     fn = (lib.raster_extract_u8 if stego.dtype == torch.uint8
           else lib.raster_extract_u16)
     err = fn(
-        stego.data_ptr(), st.ctypes.data, ln.ctypes.data, of.ctypes.data,
-        st.size, s, n, out_len, out.data_ptr(), stream_ptr(stego),
+        stego.data_ptr(), begin.ctypes.data, pos.ctypes.data,
+        plane.ctypes.data, plane.size, n, out_len, out.data_ptr(),
+        stream_ptr(stego),
     )
     check(lib, err, "raster_extract")
     LAUNCHES["raster_extract"] += 1

@@ -51,6 +51,46 @@ def test_kernels_match_plain_on_gpu(cuda, h, w, dtype):
         assert torch.equal(ex_k.cpu(), ex_p.cpu())
 
 
+@pytest.mark.parametrize("h,w,dtype", [(64, 64, np.uint16), (37, 53, np.uint8),
+                                       (61, 67, np.uint16),
+                                       (500, 501, np.uint8)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_k2_boundary_plans_match_plain_on_gpu(cuda, h, w, dtype, shift):
+    """K2 on the plans of ``tests/torch_raster_cases.py`` (segment ends at
+    every residue mod 16, wraps mid-chunk, odd starts, ``out_len`` 1, 15,
+    16, 17 and past every window), the stego at an aligned (shift 0) and an
+    odd element address (shift 1)."""
+    import torch_raster_cases as rc
+
+    n = h * w
+    rng = np.random.default_rng(n + shift)
+    hi = 1 << (8 * np.dtype(dtype).itemsize)
+    buf = torch.from_numpy(rng.integers(0, hi, n + shift).astype(dtype))
+    stego = buf.to(cuda)[shift:].view(h, w)
+    for _, s, starts, lens, offs, out_len in rc.boundary_plans(n, seed=n):
+        got = rk.raster_extract(stego, starts, lens, offs, s, out_len)
+        ref = rk.raster_extract_plain(stego, starts, lens, offs, s, out_len)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), ref.cpu())
+
+
+def test_k2_five_planes_2048_repeats_on_gpu(cuda):
+    """A capacity-sized plan at 2048x2048 uint16: equal to the plain
+    version, and 20 repeats give identical bits."""
+    import torch_raster_cases as rc
+
+    rng = np.random.default_rng(5)
+    stego = torch.from_numpy(
+        rng.integers(0, 4096, (2048, 2048)).astype(np.uint16)).to(cuda)
+    _, s, starts, lens, offs, out_len = rc.five_plane_plan(stego.numel(), 5)
+    first = rk.raster_extract(stego, starts, lens, offs, s, out_len)
+    ref = rk.raster_extract_plain(stego, starts, lens, offs, s, out_len)
+    assert torch.equal(first, ref)
+    for _ in range(20):
+        assert torch.equal(
+            rk.raster_extract(stego, starts, lens, offs, s, out_len), first)
+
+
 def test_gpu_encode_equals_cpu_encode(cuda):
     rng = np.random.default_rng(1)
     img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
@@ -119,6 +159,32 @@ def test_pee_kernels_match_plain_on_gpu(cuda, h, w, dtype, t):
             restored = got[0]
             assert torch.equal(restored.cpu().to(torch.int32),
                                imgs.cpu().to(torch.int32))
+
+
+@pytest.mark.parametrize("t", [2, 47])
+def test_pee_kernels_u8_max_val_4095_match_plain_on_gpu(cuda, t):
+    """A uint8 image with BitsStored 12 embeds against 4095: expanded pixels
+    wrap past 255 in K3 as in its plain version (and the JAX package), and
+    K4 inverts what K3 wrote as its plain version does."""
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(t)
+    b = 3
+    imgs = 238 + _pee_batch(rng, b, 61, 67, np.uint8) // 15
+    imgs = torch.from_numpy(imgs.astype(np.uint8)).to(cuda)
+    msg = torch.from_numpy(
+        rng.integers(0, 2, (b, 61 * 67 // 2)).astype(np.uint8)).to(cuda)
+    base = torch.tensor([0, 5, 11], dtype=torch.int32, device=cuda)
+    for parity in (0, 1):
+        for want in ([0, 300, 900], [1 << 30] * 3):
+            want = torch.tensor(want, dtype=torch.int32, device=cuda)
+            got = pk.pee_embed(imgs, msg, base, want, parity, t, 4095)
+            ref = pk.pee_embed_plain(imgs, msg, base, want, parity, t, 4095)
+            torch.cuda.synchronize()
+            for g, r in zip(got, ref):
+                assert torch.equal(g.cpu().to(torch.int32),
+                                   r.cpu().to(torch.int32))
+            _k4_against_plain(got[0], got[1], got[3], parity, t, 4096)
 
 
 def _k4_against_plain(stego, over, nproc, parity, t, out_len):

@@ -313,7 +313,9 @@ def test_wrappers_refuse_bad_arguments(bad):
         "msg_rows": (embed, "msg", embed["msg"][:1]),
         "want_dtype": (embed, "want", z.to(torch.int64)),
         "parity": (embed, "parity", 2),
-        "max_val": (embed, "max_val", 256),
+        # bounded by the 16-bit pixel arithmetic, not by the dtype: uint8
+        # with BitsStored > 8 takes max_val up to 65535
+        "max_val": (embed, "max_val", 1 << 16),
         "t": (extract, "t", 0),
         "out_len": (extract, "out_len", 0),
         "overflow_shape": (extract, "overflow", extract["overflow"][:, :4]),

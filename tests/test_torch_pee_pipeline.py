@@ -1,8 +1,9 @@
 """The port's PEE pipeline (on the CPU, through the kernels' plain versions)
 against the JAX package's: single-image and batch containers
 byte-identical, each side decoding the other's, threshold escalation, the
-``max_val`` fallback, the capacity error, the capacity probe, the copied
-host functions and the committed parity hashes."""
+``max_val`` fallback, uint8 images with BitsStored > 8 (the reference's
+wrap past 255 included), the capacity error, the capacity probe, the
+copied host functions and the committed parity hashes."""
 
 import numpy as np
 import pytest
@@ -82,6 +83,75 @@ def test_pee_max_val_falls_back_to_the_dtype():
     assert res_p.meta.bits_stored == 12
     dec = port.decode_container(res_p.container, device="cpu")
     np.testing.assert_array_equal(dec.original, img)
+
+
+def _u8_phantom(peak, seed, h=32, w=32):
+    """A smooth uint8 phantom whose brightest pixel is ``peak``."""
+    img = _image(h, w, np.uint16, 12, seed).astype(np.float64)
+    return np.rint(img * peak / img.max()).astype(np.uint8)
+
+
+def _u8_bright(seed, h=32, w=32):
+    """A smooth uint8 phantom squeezed into 238-255."""
+    img = _image(h, w, np.uint8, 8, seed).astype(np.int32)
+    return (238 + img * 17 // 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("peak,bits_stored,nbits,seed", [
+    (120, 12, 300, 142), (200, 9, 500, 139), (255, 16, 100, 145)],
+    ids=["peak120-bs12", "peak200-bs9", "peak255-bs16"])
+def test_pee_u8_above_8_bits_stored_matches_jax(peak, bits_stored, nbits,
+                                                seed):
+    """A uint8 image whose BitsStored exceeds 8 embeds against
+    ``2**bits_stored - 1``, as in the JAX package: the same container, and
+    both decodes give the payload and the original back."""
+    img = _u8_phantom(peak, seed)
+    bits = np.random.default_rng(nbits).integers(0, 2, nbits, dtype=np.uint8)
+    res_p, res_j = _both(img, bits, bits_stored)
+    assert res_p.container == res_j.container
+    assert res_p.meta.bits_stored == bits_stored
+    for dec in (port.decode_container(res_p.container, device="cpu"),
+                jax_pkg.decode_container(res_j.container)):
+        np.testing.assert_array_equal(dec.payload_bits, bits)
+        np.testing.assert_array_equal(dec.original, img)
+
+
+@pytest.mark.parametrize("bits_stored", [9, 12, 16])
+def test_pee_batch_u8_above_8_bits_stored_matches_jax(bits_stored):
+    imgs = np.stack([_u8_phantom(peak, seed=140 + i)
+                     for i, peak in enumerate((120, 200, 255))])
+    rng = np.random.default_rng(bits_stored)
+    pays = [rng.integers(0, 2, n, dtype=np.uint8) for n in (100, 300, 500)]
+    res_p = port_batch.encode_pee_batch(
+        imgs, pays, port.EncodeConfig(**PEE), bits_stored=bits_stored,
+        device="cpu")
+    res_j = jax_batch.encode_pee_batch(
+        imgs, pays, jax_pkg.EncodeConfig(**PEE), bits_stored=bits_stored)
+    assert res_p.containers == res_j.containers
+    decs_p = port_batch.decode_pee_batch(res_p.containers, device="cpu")
+    decs_j = jax_batch.decode_pee_batch(res_j.containers)
+    for dec_p, dec_j in zip(decs_p, decs_j):
+        np.testing.assert_array_equal(dec_p.payload_bits, dec_j.payload_bits)
+        np.testing.assert_array_equal(dec_p.original, dec_j.original)
+
+
+def test_pee_u8_bright_wraps_like_jax():
+    """The reference fault, copied on purpose: on a bright uint8 image with
+    BitsStored 12, the JAX package's PEE embeds against 4095, so expanded
+    pixels wrap past 255 and its container does not decode to the payload
+    or the original. The port gives the same bytes and the same wrong
+    decode."""
+    img = _u8_bright(seed=150)
+    bits = np.random.default_rng(400).integers(0, 2, 400, dtype=np.uint8)
+    res_p, res_j = _both(img, bits, 12)
+    assert res_p.container == res_j.container
+    assert int(res_j.stego.min()) < 238          # wrapped past 255
+    dec_p = port.decode_container(res_p.container, device="cpu")
+    dec_j = jax_pkg.decode_container(res_j.container)
+    np.testing.assert_array_equal(dec_p.payload_bits, dec_j.payload_bits)
+    np.testing.assert_array_equal(dec_p.original, dec_j.original)
+    assert not (np.array_equal(dec_j.payload_bits, bits)
+                and np.array_equal(dec_j.original, img))
 
 
 def test_pee_capacity_error_at_the_largest_threshold():

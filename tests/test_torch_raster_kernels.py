@@ -2,7 +2,9 @@
 ``raster_extract`` against every formulation of the same functions in the
 JAX package: the Pallas kernels (interpret mode on the CPU), the XLA
 ``embed``/``xor_maps_packed_batch``/``extract_message_device`` and the host
-``extract_raster_host``. All comparisons are exact.
+``extract_raster_host``; and K2's segment plan (``extract_segments``),
+rebuilt in numpy, against the host extractor on the boundary plans of
+``tests/torch_raster_cases.py``. All comparisons are exact.
 
 The CUDA kernels themselves are held against these plain versions on the
 GPU (``chip_smoke.py``, ``tests/test_torch_cuda.py``).
@@ -21,6 +23,8 @@ from codec_tcc_tpu.ops import pallas_embed as pe
 from codec_tcc_tpu.ops import segments as jax_segments
 from codec_tcc_tpu_torch.ops import embed as torch_embed
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+import torch_raster_cases as rc
 
 torch.set_num_threads(1)
 
@@ -187,26 +191,13 @@ def test_k2_matches_pallas_raster_extract_and_host(h, w, dtype):
     np.testing.assert_array_equal(got, xla)
 
 
-def _degenerate_extract_plans(n):
-    """(s, starts, lens, offs, out_len): the reference's negative-size
-    accident aliases two planes onto one message offset (the higher plane
-    wins); a plane past s with a nonzero length writes zeros over its span
-    (ops/host_extract.py:50-53); a window longer than N zero-fills past N."""
-    return [
-        (3, [10, n - 20, 300, 0], [500, 400, 200, 0], [0, 0, 450, 0], 800),
-        (2, [0, 100, 50, 7], [300, 200, 250, 0], [0, 300, 100, 0], 700),
-        (1, [n - 3, 0, 0, 0], [n + 40, 0, 0, 0], [5, 0, 0, 0], n + 100),
-        (4, [1, 2, 3, 4], [64, 64, 64, 64], [0, 32, 32, 96], 160),
-    ]
-
-
 @pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
 @pytest.mark.parametrize("case", range(4))
 def test_k2_degenerate_plans_match_host(dtype, case):
     rng = np.random.default_rng(30 + case)
     h, w = 64, 64
     n = h * w
-    s, starts, lens, offs, out_len = _degenerate_extract_plans(n)[case]
+    _, s, starts, lens, offs, out_len = rc.degenerate_plans(n)[case]
     starts, lens, offs = (np.asarray(v, np.int32) for v in (starts, lens, offs))
     stego = _image(rng, h, w, dtype)
     got = _plain_k2(stego, starts, lens, offs, s, out_len)
@@ -224,12 +215,105 @@ def test_k2_start_taken_mod_n():
     rng = np.random.default_rng(5)
     stego = _image(rng, 32, 128, np.uint16)
     n = stego.size
-    starts = np.array([n + 17, 3 * n - 1, 0, 0], np.int64)
-    lens = np.array([100, 60, 0, 0], np.int64)
-    offs = np.array([0, 100, 0, 0], np.int64)
-    got = _plain_k2(stego, starts, lens, offs, 2, 160)
-    host = host_extract.extract_raster_host(stego, starts, lens, offs, 2, 160)
+    _, s, starts, lens, offs, out_len = rc.start_mod_n_plan(n)
+    starts, lens, offs = (np.asarray(v, np.int64) for v in (starts, lens, offs))
+    got = _plain_k2(stego, starts, lens, offs, s, out_len)
+    host = host_extract.extract_raster_host(stego, starts, lens, offs, s,
+                                            out_len)
     np.testing.assert_array_equal(got, host)
+
+
+def _from_segments(stego, begin, pos, plane):
+    """numpy: the payload bits K2 builds from its resolved segments."""
+    flat = np.ascontiguousarray(stego).ravel()
+    out = np.zeros(int(begin[-1]), np.uint8)
+    for k in range(plane.size):
+        lo, hi = int(begin[k]), int(begin[k + 1])
+        if plane[k] >= 0:
+            out[lo:hi] = (flat[pos[k]:pos[k] + hi - lo] >> plane[k]) & 1
+    return out
+
+
+def _check_segments(begin, pos, plane, n, out_len, pixel_bits):
+    """The table K2's launch accepts (csrc/raster_extract.cu)."""
+    assert 1 <= plane.size <= rk.MAX_SEGMENTS
+    assert begin.size == plane.size + 1 == pos.size + 1
+    assert begin[0] == 0 and begin[-1] == out_len
+    seg_len = np.diff(begin.astype(np.int64))
+    assert (seg_len > 0).all()
+    assert ((plane >= -1) & (plane < pixel_bits)).all()
+    read = plane >= 0
+    assert (pos[read] >= 0).all() and (pos[read] + seg_len[read] <= n).all()
+
+
+K2_LABELS = [plan[0] for plan in rc.boundary_plans(64 * 64)]
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (37, 53)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("label", K2_LABELS)
+def test_k2_segments_rebuild_host_extract(label, dtype, h, w):
+    """The segment plan K2 runs on, rebuilt in numpy, equals the JAX
+    package's host extractor and the plain K2 on every boundary plan:
+    segment ends at each residue mod 16, wraps mid-chunk, odd starts,
+    aliased and past-s windows, windows longer than N, starts >= N and
+    ``out_len`` 1, 15, 16, 17 and past every window."""
+    n = h * w
+    plans = {plan[0]: plan for plan in rc.boundary_plans(n)}
+    _, s, starts, lens, offs, out_len = plans[label]
+    stego = _image(np.random.default_rng(len(label)), h, w, dtype)
+    bits = 8 * np.dtype(dtype).itemsize
+    begin, pos, plane = rk.extract_segments(starts, lens, offs, s, n,
+                                            out_len, bits)
+    _check_segments(begin, pos, plane, n, out_len, bits)
+    got = _from_segments(stego, begin, pos, plane)
+    host = host_extract.extract_raster_host(stego, starts, lens, offs, s,
+                                            out_len)
+    np.testing.assert_array_equal(got, host)
+    np.testing.assert_array_equal(
+        got, _plain_k2(stego, starts, lens, offs, s, out_len))
+
+
+@pytest.mark.parametrize("h,w,dtype", GEOMS)
+def test_k2_segments_of_real_plans(h, w, dtype):
+    """Plans as the pipelines make them resolve to few segments, each a
+    whole window piece, and rebuild the host extractor's bits."""
+    rng = np.random.default_rng(300)
+    n = h * w
+    nbits = 8 if dtype == np.uint16 else 4
+    stego = _image(rng, h, w, dtype)
+    for _ in range(5):
+        s, starts, lens, offs, _ = _real_plan(rng, n, nbits)
+        out_len = max(int((lens + offs).max(initial=0)), 1)
+        begin, pos, plane = rk.extract_segments(starts, lens, offs, s, n,
+                                                out_len, 8 * stego.itemsize)
+        _check_segments(begin, pos, plane, n, out_len, 8 * stego.itemsize)
+        assert plane.size <= 2 * nbits + 1
+        np.testing.assert_array_equal(
+            _from_segments(stego, begin, pos, plane),
+            host_extract.extract_raster_host(stego, starts, lens, offs, s,
+                                             out_len))
+
+
+def test_k2_segments_fit_the_table_at_worst():
+    """Sixteen planes, each longer than N, wrapping and at staggered
+    offsets, cut message order four times each: 65 segments, the size of
+    the launch's table."""
+    n = 1000
+    starts = [7 + 13 * p for p in range(16)]
+    lens = [n + 50 + p for p in range(16)]
+    offs = [1 + 3 * p for p in range(16)]
+    out_len = 2 * n + 100
+    begin, pos, plane = rk.extract_segments(starts, lens, offs, 16, n,
+                                            out_len, 16)
+    _check_segments(begin, pos, plane, n, out_len, 16)
+    stego = _image(np.random.default_rng(1), 10, 100, np.uint16)
+    np.testing.assert_array_equal(
+        _from_segments(stego, begin, pos, plane),
+        host_extract.extract_raster_host(stego, starts, lens, offs, 16,
+                                         out_len))
+    with pytest.raises(ValueError, match="int32"):
+        rk.extract_segments(starts, lens, offs, 16, n, 1 << 31, 16)
 
 
 def test_wrappers_on_cpu_run_plain_and_count_no_launch():

@@ -1,31 +1,39 @@
 #!/usr/bin/env python3
-"""Iterate on the PEE kernels of the PyTorch/CUDA port on one GPU, K3
-``pee_embed`` or K4 ``pee_extract``, without the whole ``chip_smoke.py``.
+"""Iterate on one kernel of the PyTorch/CUDA port on one GPU, K3
+``pee_embed``, K4 ``pee_extract`` or K2 ``raster_extract``, without the
+whole ``chip_smoke.py``.
 
-    python3 tools/torch_pee_embed_probe.py [--kernel embed|extract] [--ptxas] [--sass PATH] [--check] [--time]
+    python3 tools/torch_pee_embed_probe.py [--kernel embed|extract|raster_extract] [--ptxas] [--sass PATH] [--check] [--time]
 
 * ``--kernel``: the kernel the other options look at (default ``embed``,
-  K3; ``extract`` is K4).
+  K3; ``extract`` is K4, ``raster_extract`` K2).
 * ``--ptxas``: registers, shared memory and spills of every kernel in its
-  source, ``codec_tcc_tpu_torch/csrc/pee_embed.cu`` or ``pee_extract.cu``
-  (``nvcc -Xptxas -v``).
+  source, ``codec_tcc_tpu_torch/csrc/pee_embed.cu``, ``pee_extract.cu`` or
+  ``raster_extract.cu`` (``nvcc -Xptxas -v``).
 * ``--sass PATH``: the uint16 kernel's SASS (``cuobjdump``) into PATH,
   and its instruction count by opcode.
-* ``--check``: the look-back stress cases of ``tests/torch_pee_stress.py``
-  (``chip_smoke.py`` phase 2, both kernels): K3 against its plain version
-  with K4 inverting each output, K4 at ``out_len`` and ``nproc`` at its
-  tile boundaries and on forged inputs, all outputs exact, and the
-  many-tile launch of each 20 times, identical.
-* ``--time``: the kernel at the 2048x2048 uint16 3 Mbit PEE plan (the
-  ``pee_cr2048_u16_3m`` parity case; K3 pass 0 and pass 1, K4 pass 1 and
-  pass 0 as the decoder runs them): device time per call from
-  ``torch.profiler`` split by CUDA activity (kernel, memset), per call
-  with CUDA events, the plain version, the bytes bound; beside it the same
-  for the kernel's variants (:data:`VARIANTS`), built from patched copies
-  of the sources (a part stubbed out, whose outputs are then wrong and
-  only timed; another design of one part; other block sizes and register
-  limits), and a torch copy of the same bytes as a yardstick of the
-  achievable rate.
+* ``--check``: for K3 and K4 the look-back stress cases of
+  ``tests/torch_pee_stress.py`` (``chip_smoke.py`` phase 2, both
+  kernels): K3 against its plain version with K4 inverting each output,
+  K4 at ``out_len`` and ``nproc`` at its tile boundaries and on forged
+  inputs, all outputs exact, and the many-tile launch of each 20 times,
+  identical; for K2 the boundary plans of ``tests/torch_raster_cases.py``
+  and 20 repeats of a 2048x2048 five-plane launch (``chip_smoke.py``
+  phase 2).
+* ``--time``: the kernel at its main path's largest plan: K3 and K4 at the
+  2048x2048 uint16 3 Mbit PEE plan (the ``pee_cr2048_u16_3m`` parity case;
+  K3 pass 0 and pass 1, K4 pass 1 and pass 0 as the decoder runs them), K2
+  at the ``cr2048_u16_full`` raster plan (s = 5, 9,227,467 bits): device
+  time per call from ``torch.profiler`` split by CUDA activity (kernel,
+  memset), per call with CUDA events, the plain version, the bytes bound;
+  beside it the same for the kernel's variants (:data:`VARIANTS`), built
+  from patched copies of the sources (a part stubbed out, whose outputs
+  are then wrong and only timed; another design of one part; other block
+  sizes and register limits; for K2 also its first design, one thread per
+  bit), a torch copy
+  of the same bytes as a yardstick of the achievable rate and, for K2,
+  the download of its bits beside that of the same bits packed eight to
+  a byte.
 
 Prints the card's name and power limit first; fails without a GPU.
 """
@@ -33,19 +41,26 @@ Prints the card's name and power limit first; fails without a GPU.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path[:0] = [ROOT, os.path.join(ROOT, "tests")]
 
-# kernel -> its source and the mangled name of its uint16 instantiation
-SOURCES = {"embed": ("pee_embed.cu", "_Z16pee_embed_kernelIt"),
-           "extract": ("pee_extract.cu", "_Z18pee_extract_kernelIt")}
+# kernel -> its source, the header its variants may patch too, and the
+# mangled name of its uint16 instantiation
+SOURCES = {"embed": ("pee_embed.cu", "pee_common.cuh",
+                     "_Z16pee_embed_kernelIt"),
+           "extract": ("pee_extract.cu", "pee_common.cuh",
+                       "_Z18pee_extract_kernelIt"),
+           "raster_extract": ("raster_extract.cu", "raster_common.cuh",
+                              "_Z21raster_extract_kernelIt")}
 _NO_SLEEP = (r"__nanosleep\(32\);", "")
 _NO_TICKET = (r"pee_take_ticket\(ticket, &s_tile\)", "(int)blockIdx.x")
 _NO_LOOKBACK = (r"pee_lookback\(\s*status.*?\);", "0u;")
@@ -68,9 +83,119 @@ def _min_blocks(kernel, n):
 
 
 
+# K2 as first written: one thread per output bit, a plane walk per bit
+# (raster_extract.cu from its #include on); its entry points take the
+# plane plan itself, not the segments
+FIRST_K2_SOURCE = """// K2 raster_extract as first written.
+#include "raster_common.cuh"
+
+template <typename T>
+__global__ void raster_extract_kernel(const T* __restrict__ stego,
+                                      RasterPlan plan, int np, int s,
+                                      long long n, long long out_len,
+                                      uint8_t* __restrict__ out) {
+    const long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= out_len) return;
+    uint8_t bit = 0;
+    for (int p = np - 1; p >= 0; --p) {
+        const long long len = plan.len[p];
+        if (len <= 0) continue;
+        const long long rel = j - (long long)plan.off[p];
+        if (rel < 0 || rel >= len) continue;
+        if (p < s && rel < n) {
+            long long pos = (long long)plan.start[p] + rel;   // start < n
+            if (pos >= n) pos -= n;
+            bit = (uint8_t)(((uint32_t)stego[pos] >> p) & 1u);
+        }
+        break;
+    }
+    out[j] = bit;
+}
+
+template <typename T>
+static int launch_extract(const void* stego, const int* starts,
+                          const int* lens, const int* offs, int np, int s,
+                          long long n, long long out_len, void* out,
+                          void* stream) {
+    if (np < 0 || np > RASTER_MAX_PLANES || s < 0 || s > np || n <= 0 ||
+        out_len < 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const RasterPlan plan = raster_make_plan(starts, lens, offs, np);
+    if (out_len == 0) return 0;
+    const long long blocks = (out_len + RASTER_THREADS - 1) / RASTER_THREADS;
+    raster_extract_kernel<T><<<(unsigned)blocks, RASTER_THREADS, 0,
+                               (cudaStream_t)stream>>>(
+        (const T*)stego, plan, np, s, n, out_len, (uint8_t*)out);
+    return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int raster_extract_u8(const void* stego, const int* starts, const int* lens,
+                      const int* offs, int np, int s, long long n,
+                      long long out_len, void* out, void* stream) {
+    return launch_extract<uint8_t>(stego, starts, lens, offs, np, s, n,
+                                   out_len, out, stream);
+}
+
+int raster_extract_u16(const void* stego, const int* starts, const int* lens,
+                       const int* offs, int np, int s, long long n,
+                       long long out_len, void* out, void* stream) {
+    return launch_extract<uint16_t>(stego, starts, lens, offs, np, s, n,
+                                    out_len, out, stream);
+}
+
+}  // extern "C"
+"""
+FIRST_K2 = "first design (one thread per bit, plane walk)"
+
+
+def _k2_bytes(n):
+    return (r"#define RASTER_EXTRACT_BYTES 16",
+            f"#define RASTER_EXTRACT_BYTES {n}")
+
+
+def _k2_threads(n):
+    return (r"#define RASTER_EXTRACT_THREADS 256",
+            f"#define RASTER_EXTRACT_THREADS {n}")
+
+
+# Design 2: a block whose 4,096 bits lie in one segment stages its pixels
+# in shared memory with one coalesced pass of aligned vectors; its threads
+# then shift their runs out of shared memory. Other blocks run design 1.
+_K2_STAGED = """    if (j0 >= out_len) return;
+    {
+        constexpr int SPAN = RASTER_EXTRACT_THREADS * RASTER_EXTRACT_BYTES;
+        __shared__ uint4 s_px[SPAN * (int)sizeof(T) / 16 + 1];
+        const unsigned b0 = j0 - threadIdx.x * RASTER_EXTRACT_BYTES;
+        const int kb = raster_find_segment(seg, b0);
+        if (b0 + SPAN <= (unsigned)seg.begin[kb + 1] && seg.plane[kb] >= 0) {
+            const uint8_t* a = reinterpret_cast<const uint8_t*>(
+                stego + seg.pos[kb] + (b0 - seg.begin[kb]));
+            const int r = (int)((uintptr_t)a & 15u);
+            const uint4* v = reinterpret_cast<const uint4*>(a - r);
+            const int nv = (r + SPAN * (int)sizeof(T) + 15) / 16;
+            for (int i = threadIdx.x; i < nv; i += RASTER_EXTRACT_THREADS) {
+                s_px[i] = v[i];
+            }
+            __syncthreads();
+            uint32_t o[RASTER_EXTRACT_BYTES / 4];
+            raster_bits_of_run<T, RASTER_EXTRACT_BYTES>(
+                reinterpret_cast<const T*>(
+                    reinterpret_cast<const uint8_t*>(s_px) + r) +
+                    threadIdx.x * RASTER_EXTRACT_BYTES,
+                seg.plane[kb], o);
+            raster_store_chunk<RASTER_EXTRACT_BYTES>(out + j0, o,
+                                                     out_len - j0);
+            return;
+        }
+    }
+"""
+
 # kernel -> variant name -> [(pattern, replacement), ...], each applied
-# where it matches (once over the kernel's source and csrc/pee_common.cuh);
-# the variants that change what is computed are timed only
+# where it matches (once over the kernel's source and its header); the
+# variants that change what is computed are timed only
 VARIANTS = {
     "embed": {
         "no look-back (prefix 0; time only)": [_NO_LOOKBACK],
@@ -139,6 +264,23 @@ VARIANTS = {
             [_min_blocks("extract", None)],
         "256 threads, at least 5 blocks per SM": [_min_blocks("extract", 5)],
     },
+    "raster_extract": {
+        FIRST_K2: [(r"\A// K2 raster_extract.*\Z",
+                  lambda m: FIRST_K2_SOURCE)],
+        "no stores (time only)":
+            [(r"raster_store_chunk<CHUNK>\(out \+ j0, o, out_len - j0\);",
+              "if (o[0] == 0x12345678u) out[j0] = 1;")],
+        "no pixel loads on the vector path (time only)":
+            [(r"raster_bits_of_run<T, CHUNK>\(\s*stego.*?\);",
+              "o[0] = j0 >> p;")],
+        "design 2: block stages its pixels in shared memory":
+            [(r"    if \(j0 >= out_len\) return;\n",
+              lambda m: _K2_STAGED)],
+        "8 bytes per thread": [_k2_bytes(8)],
+        "32 bytes per thread": [_k2_bytes(32)],
+        "128 threads per block": [_k2_threads(128)],
+        "512 threads per block": [_k2_threads(512)],
+    },
 }
 
 
@@ -166,7 +308,7 @@ def sass(kernel: str, out: str) -> None:
     text = subprocess.run([cuobjdump, "-sass", str(kl.build_library())],
                           capture_output=True, text=True, check=True).stdout
     funcs = text.split("Function : ")
-    body = next(f for f in funcs if f.startswith(SOURCES[kernel][1]))
+    body = next(f for f in funcs if f.startswith(SOURCES[kernel][2]))
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w", encoding="utf-8") as f:
         f.write(body)
@@ -178,10 +320,13 @@ def sass(kernel: str, out: str) -> None:
           f"{dict(ops.most_common(30))}")
 
 
-def check(dev) -> None:
+def check(kernel, dev) -> None:
     import chip_smoke
 
-    print(chip_smoke.phase2_pee_stress(dev), flush=True)
+    if kernel == "raster_extract":
+        print(chip_smoke.phase2_k2(dev)[1], flush=True)
+    else:
+        print(chip_smoke.phase2_pee_stress(dev), flush=True)
 
 
 def variant_library(kernel, name, tmp):
@@ -192,7 +337,7 @@ def variant_library(kernel, name, tmp):
     src = os.path.join(tmp, f"csrc{len(os.listdir(tmp))}")
     shutil.copytree(kl.CSRC, src)
     texts = {}
-    for fname in (SOURCES[kernel][0], "pee_common.cuh"):
+    for fname in SOURCES[kernel][:2]:
         with open(os.path.join(src, fname), encoding="utf-8") as f:
             texts[fname] = f.read()
     for pattern, repl in VARIANTS[kernel][name]:
@@ -237,7 +382,7 @@ def profile_split(fn, reps=50):
     return {k: v for k, v in split.items() if v > 0}
 
 
-def row(label, fn, n, nbytes=None):
+def row(label, fn, nbytes=None, ops=0):
     """Prints one timed line: device time split by activity, per call."""
     import chip_smoke
 
@@ -245,18 +390,20 @@ def row(label, fn, n, nbytes=None):
     dev_ms = sum(split.values())
     ms = chip_smoke.cuda_median_ms(fn)
     bound = ("" if nbytes is None else
-             f", bound {chip_smoke.bound(nbytes, 20 * n)[0]:.4f} ms "
+             f", bound {chip_smoke.bound(nbytes, ops)[0]:.4f} ms "
              f"({nbytes} B)")
     print(f"  {label}: device {dev_ms:.4f} ms "
           f"{ {k: round(v, 4) for k, v in split.items()} }, per call "
           f"{ms:.4f} ms{bound}", flush=True)
 
 
-def plan(dev):
-    """The 3 Mbit 2048x2048 uint16 plan: image, message, T and the calls of
-    both passes of each kernel as (label, kernel call, plain call, bytes
-    the function must move)."""
+def pee_plan(dev):
+    """The 3 Mbit 2048x2048 uint16 plan: the calls of both passes of K3
+    and K4 as (label, kernel call, plain call, bytes the function must
+    move, its operations), and a yardstick for each as (label, call,
+    bytes)."""
     import torch
+    import chip_smoke
     import torch_port_cases as cases
     from codec_tcc_tpu_torch.models.pee import message_buffer
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
@@ -266,6 +413,7 @@ def plan(dev):
     img = cases.image(case)
     bits = cases.payload_bits(case, 0)
     n, max_val = img.size, (1 << case.bits_stored) - 1
+    ops = chip_smoke.K3_K4_OPS_PER_PIXEL * n
     i32 = dict(dtype=torch.int32, device=dev)
     img_d = torch.from_numpy(img).to(dev)[None]
     msg_d = message_buffer([bits], dev)
@@ -281,7 +429,7 @@ def plan(dev):
                pk.pee_embed(im, msg_d, base, wv, p, t, max_val)),
               (lambda im=im, base=base, wv=wv, p=p:
                pk.pee_embed_plain(im, msg_d, base, wv, p, t, max_val)),
-              2 * n + 2 * n + n + int(used))
+              2 * n + 2 * n + n + int(used), ops)
              for p, im, base, wv, used in ((0, img_d, zero, want, u0),
                                            (1, s0, u0, want - u0, u1))]
     extract = [(f"pass {p}",
@@ -289,48 +437,129 @@ def plan(dev):
                  pk.pee_extract(st, over, np_, p, t, out_len)),
                 (lambda st=st, np_=np_, p=p:
                  pk.pee_extract_plain(st, over, np_, p, t, out_len)),
-                2 * n + n + 2 * n + out_len)
+                2 * n + n + 2 * n + out_len, ops)
                for p, st, np_ in ((1, s1, n1), (0, r1, n0))]
     print(f"2048x2048 u16 T={t}, {bits.size} bits, K4 out_len {out_len}",
           flush=True)
     yardsticks = {}
     stego = torch.empty_like(img_d)
     ovf = torch.empty(img_d.shape, dtype=torch.uint8, device=dev)
-    yardsticks["embed"] = (
+    yardsticks["embed"] = [(
         "torch copy of the bytes (image -> stego, zero overflow map)",
-        lambda: (stego.copy_(img_d), ovf.zero_()), 5 * n)
+        lambda: (stego.copy_(img_d), ovf.zero_()), 5 * n)]
     flat = over.reshape(-1)
     bits_d = torch.empty(out_len, dtype=torch.uint8, device=dev)
-    yardsticks["extract"] = (
+    yardsticks["extract"] = [(
         "torch copy of the bytes (stego -> restored, overflow map -> bits)",
         lambda: (stego.copy_(s1), bits_d.copy_(flat[:out_len])),
-        2 * n + 2 * n + 2 * out_len)
-    return {"embed": embed, "extract": extract}, yardsticks, n
+        2 * n + 2 * n + 2 * out_len)]
+    return {"embed": embed, "extract": extract}, yardsticks
+
+
+def raster_plan(dev):
+    """K2 at the ``cr2048_u16_full`` plan (the stego encoded on the card),
+    as :func:`pee_plan` gives K3 and K4, plus the first design's call on a
+    library built from its source and the downloads of the bits."""
+    import numpy as np
+    import torch
+    import chip_smoke
+    import codec_tcc_tpu_torch as port
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.ops import kernel_library as kl
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    case = cases.BY_NAME["cr2048_u16_full"]
+    img, _, bits = chip_smoke.case_payload(case)
+    res = port.encode_array(img, bits,
+                            port.EncodeConfig(strategy=case.strategy),
+                            bits_stored=case.bits_stored, device="cuda")
+    meta, n = res.meta, img.size
+    starts, lens, offs = pipeline._plane_plan_from_meta(
+        meta, n, pipeline._plane_bucket(meta.s, 16))
+    s, out_len = meta.s, int(meta.payload_bits)
+    stego = torch.from_numpy(res.stego).to(dev)
+    covered = np.zeros(n, bool)
+    for p in range(s):
+        covered[(int(starts[p]) + np.arange(min(int(lens[p]), n))) % n] = True
+    nbytes = 2 * int(covered.sum()) + out_len
+    segs = rk.extract_segments(starts, lens, offs, s, n, out_len, 16)
+    print(f"2048x2048 u16 s={s}, {out_len} bits, {segs[2].size} segments "
+          f"{list(zip(segs[0].tolist(), segs[2].tolist()))}", flush=True)
+    calls = [("cr2048_u16_full",
+              lambda: rk.raster_extract(stego, starts, lens, offs, s, out_len),
+              lambda: rk.raster_extract_plain(stego, starts, lens, offs, s,
+                                              out_len),
+              nbytes, 3 * out_len)]
+    want = rk.raster_extract(stego, starts, lens, offs, s, out_len)
+
+    def first_calls(lib):
+        fn = lib.raster_extract_u16
+        i32, i64, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p
+        # stego, starts, lens, offs, np, s, n, out_len, out, stream
+        fn.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i64, i64, ptr, ptr]
+
+        def call():
+            # its wrapper's host steps, so that per call compares too
+            st, ln, of = rk._plan_arrays(starts, lens, offs, s, n)
+            out = torch.empty(out_len, dtype=torch.uint8, device=dev)
+            kl.check(lib, fn(stego.data_ptr(), st.ctypes.data, ln.ctypes.data,
+                             of.ctypes.data, st.size, s, n, out_len,
+                             out.data_ptr(), kl.stream_ptr(stego)), "first K2")
+            return out
+        chip_smoke.check(torch.equal(call(), want), "the first K2 differs")
+        return [("cr2048_u16_full", call, None, None, 0)]
+
+    src = torch.zeros(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    yard = [("torch copy of the bytes (half read, half written)",
+             lambda: dst.copy_(src), nbytes)]
+    packed = torch.zeros(out_len // 8, dtype=torch.uint8, device=dev)
+    for label, t in ((f"{out_len} bytes (the bits)", want),
+                     (f"{out_len // 8} bytes (packed)", packed)):
+        def download(t=t):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.cpu()
+            return (time.perf_counter() - t0) * 1e3
+        download()
+        walls = sorted(download() for _ in range(20))
+        print(f"  download of {label}: {walls[10]:.4f} ms host wall "
+              f"(median of 20)", flush=True)
+    return calls, yard, first_calls
 
 
 def time_kernel(kernel, dev, only=None) -> None:
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
-    calls, yardsticks, n = plan(dev)
-    tag = {"embed": "K3", "extract": "K4"}[kernel]
-    for label, kern, plain, nbytes in calls[kernel]:
-        row(f"{tag} {label}", kern, n, nbytes)
-        row(f"plain {label}", plain, n)
-    label, fn, nbytes = yardsticks[kernel]
-    row(label, fn, n, nbytes)
+    module = rk if kernel == "raster_extract" else pk
+    special = {}
+    if kernel == "raster_extract":
+        calls, yard, special[FIRST_K2] = raster_plan(dev)
+    else:
+        all_calls, yardsticks = pee_plan(dev)
+        calls, yard = all_calls[kernel], yardsticks[kernel]
+    tag = {"embed": "K3", "extract": "K4", "raster_extract": "K2"}[kernel]
+    for label, kern, plain, nbytes, ops in calls:
+        row(f"{tag} {label}", kern, nbytes, ops)
+        row(f"plain {label}", plain)
+    for label, fn, nbytes in yard:
+        row(label, fn, nbytes)
 
-    real = pk.library
+    real = module.library
     with tempfile.TemporaryDirectory() as tmp:
         for name in VARIANTS[kernel]:
             if only and not any(text in name for text in only):
                 continue
             lib = variant_library(kernel, name, tmp)
-            pk.library = lambda lib=lib: lib
+            module.library = lambda lib=lib: lib
             try:
-                for label, kern, _, _ in calls[kernel]:
-                    row(f"{tag} {label}, {name}", kern, n)
+                for label, kern, _, _, _ in (special[name](lib)
+                                             if name in special else calls):
+                    row(f"{tag} {label}, {name}", kern)
             finally:
-                pk.library = real
+                module.library = real
 
 
 def main() -> int:
@@ -347,7 +576,7 @@ def main() -> int:
                          "(repeatable; default: all)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
-        sys.exit("no CUDA GPU: this probe runs the PEE kernels on the card")
+        sys.exit("no CUDA GPU: this probe runs the port's kernels on the card")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -358,7 +587,7 @@ def main() -> int:
     if args.sass:
         sass(args.kernel, args.sass)
     if args.check:
-        check(dev)
+        check(args.kernel, dev)
     if args.time:
         time_kernel(args.kernel, dev, args.variant)
     return 0
