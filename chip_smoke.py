@@ -13,11 +13,16 @@ failure exits non-zero:
    compile per source, all at once, linked into one library);
 2. every kernel against its plain torch version on the card, exact, at
    512x512 / 2048x2048 / 480x640 uint16 and 500x501 uint8: K1/K2 with s in
-   {1, 4, 8} and wrapping, aliased and past-s windows; K2 on the boundary
-   plans of ``tests/torch_raster_cases.py`` (segment ends at every residue
-   mod 16, wraps mid-chunk, odd starts, ``out_len`` 1, 15, 16, 17 and past
-   every window) at uint8 and uint16, the stego at an aligned and an odd
-   element address, then a 2048x2048 five-plane plan launched 20 times with
+   {1, 4, 8} and wrapping, aliased and past-s windows; K1 on the plans of
+   ``tests/torch_raster_cases.py::k1_plans`` (window starts, ends and
+   message offsets at every residue mod 16 in pixel order, wraps
+   mid-chunk, the message ending mid-chunk, sixteen planes at s = 12 on
+   uint8 with maps, whose rows 8-11 must be zero) at uint8 and uint16, the
+   image and the message at an aligned and an odd element address; K2 on
+   the boundary plans there (segment ends at every residue mod 16, wraps
+   mid-chunk, odd starts, ``out_len`` 1, 15, 16, 17 and past every window)
+   at uint8 and uint16, the stego at an aligned and an odd element
+   address; each then on a 2048x2048 five-plane plan launched 20 times with
    identical outputs; K3/K4 on batches of three with both parities, T in
    {1, 2, 47, 128}, per-image wants of 0, under capacity and over it
    (saturated), then 2**30 (the message-index clamp), and an ``out_len``
@@ -52,8 +57,8 @@ failure exits non-zero:
 7. times, printed and not asserted: per call of each kernel and of its
    plain version (median of 20 CUDA-event reps, wrapper included; and
    device time alone from ``torch.profiler``) at the main path's shapes:
-   K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans (and K2's share
-   of its bound's rate beside a torch copy of its bytes), K3/K4 at the
+   K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans (and each one's
+   share of its bound's rate beside a torch copy of its bytes), K3/K4 at the
    2048x2048 3 Mbit PEE plan (pass 0 and pass 1); warm encode+decode
    cycles (host wall, stage means, device busy share): raster 512x512 with
    304 bits, PEE 512x512 with 304 bits and PEE 2048x2048 with 3 Mbit.
@@ -155,6 +160,15 @@ def bound(nbytes: int, ops: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def k1_work(n: int, itemsize: int, s: int, lens, msg_bits: int):
+    """(bytes, operations) of K1's function on N pixels: the image read and
+    the stego written once, s packed map planes written, the message bytes
+    read once; 3 operations per embedded (pixel, plane), 1 per map bit."""
+    nbytes = 2 * itemsize * n + s * n // 8 + msg_bits
+    ops = 3 * sum(min(int(v), n) for v in lens[:s]) + s * n
+    return nbytes, ops
+
+
 def max_abs_diff(got, ref) -> int:
     """Largest |got - ref| over the tensors of two equal-length tuples."""
     import torch
@@ -222,6 +236,77 @@ def phase2_raster(rng, dev) -> dict:
             max_err["raster_extract"] = max(max_err["raster_extract"], err)
             check(err == 0, f"K2 != plain at {h}x{w} {dt.name} s={s}")
     return max_err
+
+
+K1_SHAPES = ((64, 64, "uint8"), (64, 64, "uint16"), (40, 41, "uint8"),
+             (40, 41, "uint16"), (61, 67, "uint16"), (500, 501, "uint8"))
+
+
+def phase2_k1(dev) -> tuple:
+    """K1 against its plain version on the plans of
+    ``tests/torch_raster_cases.py::k1_plans`` (window starts, ends and
+    message offsets at every residue mod 16, wraps mid-chunk, windows
+    longer than N, past-s planes, aliased offsets, the message ending
+    mid-chunk, sixteen planes at s = 12), maps wherever H*W % 8 == 0 (N/8
+    odd at 40x41), the image and the message at an aligned and at an odd
+    element address (views one element into their buffers); on uint8 the
+    sixteen-plane plan must leave map rows 8-11 zero (the stego narrowed
+    before the maps); then a 2048x2048 uint16 five-plane plan with maps
+    launched 20 times: every output identical. Returns (max abs error,
+    text for phase 2)."""
+    import numpy as np
+    import torch
+    import torch_raster_cases as rc
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    rng = np.random.default_rng(2027)
+    err = count = repaired = 0
+
+    def one(img, msg, plan, emit, what):
+        nonlocal err, count
+        label, s, starts, lens, offs, _ = plan
+        got = rk.raster_embed(img, msg, starts, lens, offs, s, emit_maps=emit)
+        torch.cuda.synchronize()
+        ref = rk.raster_embed_plain(img, msg, starts, lens, offs, s,
+                                    emit_maps=emit)
+        e = max_abs_diff(got, ref)
+        err = max(err, e)
+        count += 1
+        check(e == 0, f"K1 != plain on {label} ({what})")
+        return got
+
+    for h, w, dt in K1_SHAPES:
+        n = h * w
+        dt = np.dtype(dt)
+        emit = n % 8 == 0
+        for shift in (0, 1):
+            buf = torch.from_numpy(rng.integers(
+                0, 1 << (8 * dt.itemsize), n + shift).astype(dt)).to(dev)
+            img = buf[shift:].view(h, w)
+            what = f"{h}x{w} {dt.name}, shift {shift}"
+            for plan in rc.k1_plans(n, seed=n):
+                bits = torch.from_numpy(rng.integers(
+                    0, 2, plan[5] + shift).astype(np.uint8)).to(dev)
+                maps = one(img, bits[shift:], plan, emit, what)[1]
+                if plan[0] == "sixteen_planes" and emit and dt.itemsize == 1:
+                    check(not maps[8:].any(),
+                          f"K1 wrote map rows 8-11 on uint8 ({what})")
+                    repaired += 1
+    check(repaired == 4, f"the uint8 sixteen-plane case ran {repaired} times")
+    h = w = 2048
+    img = torch.from_numpy(
+        rng.integers(0, 4096, (h, w)).astype(np.uint16)).to(dev)
+    plan = rc.five_plane_plan(h * w, seed=5)
+    msg = torch.from_numpy(
+        rng.integers(0, 2, plan[5]).astype(np.uint8)).to(dev)
+    first = one(img, msg, plan, True, "2048x2048 uint16")
+    for rep in range(20):
+        again = rk.raster_embed(img, msg, *plan[2:5], plan[1], emit_maps=True)
+        check(all(torch.equal(a, b) for a, b in zip(again, first)),
+              f"K1 repeat {rep} on the 2048x2048 five-plane plan differs")
+    return err, (f"K1 {count} plans exact (uint8 s=12 map rows 8-11 zero "
+                 f"at 64x64 and 40x41, both addresses), 20 identical "
+                 f"repeats of the 2048x2048 five-plane plan with maps")
 
 
 K2_SHAPES = ((64, 64, "uint16"), (37, 53, "uint8"), (61, 67, "uint16"),
@@ -659,18 +744,18 @@ def time_raster(results, dev) -> dict:
         for p in range(meta.s):
             span = (int(starts[p]) + np.arange(min(int(lens[p]), n))) % n
             covered[span] = True
-        k1_bytes = 2 * n * 2 + meta.s * n // 8 + out_len
-        k1_ops = 3 * int(sum(min(int(v), n) for v in lens[:meta.s])) \
-            + meta.s * n
+        k1_bytes, k1_ops = k1_work(n, img.itemsize, meta.s, lens, out_len)
         k2_bytes = 2 * int(covered.sum()) + out_len
         row["k1_bound"] = bound(k1_bytes, k1_ops)
         row["k2_bound"] = bound(k2_bytes, 3 * out_len)
         row.update({f"dev_{k}": v for k, v in dev_row.items()})
-        # yardstick: one torch copy that moves K2's bytes (half read, half
-        # written)
-        src = torch.zeros(k2_bytes // 2, dtype=torch.uint8, device=dev)
-        dst = torch.empty_like(src)
-        copy_ms = device_ms(lambda: dst.copy_(src))
+        # yardsticks: one torch copy that moves each kernel's bytes (half
+        # read, half written)
+        copy_ms = {}
+        for key, nbytes in (("k1", k1_bytes), ("k2", k2_bytes)):
+            src = torch.zeros(nbytes // 2, dtype=torch.uint8, device=dev)
+            dst = torch.empty_like(src)
+            copy_ms[key] = device_ms(lambda: dst.copy_(src))
         timing[label] = row
         print(f"  {label} u16 s={meta.s} payload={out_len} bits, per call "
               f"(CUDA events, wrapper included): K1 {row['k1']:.4f} ms "
@@ -682,11 +767,13 @@ def time_raster(results, dev) -> dict:
               f"(plain {fmt_ms(dev_row['k2_plain'])}); bounds K1 "
               f"{row['k1_bound'][0]:.4f} ms ({k1_bytes} B), K2 "
               f"{row['k2_bound'][0]:.4f} ms ({k2_bytes} B)")
-        share = ("not measured" if dev_row["k2"] is None else
-                 f"{100 * row['k2_bound'][0] / dev_row['k2']:.1f}%")
-        print(f"  {label} u16 K2: {share} of its bound's rate; a torch copy "
-              f"of the same {k2_bytes} B takes {fmt_ms(copy_ms)} device",
-              flush=True)
+        for key, tag, nbytes in (("k1", "K1", k1_bytes),
+                                 ("k2", "K2", k2_bytes)):
+            share = ("not measured" if dev_row[key] is None else
+                     f"{100 * row[key + '_bound'][0] / dev_row[key]:.1f}%")
+            print(f"  {label} u16 {tag}: {share} of its bound's rate; a "
+                  f"torch copy of the same {nbytes} B takes "
+                  f"{fmt_ms(copy_ms[key])} device", flush=True)
     return timing
 
 
@@ -779,12 +866,14 @@ def main() -> int:
 
     # -- phase 2: kernels vs plain versions on the card ----------------------
     max_err = phase2_raster(np.random.default_rng(2024), dev)
+    k1_err, k1_txt = phase2_k1(dev)
+    max_err["raster_embed"] = max(max_err["raster_embed"], k1_err)
     k2_err, k2_txt = phase2_k2(dev)
     max_err["raster_extract"] = max(max_err["raster_extract"], k2_err)
     max_err.update(phase2_pee(dev))
     stress_txt = phase2_pee_stress(dev)
     phase(2, f"K1-K4 == plain on the card (max abs err {max_err}); "
-             f"{k2_txt}; {stress_txt}")
+             f"{k1_txt}; {k2_txt}; {stress_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is

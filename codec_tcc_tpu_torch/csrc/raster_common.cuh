@@ -1,16 +1,18 @@
-// Shared plan types of the raster kernels: K1 raster_embed.cu takes a
-// RasterPlan (the plane plan as it is), K2 raster_extract.cu a
+// Shared plan types and helpers of the raster kernels: K1 raster_embed.cu
+// takes a RasterPlan (the plane plan as it is), K2 raster_extract.cu a
 // RasterSegments (the same plan resolved on the host into message order).
 //
 // Both travel to the kernel by value as a launch parameter (192 and 788
 // bytes), so no device buffer holds them and no copy precedes the launch.
+// Both kernels read runs of 16 consecutive pixels (K1 also 16 consecutive
+// message bytes) with raster_load_words and take one plane's bit of four
+// pixels per instruction with raster_plane_bytes.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #define RASTER_MAX_PLANES 16
-#define RASTER_THREADS 256
 // Each plane cuts message order at most four times (its window's start and
 // end, its wrap past the raster end, and N bits past its start, where a
 // window longer than N turns to zeros), so a resolved plan has at most
@@ -46,3 +48,56 @@ struct RasterSegments {
     int pos[RASTER_MAX_SEGMENTS];
     int plane[RASTER_MAX_SEGMENTS];
 };
+
+// The NW 32-bit words that start at byte address `a` (any alignment): the
+// aligned 16-byte vectors that hold one of their bytes (and no other, so no
+// load leaves the 16-byte blocks of the pixels asked for), shifted down by
+// whole words and then by the bytes left.
+template <int NW>
+__device__ __forceinline__ void raster_load_words(const uint8_t* a,
+                                                  uint32_t (&w)[NW]) {
+    constexpr int NV = (NW + 3) / 4 + 1;
+    const int r = (int)((uintptr_t)a & 15u);
+    const uint4* v = reinterpret_cast<const uint4*>(a - r);
+    uint32_t raw[4 * NV];
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+        uint4 x = make_uint4(0u, 0u, 0u, 0u);
+        if (16 * i < r + 4 * NW) x = v[i];
+        raw[4 * i] = x.x;
+        raw[4 * i + 1] = x.y;
+        raw[4 * i + 2] = x.z;
+        raw[4 * i + 3] = x.w;
+    }
+    if (r & 4) {
+#pragma unroll
+        for (int i = 0; i + 1 < 4 * NV; ++i) raw[i] = raw[i + 1];
+    }
+    if (r & 8) {
+#pragma unroll
+        for (int i = 0; i + 2 < 4 * NV; ++i) raw[i] = raw[i + 2];
+    }
+    const unsigned sh = 8u * (unsigned)(r & 3);
+#pragma unroll
+    for (int i = 0; i < NW; ++i) {
+        w[i] = __funnelshift_r(raw[i], raw[i + 1], sh);
+    }
+}
+
+// Bit p of CHUNK consecutive pixels held in the words w (a uint8 word holds
+// four pixels, a uint16 word two, the first in the low bits), one byte each,
+// four to a word. p must be below the pixel's width.
+template <typename T, int CHUNK>
+__device__ __forceinline__ void raster_plane_bytes(
+    const uint32_t (&w)[CHUNK * (int)sizeof(T) / 4], int p,
+    uint32_t (&o)[CHUNK / 4]) {
+#pragma unroll
+    for (int i = 0; i < CHUNK / 4; ++i) {
+        if constexpr (sizeof(T) == 1) {
+            o[i] = (w[i] >> p) & 0x01010101u;
+        } else {
+            o[i] = __byte_perm((w[2 * i] >> p) & 0x00010001u,
+                               (w[2 * i + 1] >> p) & 0x00010001u, 0x6420);
+        }
+    }
+}

@@ -8,70 +8,213 @@
 // fused with ops/embed.py::xor_maps_packed_batch.
 //
 // Function: for each plane p < s, pixel pos with rel = (pos - start_p) mod N
-// below len_p gets bit p := msg[off_p + rel] (0 past the message's end).
-// With emit_maps, byte g of map plane p holds bit p of orig ^ stego for
-// pixels 8g..8g+7, MSB first (np.packbits order).
+// below len_p gets bit p := the low bit of msg[off_p + rel] (0 past the
+// message's end); planes at or past the pixel's width change nothing. With
+// emit_maps, byte g of map plane p holds bit p of orig ^ stego (the stego
+// narrowed to the pixel type) for pixels 8g..8g+7, MSB first (np.packbits
+// order), so map planes at or past the pixel's width are zero.
 //
-// Bound: memory and launch latency, no tensor-core work. Per pixel it reads
-// the image word once and writes the stego word and s/8 map bytes once; the
-// message is read only inside the windows, in raster order.
+// Bound: memory, no tensor-core work. It reads the image and the message
+// bytes inside the windows once and writes the stego and s/8 map bytes per
+// pixel once; at 2048x2048 uint16 and s = 5 that is 28.6 MB, about 8.5 us at
+// 3.35 TB/s.
 //
-// Design: one thread owns 8 consecutive pixels, so the maps need no
-// cross-thread exchange: the thread embeds its 8 pixels in registers and
-// packs each map byte itself. The TPU kernels' DMA windows, in-register
-// rotations and padded layouts are gone: the message fetch is a plain
-// indexed load, and the plan is a by-value launch parameter.
+// Design: one thread owns a chunk of RASTER_EMBED_PIXELS consecutive
+// pixels, so the maps need no exchange between threads. It reads them with
+// aligned 16-byte vectors (raster_load_words: any element address) and
+// keeps them packed, four uint8 or two uint16 pixels to a 32-bit word. Per
+// plane it classifies the chunk from the plan, which travels by value:
+// inside the window (all pixels embed, and since the window is at most N
+// long nothing wraps, so their message bytes are consecutive: loaded as
+// aligned vectors too and set into the plane's bit of every pixel of a word
+// at once), outside it (untouched), or across its edge or the raster's end
+// (pixel by pixel). The maps come from the chunk's diff, bit p of four
+// pixels per instruction, packed to bytes by one multiply. The stego goes
+// out as 16-byte stores; the last, partial chunk goes pixel by pixel.
 #include "raster_common.cuh"
 
-template <typename T>
-__global__ void raster_embed_kernel(const T* __restrict__ img,
-                                    const uint8_t* __restrict__ msg,
-                                    long long msg_len, RasterPlan plan,
-                                    int active_planes, int s, long long n,
-                                    int emit_maps, T* __restrict__ stego,
-                                    uint8_t* __restrict__ maps) {
-    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    const long long base = g * 8;
-    if (base >= n) return;
-    const int cnt = (n - base) < 8 ? (int)(n - base) : 8;
+#define RASTER_EMBED_PIXELS 16     // pixels per thread
+// 128 rather than 256: the same occupancy (40 registers), half the tail of
+// the last wave (tools/torch_pee_embed_probe.py --kernel raster_embed)
+#define RASTER_EMBED_THREADS 128
 
-    uint32_t orig[8];
-    uint32_t v[8];
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        orig[k] = k < cnt ? (uint32_t)img[base + k] : 0u;
-        v[k] = orig[k];
+// Eight 0/1 bytes (lo: pixels 0-3, hi: pixels 4-7, the first in the low
+// byte) as one byte, pixel 0 in bit 7: the multiply moves byte j's bit to
+// bit 63 - j and no two partial products meet.
+__device__ __forceinline__ uint32_t raster_pack8(uint32_t lo, uint32_t hi) {
+    const unsigned long long v = lo | ((unsigned long long)hi << 32);
+    return (uint32_t)((v * 0x8040201008040201ull) >> 56);
+}
+
+// The message bit of each pixel of pixel word i, in bit 0 of its lane:
+// m holds one message byte per pixel, four to a word.
+template <typename T, int MW>
+__device__ __forceinline__ uint32_t raster_lane_bits(const uint32_t (&m)[MW],
+                                                     int i) {
+    if constexpr (sizeof(T) == 1) {
+        return m[i] & 0x01010101u;
+    } else {
+        return __byte_perm(m[i >> 1], 0u, (i & 1) ? 0x4342 : 0x4140) &
+               0x00010001u;
     }
-    for (int p = 0; p < active_planes; ++p) {
-        const long long len = plan.len[p];
-        if (len <= 0) continue;
-        const long long start = plan.start[p];
-        const long long off = plan.off[p];
-        const uint32_t keep = ~(1u << p);
+}
+
+// NB bytes (the low ones of `word`) to dst: one store where dst is aligned
+// to it, else byte by byte.
+template <int NB>
+__device__ __forceinline__ void raster_store_bytes(uint8_t* dst,
+                                                   uint32_t word) {
+    if (((uintptr_t)dst & (NB - 1)) == 0) {
+        if constexpr (NB == 1) {
+            *dst = (uint8_t)word;
+        } else if constexpr (NB == 2) {
+            *reinterpret_cast<uint16_t*>(dst) = (uint16_t)word;
+        } else {
+            *reinterpret_cast<uint32_t*>(dst) = word;
+        }
+    } else {
 #pragma unroll
-        for (int k = 0; k < 8; ++k) {
-            long long rel = base + k - start;
-            if (rel < 0) rel += n;
-            if (k < cnt && rel < len) {
-                const long long idx = off + rel;
-                const uint32_t bit = idx < msg_len ? (uint32_t)msg[idx] : 0u;
-                v[k] = (v[k] & keep) | (bit << p);
+        for (int j = 0; j < NB; ++j) dst[j] = (uint8_t)(word >> (8 * j));
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RASTER_EMBED_THREADS)
+raster_embed_kernel(const T* __restrict__ img,
+                    const uint8_t* __restrict__ msg, unsigned msg_len,
+                    const __grid_constant__ RasterPlan plan, int planes,
+                    int s, unsigned n, int emit_maps, T* __restrict__ stego,
+                    uint8_t* __restrict__ maps) {
+    constexpr int CHUNK = RASTER_EMBED_PIXELS;
+    constexpr int BITS = 8 * (int)sizeof(T);
+    constexpr int PPW = 4 / (int)sizeof(T);      // pixels per word
+    constexpr int NW = CHUNK / PPW;              // pixel words
+    constexpr int MW = CHUNK / 4;                // message words
+    constexpr int MB = CHUNK / 8;                // map bytes per plane
+    constexpr uint32_t LANES = sizeof(T) == 1 ? 0x01010101u : 0x00010001u;
+    static_assert(CHUNK % 8 == 0 && MB <= 4, "chunks of 8, 16 or 32 pixels");
+
+    const unsigned g = blockIdx.x * RASTER_EMBED_THREADS + threadIdx.x;
+    const unsigned base = g * CHUNK;
+    if (base >= n) return;
+    const unsigned cnt = min(n - base, (unsigned)CHUNK);
+    const bool full = cnt == CHUNK;
+
+    uint32_t orig[NW];
+    if (full) {
+        raster_load_words(reinterpret_cast<const uint8_t*>(img + base), orig);
+    } else {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) orig[i] = 0u;
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+            if ((unsigned)k < cnt) {
+                orig[k / PPW] |= (uint32_t)img[base + k] << (BITS * (k % PPW));
             }
         }
     }
+    uint32_t v[NW];
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-        if (k < cnt) stego[base + k] = (T)v[k];
-    }
-    if (emit_maps) {
-        const long long nbytes = n >> 3;   // the wrapper requires n % 8 == 0
-        for (int p = 0; p < s; ++p) {
-            uint32_t byte = 0;
+    for (int i = 0; i < NW; ++i) v[i] = orig[i];
+
+    for (int p = 0; p < planes; ++p) {
+        const int len = plan.len[p];
+        if (len <= 0) continue;
+        const unsigned start = (unsigned)plan.start[p];
+        const unsigned off = (unsigned)plan.off[p];
+        // window offset of the chunk's first pixel, and the window's extent
+        // within one pass over the raster
+        const unsigned rel0 = base >= start ? base - start : base + n - start;
+        const unsigned lim = min((unsigned)len, n);
+        if (full && rel0 + CHUNK <= lim) {
+            // inside: message bytes m0 .. m0 + CHUNK - 1
+            const unsigned m0 = off + rel0;
+            uint32_t m[MW];
+            if (m0 + CHUNK <= msg_len) {
+                raster_load_words(msg + m0, m);
+            } else {
 #pragma unroll
-            for (int k = 0; k < 8; ++k) {
-                byte |= (((orig[k] ^ v[k]) >> p) & 1u) << (7 - k);
+                for (int i = 0; i < MW; ++i) m[i] = 0u;
+#pragma unroll
+                for (int b = 0; b < CHUNK; ++b) {
+                    if (m0 + b < msg_len) {
+                        m[b / 4] |= (uint32_t)msg[m0 + b] << (8 * (b % 4));
+                    }
+                }
             }
-            maps[(long long)p * nbytes + g] = (uint8_t)byte;
+#pragma unroll
+            for (int i = 0; i < NW; ++i) {
+                v[i] = (v[i] & ~(LANES << p)) |
+                       (raster_lane_bits<T>(m, i) << p);
+            }
+        } else if (!full || rel0 < lim || rel0 + CHUNK > n) {
+            // across the window's edge or the raster's end: pixel by pixel
+#pragma unroll
+            for (int k = 0; k < CHUNK; ++k) {
+                if ((unsigned)k >= cnt) continue;
+                unsigned rel = rel0 + k;             // below 2n
+                if (rel >= n) rel -= n;
+                if (rel < (unsigned)len) {
+                    const unsigned idx = off + rel;
+                    const uint32_t bit = idx < msg_len ? msg[idx] & 1u : 0u;
+                    const int sh = BITS * (k % PPW) + p;
+                    v[k / PPW] = (v[k / PPW] & ~(1u << sh)) | (bit << sh);
+                }
+            }
+        }
+        // else outside the window: the plane stays as it is
+    }
+
+    if (full) {
+        if constexpr (NW % 4 == 0) {
+#pragma unroll
+            for (int i = 0; i < NW / 4; ++i) {
+                reinterpret_cast<uint4*>(stego + base)[i] =
+                    make_uint4(v[4 * i], v[4 * i + 1], v[4 * i + 2],
+                               v[4 * i + 3]);
+            }
+        } else {
+#pragma unroll
+            for (int i = 0; i < NW / 2; ++i) {
+                reinterpret_cast<uint2*>(stego + base)[i] =
+                    make_uint2(v[2 * i], v[2 * i + 1]);
+            }
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < CHUNK; ++k) {
+            if ((unsigned)k < cnt) {
+                stego[base + k] = (T)(v[k / PPW] >> (BITS * (k % PPW)));
+            }
+        }
+    }
+
+    if (emit_maps) {
+        uint32_t d[NW];
+#pragma unroll
+        for (int i = 0; i < NW; ++i) d[i] = orig[i] ^ v[i];
+        const size_t row_bytes = n / 8;   // the launch requires n % 8 == 0
+        uint8_t* row = maps + (size_t)g * MB;
+        for (int p = 0; p < s; ++p, row += row_bytes) {
+            uint32_t q[MW];
+#pragma unroll
+            for (int i = 0; i < MW; ++i) q[i] = 0u;
+            if (p < BITS) raster_plane_bytes<T, CHUNK>(d, p, q);
+            uint32_t word = 0u;
+#pragma unroll
+            for (int j = 0; j < MB; ++j) {
+                word |= raster_pack8(q[2 * j], q[2 * j + 1]) << (8 * j);
+            }
+            if (full) {
+                raster_store_bytes<MB>(row, word);
+            } else {
+#pragma unroll
+                for (int j = 0; j < MB; ++j) {
+                    if ((unsigned)(8 * j) < cnt) {
+                        row[j] = (uint8_t)(word >> (8 * j));
+                    }
+                }
+            }
         }
     }
 }
@@ -81,17 +224,29 @@ static int launch_embed(const void* img, const void* msg, long long msg_len,
                         const int* starts, const int* lens, const int* offs,
                         int np, int s, long long n, int emit_maps, void* stego,
                         void* maps, void* stream) {
-    if (np < 0 || np > RASTER_MAX_PLANES || s < 0 || s > np || n < 0) {
+    if (np < 0 || np > RASTER_MAX_PLANES || s < 0 || s > np || n < 0 ||
+        n > 0x7fffffffLL || msg_len < 0 || (emit_maps && n % 8) ||
+        ((uintptr_t)stego & 15u) != 0) {
         return (int)cudaErrorInvalidValue;
     }
+    if (n == 0) return 0;
+    // the kernel indexes pixels and message bytes in 32 bits
+    for (int p = 0; p < s; ++p) {
+        if (lens[p] > 0 && (starts[p] < 0 || starts[p] >= n || offs[p] < 0 ||
+                            offs[p] + n > 0x7fffffffLL)) {
+            return (int)cudaErrorInvalidValue;
+        }
+    }
     const RasterPlan plan = raster_make_plan(starts, lens, offs, np);
-    const long long groups = (n + 7) / 8;
-    if (groups == 0) return 0;
-    const long long blocks = (groups + RASTER_THREADS - 1) / RASTER_THREADS;
-    raster_embed_kernel<T><<<(unsigned)blocks, RASTER_THREADS, 0,
+    const long long chunks = (n + RASTER_EMBED_PIXELS - 1) / RASTER_EMBED_PIXELS;
+    const long long blocks =
+        (chunks + RASTER_EMBED_THREADS - 1) / RASTER_EMBED_THREADS;
+    const int planes = s < 8 * (int)sizeof(T) ? s : 8 * (int)sizeof(T);
+    raster_embed_kernel<T><<<(unsigned)blocks, RASTER_EMBED_THREADS, 0,
                              (cudaStream_t)stream>>>(
-        (const T*)img, (const uint8_t*)msg, msg_len, plan, s, s, n, emit_maps,
-        (T*)stego, (uint8_t*)maps);
+        (const T*)img, (const uint8_t*)msg,
+        (unsigned)(msg_len < 0x7fffffffLL ? msg_len : 0x7fffffffLL), plan,
+        planes, s, (unsigned)n, emit_maps, (T*)stego, (uint8_t*)maps);
     return (int)cudaGetLastError();
 }
 

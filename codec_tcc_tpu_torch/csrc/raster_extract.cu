@@ -51,58 +51,14 @@ __device__ __forceinline__ int raster_find_segment(const RasterSegments& seg,
     return lo;
 }
 
-// The NW 32-bit words that start at byte address `a` (any alignment): the
-// aligned 16-byte vectors that hold one of their bytes (and no other, so no
-// load leaves the 16-byte blocks of the pixels asked for), shifted down by
-// whole words and then by the bytes left.
-template <int NW>
-__device__ __forceinline__ void raster_load_words(const uint8_t* a,
-                                                  uint32_t (&w)[NW]) {
-    constexpr int NV = (NW + 3) / 4 + 1;
-    const int r = (int)((uintptr_t)a & 15u);
-    const uint4* v = reinterpret_cast<const uint4*>(a - r);
-    uint32_t raw[4 * NV];
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-        uint4 x = make_uint4(0u, 0u, 0u, 0u);
-        if (16 * i < r + 4 * NW) x = v[i];
-        raw[4 * i] = x.x;
-        raw[4 * i + 1] = x.y;
-        raw[4 * i + 2] = x.z;
-        raw[4 * i + 3] = x.w;
-    }
-    if (r & 4) {
-#pragma unroll
-        for (int i = 0; i + 1 < 4 * NV; ++i) raw[i] = raw[i + 1];
-    }
-    if (r & 8) {
-#pragma unroll
-        for (int i = 0; i + 2 < 4 * NV; ++i) raw[i] = raw[i + 2];
-    }
-    const unsigned sh = 8u * (unsigned)(r & 3);
-#pragma unroll
-    for (int i = 0; i < NW; ++i) {
-        w[i] = __funnelshift_r(raw[i], raw[i + 1], sh);
-    }
-}
-
 // Bit p of the CHUNK consecutive pixels at px, one byte each, four to a
-// word: a uint8 word holds four pixels, a uint16 word two.
+// word.
 template <typename T, int CHUNK>
 __device__ __forceinline__ void raster_bits_of_run(const T* px, int p,
                                                    uint32_t (&o)[CHUNK / 4]) {
-    constexpr int NW = CHUNK * (int)sizeof(T) / 4;
-    uint32_t w[NW];
-    raster_load_words<NW>(reinterpret_cast<const uint8_t*>(px), w);
-#pragma unroll
-    for (int i = 0; i < CHUNK / 4; ++i) {
-        if constexpr (sizeof(T) == 1) {
-            o[i] = (w[i] >> p) & 0x01010101u;
-        } else {
-            o[i] = __byte_perm((w[2 * i] >> p) & 0x00010001u,
-                               (w[2 * i + 1] >> p) & 0x00010001u, 0x6420);
-        }
-    }
+    uint32_t w[CHUNK * (int)sizeof(T) / 4];
+    raster_load_words(reinterpret_cast<const uint8_t*>(px), w);
+    raster_plane_bytes<T, CHUNK>(w, p, o);
 }
 
 // The chunk's bytes: vector stores when all CHUNK are in range, else the

@@ -127,8 +127,11 @@ def raster_embed(
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K1: embed every plane window and (``emit_maps``) the MSB-first
     bit-packed ``orig ^ stego`` maps of planes ``0..s-1`` in one launch.
-    Message bits past ``L`` read as 0. Returns ``(stego, maps or None)``
-    on the image's device."""
+    Message bits past ``L`` read as 0. The message holds 0/1 bytes: the
+    kernel takes each byte's low bit (the plain version shifts the whole
+    byte, which is the same function on 0/1). The maps come from the stego
+    narrowed to the image's type, so on uint8 rows 8 and up are zero.
+    Returns ``(stego, maps or None)`` on the image's device."""
     if image.device.type == "cpu":
         return raster_embed_plain(
             image, msg, starts, lens, offs, s, emit_maps=emit_maps

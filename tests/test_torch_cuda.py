@@ -51,6 +51,82 @@ def test_kernels_match_plain_on_gpu(cuda, h, w, dtype):
         assert torch.equal(ex_k.cpu(), ex_p.cpu())
 
 
+@pytest.mark.parametrize("h,w,dtype", [(64, 64, np.uint8), (64, 64, np.uint16),
+                                       (40, 41, np.uint8), (40, 41, np.uint16),
+                                       (61, 67, np.uint16),
+                                       (500, 501, np.uint8)])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_k1_plans_match_plain_on_gpu(cuda, h, w, dtype, shift):
+    """K1 on the plans of ``tests/torch_raster_cases.py::k1_plans`` (window
+    starts, ends and message offsets at every residue mod 16, wraps
+    mid-chunk, the message ending mid-chunk, sixteen planes at s = 12),
+    with maps where H*W % 8 == 0 (N/8 odd at 40x41), the image and the
+    message at an aligned (shift 0) and an odd element address (shift 1)."""
+    import torch_raster_cases as rc
+
+    n = h * w
+    rng = np.random.default_rng(n + shift)
+    hi = 1 << (8 * np.dtype(dtype).itemsize)
+    buf = torch.from_numpy(rng.integers(0, hi, n + shift).astype(dtype))
+    img = buf.to(cuda)[shift:].view(h, w)
+    emit = n % 8 == 0
+    for _, s, starts, lens, offs, msg_len in rc.k1_plans(n, seed=n):
+        msg = torch.from_numpy(rng.integers(0, 2, msg_len + shift)
+                               .astype(np.uint8)).to(cuda)[shift:]
+        got = rk.raster_embed(img, msg, starts, lens, offs, s, emit_maps=emit)
+        ref = rk.raster_embed_plain(img, msg, starts, lens, offs, s,
+                                    emit_maps=emit)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], ref[0])
+        if emit:
+            assert torch.equal(got[1], ref[1])
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (40, 41)])
+def test_k1_u8_maps_zero_past_eight_planes_on_gpu(cuda, h, w):
+    """On uint8 the maps come from the stego narrowed to uint8, as in the
+    plain version and the JAX package's ``embed`` +
+    ``xor_maps_packed_batch``: with sixteen planes at s = 12, map rows 8-11
+    are zero. K1 as first written built them from the un-narrowed pixel
+    and wrote the message bits of planes 8-11 there."""
+    import torch_raster_cases as rc
+
+    n = h * w
+    rng = np.random.default_rng(12)
+    img = torch.from_numpy(rng.integers(0, 256, (h, w)).astype(np.uint8))
+    _, s, starts, lens, offs, msg_len = rc.sixteen_plane_plan(n)
+    msg = torch.from_numpy(rng.integers(0, 2, msg_len).astype(np.uint8))
+    stego, maps = rk.raster_embed(img.to(cuda), msg.to(cuda), starts, lens,
+                                  offs, s, emit_maps=True)
+    want_stego, want_maps = rk.raster_embed_plain(img, msg, starts, lens,
+                                                  offs, s, emit_maps=True)
+    assert maps.shape == (12, n // 8)
+    assert torch.equal(maps.cpu(), want_maps)
+    assert torch.equal(stego.cpu(), want_stego)
+    assert maps[:8].any() and not maps[8:].any()
+
+
+def test_k1_five_planes_2048_repeats_on_gpu(cuda):
+    """A capacity-sized plan at 2048x2048 uint16 with maps: equal to the
+    plain version, and 20 repeats give identical outputs."""
+    import torch_raster_cases as rc
+
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(
+        rng.integers(0, 4096, (2048, 2048)).astype(np.uint16)).to(cuda)
+    _, s, starts, lens, offs, msg_len = rc.five_plane_plan(img.numel(), 5)
+    msg = torch.from_numpy(
+        rng.integers(0, 2, msg_len).astype(np.uint8)).to(cuda)
+    first = rk.raster_embed(img, msg, starts, lens, offs, s, emit_maps=True)
+    ref = rk.raster_embed_plain(img, msg, starts, lens, offs, s,
+                                emit_maps=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, ref))
+    for _ in range(20):
+        again = rk.raster_embed(img, msg, starts, lens, offs, s,
+                                emit_maps=True)
+        assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
 @pytest.mark.parametrize("h,w,dtype", [(64, 64, np.uint16), (37, 53, np.uint8),
                                        (61, 67, np.uint16),
                                        (500, 501, np.uint8)])

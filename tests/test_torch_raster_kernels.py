@@ -162,6 +162,45 @@ def test_k1_reads_zero_past_message_end():
     np.testing.assert_array_equal(st_short, st_pad)
 
 
+K1_LABELS = [plan[0] for plan in rc.k1_plans(64 * 64)]
+
+
+@pytest.mark.parametrize("h,w", [(64, 64), (40, 41)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+@pytest.mark.parametrize("label", K1_LABELS)
+def test_k1_plans_match_xla(label, dtype, h, w):
+    """The plain K1 equals the JAX package's ``embed`` +
+    ``xor_maps_packed_batch`` on every K1 plan (window starts, ends and
+    message offsets at every residue mod 16, wraps mid-chunk, windows
+    longer than N, past-s planes, aliased offsets, starts >= N, sixteen
+    planes at s = 12, the message ending mid-chunk), with maps (N/8 odd at
+    40x41). The plain K1 reads the message cut at its length; the JAX
+    package reads it zero-padded (``pad_message``). On uint8 the JAX
+    ``embed`` takes at most 8 planes, as ``pipeline`` clamps them: planes 8
+    and up change nothing there, and their map rows are zero."""
+    n = h * w
+    plans = rc.k1_plans(n, seed=n)
+    _, s, starts, lens, offs, msg_len = next(p for p in plans
+                                             if p[0] == label)
+    rng = np.random.default_rng(len(label) + n)
+    img = _image(rng, h, w, dtype)
+    msg = rng.integers(0, 2, msg_len).astype(np.uint8)
+    stego, maps = _plain_k1(img, msg, starts, lens, offs, s, True)
+
+    # one padded length for every plan of the shape: one JAX compile each
+    pad_off = max(max(p[4]) for p in plans)
+    nbits = min(len(starts), 8 * np.dtype(dtype).itemsize)
+    st, ln, of = (np.asarray(v, np.int64)[:nbits].astype(np.int32)
+                  for v in (np.asarray(starts) % n, lens, offs))
+    xla = np.asarray(jax_embed.embed(
+        img, jax_embed.pad_message(msg, n, pad_off), st, ln, of,
+        np.int32(s), nbits))
+    np.testing.assert_array_equal(stego, xla)
+    want_maps = np.asarray(jax_embed.xor_maps_packed_batch(
+        jnp.asarray(img)[None], jnp.asarray(xla)[None], s))[0]
+    np.testing.assert_array_equal(maps, want_maps)
+
+
 @pytest.mark.parametrize("h,w,dtype", GEOMS)
 def test_k2_matches_pallas_raster_extract_and_host(h, w, dtype):
     rng = np.random.default_rng(200)

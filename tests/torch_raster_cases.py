@@ -1,7 +1,7 @@
-"""Plane plans for K2 ``raster_extract`` where its segment plan is easiest
-to get wrong, shared by ``chip_smoke.py`` (phase 2),
-``tests/test_torch_cuda.py`` and the CPU tests that hold the resolved
-segments against the JAX package's host extractor.
+"""Plane plans for K1 ``raster_embed`` and K2 ``raster_extract`` where
+their chunked designs are easiest to get wrong, shared by
+``chip_smoke.py`` (phase 2), ``tests/test_torch_cuda.py`` and the CPU tests
+that hold the plain versions against the JAX package.
 
 K2 writes 16 output bytes per thread: a chunk that lies inside one segment
 reads its pixels with aligned vector loads, any other goes byte by byte. So
@@ -12,6 +12,13 @@ message offset, run windows longer than N, give planes at or past ``s`` a
 nonzero length and cut ``out_len`` at 1, 15, 16, 17 and past every window.
 Each plan is ``(label, s, starts, lens, offs, out_len)`` for ``n = H*W``
 pixels.
+
+K1 embeds 16 consecutive pixels per thread: inside a window it loads their
+16 consecutive message bytes as vectors, elsewhere it goes pixel by pixel.
+:func:`k1_plans` adds plans whose window starts, window ends and message
+offsets fall at every residue mod 16 in pixel order; for K1 ``out_len`` is
+the message's length (the message is cut there, so its end falls in the
+middle of a chunk and the bits past it read 0).
 """
 
 from __future__ import annotations
@@ -98,6 +105,40 @@ def boundary_plans(n: int, seed: int = 0) -> List[Plan]:
     return (degenerate_plans(n) + [start_mod_n_plan(n)]
             + residue_plans(n, seed) + out_len_plans(n) + wrap_plans(n)
             + [sixteen_plane_plan(n)])
+
+
+def k1_residue_plans(n: int, seed: int) -> List[Plan]:
+    """For each r in 0..15, eight planes whose windows start at pixel
+    residue r + 3p mod 16, end at 5r + p and take their first message byte
+    at ``off - start`` = r + 7p (the residue of every chunk's first message
+    byte inside the window); plane 5 is empty, plane 6 longer than N, plane
+    3 aliased into plane 2's message span; s in {5..8}, so the planes past
+    s keep nonzero lengths; the message ends inside a window."""
+    rng = np.random.default_rng(seed)
+    plans = []
+    p = np.arange(8)
+    for r in range(16):
+        starts = (16 * rng.integers(0, n // 16, 8) + (r + 3 * p) % 16) % n
+        ends = (5 * r + p) % 16
+        lens = 16 * rng.integers(0, max(2, n // 32), 8) + (ends - starts) % 16
+        lens[5] = 0
+        lens[6] = n + 16 * int(rng.integers(0, 4)) + r
+        offs = np.zeros(8, np.int64)
+        cursor = 0
+        for q in range(8):
+            offs[q] = 16 * -(-cursor // 16) + (starts[q] + r + 7 * q) % 16
+            cursor = offs[q] + lens[q]
+        offs[3] = offs[2] + lens[2] // 2
+        msg_len = int(np.median(offs + lens)) + r
+        plans.append((f"k1_residue{r}", 8 - r % 4, starts.tolist(),
+                      lens.tolist(), offs.tolist(), msg_len))
+    return plans
+
+
+def k1_plans(n: int, seed: int = 0) -> List[Plan]:
+    """Every plan for K1: the boundary plans of K2 and the pixel-order
+    residue plans."""
+    return boundary_plans(n, seed) + k1_residue_plans(n, seed)
 
 
 def five_plane_plan(n: int, seed: int) -> Plan:

@@ -1,15 +1,15 @@
 #!/usr/bin/env python3
 """Iterate on one kernel of the PyTorch/CUDA port on one GPU, K3
-``pee_embed``, K4 ``pee_extract`` or K2 ``raster_extract``, without the
-whole ``chip_smoke.py``.
+``pee_embed``, K4 ``pee_extract``, K2 ``raster_extract`` or K1
+``raster_embed``, without the whole ``chip_smoke.py``.
 
-    python3 tools/torch_pee_embed_probe.py [--kernel embed|extract|raster_extract] [--ptxas] [--sass PATH] [--check] [--time]
+    python3 tools/torch_pee_embed_probe.py [--kernel embed|extract|raster_extract|raster_embed] [--ptxas] [--sass PATH] [--check] [--time]
 
 * ``--kernel``: the kernel the other options look at (default ``embed``,
-  K3; ``extract`` is K4, ``raster_extract`` K2).
+  K3; ``extract`` is K4, ``raster_extract`` K2, ``raster_embed`` K1).
 * ``--ptxas``: registers, shared memory and spills of every kernel in its
-  source, ``codec_tcc_tpu_torch/csrc/pee_embed.cu``, ``pee_extract.cu`` or
-  ``raster_extract.cu`` (``nvcc -Xptxas -v``).
+  source, ``codec_tcc_tpu_torch/csrc/pee_embed.cu``, ``pee_extract.cu``,
+  ``raster_extract.cu`` or ``raster_embed.cu`` (``nvcc -Xptxas -v``).
 * ``--sass PATH``: the uint16 kernel's SASS (``cuobjdump``) into PATH,
   and its instruction count by opcode.
 * ``--check``: for K3 and K4 the look-back stress cases of
@@ -18,22 +18,25 @@ whole ``chip_smoke.py``.
   K4 at ``out_len`` and ``nproc`` at its tile boundaries and on forged
   inputs, all outputs exact, and the many-tile launch of each 20 times,
   identical; for K2 the boundary plans of ``tests/torch_raster_cases.py``
-  and 20 repeats of a 2048x2048 five-plane launch (``chip_smoke.py``
-  phase 2).
+  and 20 repeats of a 2048x2048 five-plane launch, for K1 its plans there
+  and the same repeats (``chip_smoke.py`` phase 2), then K1's first design
+  on the uint8 sixteen-plane plan with maps (the fault it had) and on the
+  five-plane plan.
 * ``--time``: the kernel at its main path's largest plan: K3 and K4 at the
   2048x2048 uint16 3 Mbit PEE plan (the ``pee_cr2048_u16_3m`` parity case;
-  K3 pass 0 and pass 1, K4 pass 1 and pass 0 as the decoder runs them), K2
-  at the ``cr2048_u16_full`` raster plan (s = 5, 9,227,467 bits): device
-  time per call from ``torch.profiler`` split by CUDA activity (kernel,
-  memset), per call with CUDA events, the plain version, the bytes bound;
-  beside it the same for the kernel's variants (:data:`VARIANTS`), built
-  from patched copies of the sources (a part stubbed out, whose outputs
-  are then wrong and only timed; another design of one part; other block
-  sizes and register limits; for K2 also its first design, one thread per
-  bit), a torch copy
-  of the same bytes as a yardstick of the achievable rate and, for K2,
-  the download of its bits beside that of the same bits packed eight to
-  a byte.
+  K3 pass 0 and pass 1, K4 pass 1 and pass 0 as the decoder runs them), K1
+  and K2 at the ``cr2048_u16_full`` raster plan (s = 5, 9,227,467 bits):
+  device time per call from ``torch.profiler`` split by CUDA activity
+  (kernel, memset), per call with CUDA events, the plain version, the
+  bytes bound; beside it the same for the kernel's variants
+  (:data:`VARIANTS`), built from patched copies of the sources (a part
+  stubbed out, whose outputs are then wrong and only timed; another design
+  of one part; other chunk and block sizes and register limits; for K1 and
+  K2 also their first designs; for K1 a control, its own source rebuilt
+  as a variant), a torch copy of the same bytes as a yardstick of the
+  achievable rate and, for K2, the download of its bits beside that of
+  the same bits packed eight to a byte; last the committed kernel again,
+  so that the order of the rows can be told from the variants.
 
 Prints the card's name and power limit first; fails without a GPU.
 """
@@ -60,7 +63,9 @@ SOURCES = {"embed": ("pee_embed.cu", "pee_common.cuh",
            "extract": ("pee_extract.cu", "pee_common.cuh",
                        "_Z18pee_extract_kernelIt"),
            "raster_extract": ("raster_extract.cu", "raster_common.cuh",
-                              "_Z21raster_extract_kernelIt")}
+                              "_Z21raster_extract_kernelIt"),
+           "raster_embed": ("raster_embed.cu", "raster_common.cuh",
+                            "_Z19raster_embed_kernelIt")}
 _NO_SLEEP = (r"__nanosleep\(32\);", "")
 _NO_TICKET = (r"pee_take_ticket\(ticket, &s_tile\)", "(int)blockIdx.x")
 _NO_LOOKBACK = (r"pee_lookback\(\s*status.*?\);", "0u;")
@@ -88,6 +93,8 @@ def _min_blocks(kernel, n):
 # plane plan itself, not the segments
 FIRST_K2_SOURCE = """// K2 raster_extract as first written.
 #include "raster_common.cuh"
+
+#define RASTER_THREADS 256
 
 template <typename T>
 __global__ void raster_extract_kernel(const T* __restrict__ stego,
@@ -149,6 +156,124 @@ int raster_extract_u16(const void* stego, const int* starts, const int* lens,
 }  // extern "C"
 """
 FIRST_K2 = "first design (one thread per bit, plane walk)"
+
+# K1 as first written (raster_embed.cu from its #include on): 8 pixels per
+# thread, scalar loads and stores, one indexed message load per pixel and
+# plane in 64-bit arithmetic, one map byte per plane; its maps come from
+# the un-narrowed pixel, so on uint8 it writes message bits into map rows 8
+# and up (the fault the current kernel repairs)
+FIRST_K1_SOURCE = """// K1 raster_embed as first written.
+#include "raster_common.cuh"
+
+#define RASTER_THREADS 256
+
+template <typename T>
+__global__ void raster_embed_kernel(const T* __restrict__ img,
+                                    const uint8_t* __restrict__ msg,
+                                    long long msg_len, RasterPlan plan,
+                                    int active_planes, int s, long long n,
+                                    int emit_maps, T* __restrict__ stego,
+                                    uint8_t* __restrict__ maps) {
+    const long long g = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+    const long long base = g * 8;
+    if (base >= n) return;
+    const int cnt = (n - base) < 8 ? (int)(n - base) : 8;
+
+    uint32_t orig[8];
+    uint32_t v[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        orig[k] = k < cnt ? (uint32_t)img[base + k] : 0u;
+        v[k] = orig[k];
+    }
+    for (int p = 0; p < active_planes; ++p) {
+        const long long len = plan.len[p];
+        if (len <= 0) continue;
+        const long long start = plan.start[p];
+        const long long off = plan.off[p];
+        const uint32_t keep = ~(1u << p);
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+            long long rel = base + k - start;
+            if (rel < 0) rel += n;
+            if (k < cnt && rel < len) {
+                const long long idx = off + rel;
+                const uint32_t bit = idx < msg_len ? (uint32_t)msg[idx] : 0u;
+                v[k] = (v[k] & keep) | (bit << p);
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        if (k < cnt) stego[base + k] = (T)v[k];
+    }
+    if (emit_maps) {
+        const long long nbytes = n >> 3;   // the wrapper requires n % 8 == 0
+        for (int p = 0; p < s; ++p) {
+            uint32_t byte = 0;
+#pragma unroll
+            for (int k = 0; k < 8; ++k) {
+                byte |= (((orig[k] ^ v[k]) >> p) & 1u) << (7 - k);
+            }
+            maps[(long long)p * nbytes + g] = (uint8_t)byte;
+        }
+    }
+}
+
+template <typename T>
+static int launch_embed(const void* img, const void* msg, long long msg_len,
+                        const int* starts, const int* lens, const int* offs,
+                        int np, int s, long long n, int emit_maps, void* stego,
+                        void* maps, void* stream) {
+    if (np < 0 || np > RASTER_MAX_PLANES || s < 0 || s > np || n < 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const RasterPlan plan = raster_make_plan(starts, lens, offs, np);
+    const long long groups = (n + 7) / 8;
+    if (groups == 0) return 0;
+    const long long blocks = (groups + RASTER_THREADS - 1) / RASTER_THREADS;
+    raster_embed_kernel<T><<<(unsigned)blocks, RASTER_THREADS, 0,
+                             (cudaStream_t)stream>>>(
+        (const T*)img, (const uint8_t*)msg, msg_len, plan, s, s, n, emit_maps,
+        (T*)stego, (uint8_t*)maps);
+    return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+int raster_embed_u8(const void* img, const void* msg, long long msg_len,
+                    const int* starts, const int* lens, const int* offs,
+                    int np, int s, long long n, int emit_maps, void* stego,
+                    void* maps, void* stream) {
+    return launch_embed<uint8_t>(img, msg, msg_len, starts, lens, offs, np, s,
+                                 n, emit_maps, stego, maps, stream);
+}
+
+int raster_embed_u16(const void* img, const void* msg, long long msg_len,
+                     const int* starts, const int* lens, const int* offs,
+                     int np, int s, long long n, int emit_maps, void* stego,
+                     void* maps, void* stream) {
+    return launch_embed<uint16_t>(img, msg, msg_len, starts, lens, offs, np,
+                                  s, n, emit_maps, stego, maps, stream);
+}
+
+const char* codec_kernels_error_string(int code) {
+    return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"
+"""
+FIRST_K1 = "first design (8 pixels per thread, scalar, 64-bit indices)"
+
+
+def _k1_pixels(n):
+    return (r"#define RASTER_EMBED_PIXELS 16",
+            f"#define RASTER_EMBED_PIXELS {n}")
+
+
+def _k1_threads(n):
+    return (r"#define RASTER_EMBED_THREADS 128",
+            f"#define RASTER_EMBED_THREADS {n}")
 
 
 def _k2_bytes(n):
@@ -281,6 +406,32 @@ VARIANTS = {
         "128 threads per block": [_k2_threads(128)],
         "512 threads per block": [_k2_threads(512)],
     },
+    "raster_embed": {
+        "control: the committed source, rebuilt as a variant":
+            [_k1_threads(128)],
+        FIRST_K1: [(r"\A// K1 raster_embed.*\Z", lambda m: FIRST_K1_SOURCE)],
+        "no message loads inside windows (time only)":
+            [(r"raster_load_words\(msg \+ m0, m\);",
+              "for (int i = 0; i < MW; ++i) m[i] = m0 + i;")],
+        "no map stores (time only)":
+            [(r"raster_store_bytes<MB>\(row, word\);",
+              "if (word == 0x12345u) row[0] = 1;")],
+        "no stego stores (time only)":
+            [(r"reinterpret_cast<uint4\*>\(stego \+ base\)\[i\] =\s*"
+              r"make_uint4\(.*?\);",
+              "if (v[4 * i] == 0x12345678u) stego[base] = 0;")],
+        "message bytes loaded one by one inside windows":
+            [(r"if \(m0 \+ CHUNK <= msg_len\) \{", "if (false) {")],
+        "every chunk pixel by pixel (no inside path)":
+            [(r"if \(full && rel0 \+ CHUNK <= lim\) \{", "if (false) {")],
+        "8 pixels per thread": [_k1_pixels(8)],
+        "32 pixels per thread": [_k1_pixels(32)],
+        "256 threads per block": [_k1_threads(256)],
+        "512 threads per block": [_k1_threads(512)],
+        "128 threads, at least 16 blocks per SM (32 registers)":
+            [(r"__launch_bounds__\(RASTER_EMBED_THREADS\)",
+              "__launch_bounds__(RASTER_EMBED_THREADS, 16)")],
+    },
 }
 
 
@@ -325,8 +476,47 @@ def check(kernel, dev) -> None:
 
     if kernel == "raster_extract":
         print(chip_smoke.phase2_k2(dev)[1], flush=True)
+    elif kernel == "raster_embed":
+        print(chip_smoke.phase2_k1(dev)[1], flush=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            first_k1_on_repair_case(variant_library("raster_embed", FIRST_K1,
+                                                    tmp), dev)
     else:
         print(chip_smoke.phase2_pee_stress(dev), flush=True)
+
+
+def first_k1_on_repair_case(lib, dev) -> None:
+    """The first design of K1 on the repair case (uint8 64x64, the
+    sixteen-plane plan, s = 12, maps) and on a 2048x2048 uint16 five-plane
+    plan, against the plain version: prints where it differs."""
+    import numpy as np
+    import torch
+    import torch_raster_cases as rc
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    rng = np.random.default_rng(12)
+    real = rk.library
+    rk.library = lambda: lib
+    try:
+        for h, w, dt, plan in (
+                (64, 64, np.uint8, rc.sixteen_plane_plan(64 * 64)),
+                (2048, 2048, np.uint16, rc.five_plane_plan(2048 * 2048, 5))):
+            label, s, starts, lens, offs, msg_len = plan
+            img = torch.from_numpy(rng.integers(
+                0, 1 << (8 * np.dtype(dt).itemsize), (h, w)).astype(dt)).to(dev)
+            msg = torch.from_numpy(
+                rng.integers(0, 2, msg_len).astype(np.uint8)).to(dev)
+            got = rk.raster_embed(img, msg, starts, lens, offs, s,
+                                  emit_maps=True)
+            torch.cuda.synchronize()
+            ref = rk.raster_embed_plain(img, msg, starts, lens, offs, s,
+                                        emit_maps=True)
+            rows = [p for p in range(s) if not torch.equal(got[1][p], ref[1][p])]
+            print(f"  {FIRST_K1} on {h}x{w} {np.dtype(dt).name} {label} s={s}: "
+                  f"stego {'equal' if torch.equal(got[0], ref[0]) else 'differs'}"
+                  f", map rows differing from plain {rows}", flush=True)
+    finally:
+        rk.library = real
 
 
 def variant_library(kernel, name, tmp):
@@ -463,20 +653,11 @@ def raster_plan(dev):
     import numpy as np
     import torch
     import chip_smoke
-    import codec_tcc_tpu_torch as port
-    import torch_port_cases as cases
-    from codec_tcc_tpu_torch import pipeline
     from codec_tcc_tpu_torch.ops import kernel_library as kl
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
-    case = cases.BY_NAME["cr2048_u16_full"]
-    img, _, bits = chip_smoke.case_payload(case)
-    res = port.encode_array(img, bits,
-                            port.EncodeConfig(strategy=case.strategy),
-                            bits_stored=case.bits_stored, device="cuda")
+    img, _, res, (starts, lens, offs) = cr2048_encode()
     meta, n = res.meta, img.size
-    starts, lens, offs = pipeline._plane_plan_from_meta(
-        meta, n, pipeline._plane_bucket(meta.s, 16))
     s, out_len = meta.s, int(meta.payload_bits)
     stego = torch.from_numpy(res.stego).to(dev)
     covered = np.zeros(n, bool)
@@ -529,18 +710,68 @@ def raster_plan(dev):
     return calls, yard, first_calls
 
 
+def raster_embed_plan(dev):
+    """K1 at the ``cr2048_u16_full`` plan as the encoder launches it (maps
+    on), as :func:`pee_plan` gives K3 and K4, and a torch copy of the same
+    bytes."""
+    import torch
+    import chip_smoke
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    img, bits, res, (starts, lens, offs) = cr2048_encode()
+    n, s = img.size, res.meta.s
+    nbytes, ops = chip_smoke.k1_work(n, img.itemsize, s, lens, bits.size)
+    img_d = torch.from_numpy(img).to(dev)
+    msg_d = torch.from_numpy(bits).to(dev)
+    print(f"2048x2048 u16 s={s}, {bits.size} bits, starts "
+          f"{starts[:s].tolist()} lens {lens[:s].tolist()} offs "
+          f"{offs[:s].tolist()}", flush=True)
+    calls = [("cr2048_u16_full",
+              lambda: rk.raster_embed(img_d, msg_d, starts, lens, offs, s,
+                                      emit_maps=True),
+              lambda: rk.raster_embed_plain(img_d, msg_d, starts, lens, offs,
+                                            s, emit_maps=True),
+              nbytes, ops)]
+    src = torch.zeros(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    yard = [("torch copy of the bytes (half read, half written)",
+             lambda: dst.copy_(src), nbytes)]
+    return calls, yard
+
+
+def cr2048_encode():
+    """The ``cr2048_u16_full`` case encoded on the card: (image, payload
+    bits, encode result, its plane plan as the encoder launches it)."""
+    import chip_smoke
+    import codec_tcc_tpu_torch as port
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch import pipeline
+
+    case = cases.BY_NAME["cr2048_u16_full"]
+    img, _, bits = chip_smoke.case_payload(case)
+    res = port.encode_array(img, bits,
+                            port.EncodeConfig(strategy=case.strategy),
+                            bits_stored=case.bits_stored, device="cuda")
+    plan = pipeline._plane_plan_from_meta(
+        res.meta, img.size, pipeline._plane_bucket(res.meta.s, 16))
+    return img, bits, res, plan
+
+
 def time_kernel(kernel, dev, only=None) -> None:
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
-    module = rk if kernel == "raster_extract" else pk
+    module = rk if kernel.startswith("raster") else pk
     special = {}
     if kernel == "raster_extract":
         calls, yard, special[FIRST_K2] = raster_plan(dev)
+    elif kernel == "raster_embed":
+        calls, yard = raster_embed_plan(dev)
     else:
         all_calls, yardsticks = pee_plan(dev)
         calls, yard = all_calls[kernel], yardsticks[kernel]
-    tag = {"embed": "K3", "extract": "K4", "raster_extract": "K2"}[kernel]
+    tag = {"embed": "K3", "extract": "K4", "raster_extract": "K2",
+           "raster_embed": "K1"}[kernel]
     for label, kern, plain, nbytes, ops in calls:
         row(f"{tag} {label}", kern, nbytes, ops)
         row(f"plain {label}", plain)
@@ -560,6 +791,9 @@ def time_kernel(kernel, dev, only=None) -> None:
                     row(f"{tag} {label}, {name}", kern)
             finally:
                 module.library = real
+    # the committed kernel once more: what the order alone does to a time
+    for label, kern, _, _, _ in calls:
+        row(f"{tag} {label}, again after the variants", kern)
 
 
 def main() -> int:
