@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's encode/decode paths (raster and PEE) through its four
-hand-written CUDA kernels (K1 ``raster_embed``, K2 ``raster_extract``, K3
-``pee_embed``, K4 ``pee_extract``) and checks them, phase by phase; any
-failure exits non-zero:
+Drives the port's encode/decode paths (raster, PEE, block_adaptive and the
+host embed route) through its four hand-written CUDA kernels (K1
+``raster_embed``, K2 ``raster_extract``, K3 ``pee_embed``, K4
+``pee_extract``) and checks them, phase by phase; any failure exits
+non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
@@ -37,36 +38,47 @@ failure exits non-zero:
    stego and overflow bytes with ``nproc`` at set ranks that straddle the
    tile boundaries; each exact against the plain version; then a launch of
    each on 8 x 2048x2048 uint16 (8,192 tiles) repeated 20 times with
-   identical outputs;
+   identical outputs; then the device block extract (torch ops, no
+   kernel) against ``extract_block_host`` on the stegos of the five
+   ``blk_*`` cases, with the case's cut point and one lower;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
-   PEE) through ``encode_array(device="cuda")``: the container's sha256
-   (and for PEE the ext tuple) must equal the JAX package's, and
+   PEE, five block_adaptive, three on the host embed route) through
+   ``encode_array(device="cuda")``: the container's sha256 (and for PEE the
+   ext tuple) must equal the JAX package's, and
    ``decode_container(device="cuda")`` must give the payload and the
    original back exactly; then ``encode_pee_batch``/``decode_pee_batch`` on
    the four 512x512 uint16 case images as one batch of mixed T;
-4. the committed golden raster and PEE containers decode on the card;
+4. the committed golden raster, block_adaptive and PEE containers decode
+   on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
-   DICOMs written by the port, default strategy and ``--strategy pee``:
-   container, message and restored pixels exact;
+   DICOMs written by the port, default strategy, ``--strategy pee``,
+   ``--strategy block_adaptive`` and ``--device-policy host``: container,
+   message and restored pixels exact;
 6. the launch counts of each path, set to 0 just before it and read just
    after it: the raster cases (K1 and K2 once per encode and decode), the
    PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
-   twice per decode group), and the golden decodes; every count must be
-   exactly what the path should launch, so every kernel runs on the path
-   that needs it;
+   twice per decode group), the block cases (no kernel: torch ops to
+   encode, the host to decode), the host-route cases (no K1, K2 once per
+   decode) and the golden decodes; every count must be exactly what the
+   path should launch, so every kernel runs on the path that needs it;
 7. times, printed and not asserted: per call of each kernel and of its
    plain version (median of 20 CUDA-event reps, wrapper included; and
    device time alone from ``torch.profiler``) at the main path's shapes:
    K1/K2 at the 512x512 and 2048x2048 uint16 capacity plans (and each one's
    share of its bound's rate beside a torch copy of its bytes), K3/K4 at the
-   2048x2048 3 Mbit PEE plan (pass 0 and pass 1); warm encode+decode
-   cycles (host wall, stage means, device busy share): raster 512x512 with
-   304 bits, PEE 512x512 with 304 bits and PEE 2048x2048 with 3 Mbit.
+   2048x2048 3 Mbit PEE plan (pass 0 and pass 1); the block encode's device
+   work at ``blk_cr2048_u16_full`` op by op (tile popcounts, embed, packed
+   maps, moments; profiler ops and bounds); the encode host wall with
+   ``compute_metrics=False`` under ``device_policy`` ``"device"`` and
+   ``"host"`` at ``mr512_u16_full`` and ``cr2048_u16_full``; warm
+   encode+decode cycles (host wall, stage means, device busy share): raster
+   512x512 with 304 bits, block_adaptive 512x512 with 304 bits, PEE 512x512
+   with 304 bits and PEE 2048x2048 with 3 Mbit.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
-``{"kernels": [...]}`` (per kernel: launches, max abs error, times, and the
-bound: the larger of its bytes over 3.35 TB/s and its integer operations
-over 67 TOP/s, from this run's shapes); the last line is
+``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
+error, times, and the bound: the larger of its bytes over 3.35 TB/s and its
+integer operations over 67 TOP/s, from this run's shapes); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -130,22 +142,8 @@ def device_ms(fn, reps: int = REPS):
     copies ``torch.profiler`` records over ``reps`` calls, divided by
     ``reps`` (host overhead excluded). None when the profiler records no
     device activity."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(
-        evt.self_device_time_total for evt in prof.key_averages()
-        if evt.device_type == DeviceType.CUDA
-    )
-    return total_us / 1e3 / reps if total_us > 0 else None
+    total = sum(ms for _, ms in device_ops_ms(fn, reps))
+    return total if total > 0 else None
 
 
 def fmt_ms(v) -> str:
@@ -564,6 +562,69 @@ def phase2_pee_stress(dev) -> str:
             f"identical repeats of each on {shape[0]}")
 
 
+def phase2_block(port, dev) -> str:
+    """The device block extract (``extract_block_message_device``, torch
+    ops on the card) against ``extract_block_host`` on the stegos of the
+    ``blk_*`` cases, encoded on the card: the case's own plan and out_len,
+    then the same plan with the cut point one lower (the last plane's
+    window, past s, must come back as zeros) at out_len 37 and 1024."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.io.container import parse_block_ext
+    from codec_tcc_tpu_torch.ops import blocks as block_ops
+    from codec_tcc_tpu_torch.ops import embed as embed_ops
+    from codec_tcc_tpu_torch.ops import host_extract
+
+    count = 0
+    for case in cases.CASES:
+        if case.strategy != "block_adaptive":
+            continue
+        img, s, bits = case_payload(case)
+        res = port.encode_array(img, bits, case.config(port.EncodeConfig),
+                                bits_stored=case.bits_stored, device="cuda")
+        meta = res.meta
+        h, w = img.shape
+        block = parse_block_ext(meta.ext)
+        kbits = pipeline._plane_bucket(s, 8 * img.itemsize)
+        _, lens, offs = pipeline._plane_plan_from_meta(meta, img.size, kbits)
+        # the decoder's view: bases and rankings from the original's planes
+        bases = pipeline._block_bases(torch.from_numpy(img), kbits, s, block,
+                                      h, w)
+        counts = host_extract.block_counts_host(img, s, block)
+        rankings = [block_ops.ranking_from_counts(counts[p], h, w, block)
+                    for p in range(s)]
+        stego_d = torch.from_numpy(res.stego).to(dev)
+        for cut, out_len in ((s, bits.size), (s - 1, 37), (s - 1, 1024)):
+            got = embed_ops.extract_block_message_device(
+                stego_d, bases, lens, offs, cut, kbits, block, max(out_len, 1))
+            torch.cuda.synchronize()
+            want = host_extract.extract_block_host(
+                res.stego, rankings, lens, offs, cut, block, max(out_len, 1))
+            check(np.array_equal(got.cpu().numpy(), want),
+                  f"device block extract != extract_block_host on "
+                  f"{case.name} (s={cut}, out_len={out_len})")
+            if cut == s:
+                check(np.array_equal(want[: bits.size], bits),
+                      f"{case.name}: block extract lost the payload")
+            count += 1
+    return (f"device block extract == extract_block_host on {count} plans "
+            f"of the blk_* stegos")
+
+
+def case_path(port, case) -> str:
+    """The counted path a parity case runs on: ``pee``, ``block``, ``host``
+    (the config routes the raster embed to the host) or ``raster``."""
+    if case.strategy == "pee":
+        return "pee"
+    if case.strategy == "block_adaptive":
+        return "block"
+    cfg = case.config(port.EncodeConfig)
+    return "host" if cfg.resolve_host_route(case.height * case.width) \
+        else "raster"
+
+
 def case_payload(case):
     from codec_tcc_tpu_torch.ops.decompose import decompose
     from codec_tcc_tpu_torch.ops.segments import usable_capacity_bits
@@ -662,7 +723,9 @@ def phase5_cli(parity) -> None:
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (HERE, env.get("PYTHONPATH")) if p)
     for name, extra in (("mr512_u16", []),
-                        ("pee_mr512_u16_text", ["--strategy", "pee"])):
+                        ("pee_mr512_u16_text", ["--strategy", "pee"]),
+                        ("blk_mr512_u16", ["--strategy", "block_adaptive"]),
+                        ("host_mr512_u16", ["--device-policy", "host"])):
         case = cases.BY_NAME[name]
         img = cases.image(case)
         with tempfile.TemporaryDirectory() as tmp:
@@ -685,7 +748,8 @@ def phase5_cli(parity) -> None:
 
 
 def cycle_report(label: str, cycle, reps: int) -> None:
-    """Warm encode+decode: host wall (median), stage means, busy share."""
+    """Warm encode+decode: host wall (median), stage means, busy share and
+    the largest device ops."""
     from codec_tcc_tpu_torch.profiling import get_profiler
 
     cycle()
@@ -698,12 +762,15 @@ def cycle_report(label: str, cycle, reps: int) -> None:
         walls.append((time.perf_counter() - t0) * 1e3)
     e2e = statistics.median(walls)
     stages = {k: round(v["mean_ms"], 3) for k, v in profiler.report().items()}
-    busy = device_ms(cycle, reps=reps)
+    ops = device_ops_ms(cycle, reps=reps)
+    busy = sum(ms for _, ms in ops) if ops else None
     busy_txt = ("not measured" if busy is None else
                 f"{busy:.4f} ms device time = {100 * busy / e2e:.2f}% busy")
     print(f"  {label} stage means (host wall ms): {stages}")
     print(f"  {label}: {e2e:.2f} ms host wall (median of {reps}), {busy_txt}",
           flush=True)
+    print(f"  {label} largest device ops (ms per cycle): "
+          + ", ".join(f"{op} {ms:.4f}" for op, ms in ops[:6]), flush=True)
 
 
 def time_raster(results, dev) -> dict:
@@ -835,6 +902,148 @@ def time_pee(results, dev) -> dict:
     return timing
 
 
+def device_ops_ms(fn, reps: int = REPS) -> list:
+    """(op name, device ms per call of ``fn()``) for every CUDA kernel and
+    copy ``torch.profiler`` records over ``reps`` calls, largest first.
+
+    The ``profiling.stage`` ranges also appear on the device side, as
+    annotations that span the kernels inside them and the gaps between
+    those; they are left out (the cycles' busy shares up to PR 7 summed
+    them in)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = {evt.key for evt in events if evt.device_type == DeviceType.CPU}
+    ops = {}
+    for evt in events:
+        if (evt.device_type == DeviceType.CUDA and evt.self_device_time_total
+                and not getattr(evt, "is_user_annotation", False)
+                and evt.key not in ranges):
+            name = short_op(evt.key)
+            ops[name] = ops.get(name, 0.0) + evt.self_device_time_total
+    return sorted(((k, v / 1e3 / reps) for k, v in ops.items()),
+                  key=lambda kv: -kv[1])
+
+
+def short_op(name: str) -> str:
+    """A CUDA kernel's name without its template arguments and namespaces
+    (``void at::native::reduce_kernel<512, ...>(...)`` -> ``reduce_kernel``,
+    with the functor for the elementwise ones); copies keep their name."""
+    import re
+
+    if name.startswith("Memcpy") or name.startswith("Memset"):
+        return name
+    base = re.split(r"[<(]", name.replace("void ", "", 1), maxsplit=1)[0]
+    base = base.split("::")[-1]
+    functors = re.findall(r"\w+Functor\w*|\w+_kernel_cuda|\w+_functor"
+                          r"|compare_scalar_kernel", name)
+    specific = [f for f in functors if f not in (
+        "AUnaryFunctor", "BUnaryFunctor", "BinaryFunctor", "UnaryFunctor")]
+    functor = (specific or functors or [None])[0]
+    return f"{base}[{functor}]" if functor else base
+
+
+def time_block(results, dev) -> None:
+    """The block encode's device work at ``blk_cr2048_u16_full``, op by op:
+    the tile popcounts of s planes, the variance-ranked embed, the packed
+    XOR maps and the metric moments; each against the least time the card
+    could take for its bytes (what a hand kernel would be ranked by)."""
+    from types import SimpleNamespace
+
+    import torch
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.io.container import parse_block_ext
+    from codec_tcc_tpu_torch.ops import blocks as block_ops
+    from codec_tcc_tpu_torch.ops import embed as embed_ops
+    from codec_tcc_tpu_torch.ops import metrics as metric_ops
+
+    img, s, bits, res = results["blk_cr2048_u16_full"]
+    h, w = img.shape
+    n = img.size
+    block = parse_block_ext(res.meta.ext)
+    kbits = pipeline._plane_bucket(s, 16)
+    _, lens, offs = pipeline._plane_plan_from_meta(res.meta, n, kbits)
+    img_d = torch.from_numpy(img).to(dev)
+    msg_d = torch.from_numpy(bits).to(dev)
+    bases = pipeline._block_bases(img_d, kbits, s, block, h, w)
+    stego_d = embed_ops.embed_block_adaptive(img_d, msg_d, bases, lens, offs,
+                                             s, kbits, block)
+    check(torch.equal(stego_d.cpu(), torch.from_numpy(res.stego)),
+          "blk_cr2048_u16_full: the timed embed differs from the encode's")
+    calls = {
+        "popcount": lambda: block_ops.block_bit_counts_all(img_d, s, block),
+        "embed": lambda: embed_ops.embed_block_adaptive(
+            img_d, msg_d, bases, lens, offs, s, kbits, block),
+        "maps": lambda: embed_ops.xor_maps_packed_batch(
+            img_d[None], stego_d[None], s),
+        "pair_stats": lambda: metric_ops.pair_stats(img_d, stego_d),
+    }
+    # bytes each function must move: image read once (popcount, embed,
+    # maps and moments), stego written (embed) or read (maps, moments), the
+    # message bytes read (embed), s packed map planes written (maps)
+    nbytes = {"popcount": 2 * n, "embed": 2 * n + 2 * n + bits.size,
+              "maps": 2 * n + 2 * n + s * n // 8, "pair_stats": 4 * n}
+    out = {}
+    for key, fn in calls.items():
+        out[key] = {"ms": cuda_median_ms(fn), "dev_ms": device_ms(fn),
+                    "bytes": nbytes[key], "bound": bound(nbytes[key], 0)}
+        print(f"  blk 2048x2048 u16 s={s} {key}: per call "
+              f"{out[key]['ms']:.4f} ms, device {fmt_ms(out[key]['dev_ms'])}"
+              f", bound {out[key]['bound'][0]:.4f} ms ({nbytes[key]} B)",
+              flush=True)
+        print(f"    {key} ops (ms device per call): "
+              + ", ".join(f"{op} {ms:.4f}" for op, ms in device_ops_ms(fn)))
+    # the encode's device work as one function (K5's candidate scope):
+    # image read, stego and s map planes written, message bytes read
+    k5_bytes = 2 * n + 2 * n + s * n // 8 + bits.size
+    total = sum(v["dev_ms"] or 0.0 for k, v in out.items()
+                if k in ("embed", "maps"))
+    print(f"  blk 2048x2048 u16 embed + maps: {total:.4f} ms device, bound "
+          f"{bound(k5_bytes, 0)[0]:.4f} ms ({k5_bytes} B)", flush=True)
+    pp = SimpleNamespace(lengths=lens, offsets=offs)
+    whole = device_ops_ms(lambda: pipeline._embed_block(
+        img_d, bits, pp, s, kbits, block, True, True), reps=5)
+    print(f"  blk 2048x2048 u16 encode device work (popcounts, ranking on "
+          f"the host, embed, moments, maps, downloads): "
+          f"{sum(ms for _, ms in whole):.4f} ms device per encode; ops: "
+          + ", ".join(f"{op} {ms:.4f}" for op, ms in whole[:10]), flush=True)
+
+
+def time_routes(port, results) -> None:
+    """Encode host wall, median of 5, with ``compute_metrics=False`` under
+    ``device_policy="device"`` (K1) and ``"host"`` (numpy windows), in
+    turns; the two containers must be equal."""
+    for name in ("mr512_u16_full", "cr2048_u16_full"):
+        img, _, bits, _ = results[name]
+        walls = {"device": [], "host": []}
+        blobs = {}
+        for rep in range(6):
+            for policy in walls:
+                cfg = port.EncodeConfig(compute_metrics=False,
+                                        device_policy=policy)
+                t0 = time.perf_counter()
+                res = port.encode_array(img, bits, cfg, bits_stored=12,
+                                        device="cuda")
+                if rep:                 # the first round warms up
+                    walls[policy].append((time.perf_counter() - t0) * 1e3)
+                blobs[policy] = res.container
+        check(blobs["device"] == blobs["host"],
+              f"{name}: host and device routes gave different containers")
+        med = {k: statistics.median(v) for k, v in walls.items()}
+        print(f"  {name} encode, compute_metrics=False, host wall median of "
+              f"5: device route {med['device']:.2f} ms, host route "
+              f"{med['host']:.2f} ms", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -872,8 +1081,9 @@ def main() -> int:
     max_err["raster_extract"] = max(max_err["raster_extract"], k2_err)
     max_err.update(phase2_pee(dev))
     stress_txt = phase2_pee_stress(dev)
+    block_txt = phase2_block(port, dev)
     phase(2, f"K1-K4 == plain on the card (max abs err {max_err}); "
-             f"{k1_txt}; {k2_txt}; {stress_txt}")
+             f"{k1_txt}; {k2_txt}; {stress_txt}; {block_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is
@@ -890,16 +1100,18 @@ def main() -> int:
 
     results = {}
 
-    def run_cases(strategy_pee):
-        for case in cases.CASES:
-            if (case.strategy == "pee") != strategy_pee:
-                continue
+    by_path = {}
+    for case in cases.CASES:
+        by_path.setdefault(case_path(port, case), []).append(case)
+
+    def run_cases(path):
+        for case in by_path[path]:
             want = parity[case.name]
             img, s, bits = case_payload(case)
             check(cases.sha256(bits) == want["payload_sha256"],
                   f"{case.name}: payload differs from the fixture's")
             res = port.encode_array(
-                img, bits, port.EncodeConfig(strategy=case.strategy),
+                img, bits, case.config(port.EncodeConfig),
                 bits_stored=case.bits_stored, device="cuda",
             )
             check(res.s == want["s"] == s,
@@ -923,29 +1135,34 @@ def main() -> int:
                   f"container={len(res.container)} B sha256 ok, decode ok",
                   flush=True)
 
-    counted("raster", lambda: run_cases(False))
-    n_raster = sum(c.strategy != "pee" for c in cases.CASES)
-    expected["raster"] = {"raster_embed": n_raster,
-                          "raster_extract": n_raster,
-                          "pee_embed": 0, "pee_extract": 0}
-    counted("pee", lambda: run_cases(True))
+    n_path = {path: len(group) for path, group in by_path.items()}
+    no_launch = {"raster_embed": 0, "raster_extract": 0, "pee_embed": 0,
+                 "pee_extract": 0}
+    counted("raster", lambda: run_cases("raster"))
+    expected["raster"] = {**no_launch, "raster_embed": n_path["raster"],
+                          "raster_extract": n_path["raster"]}
+    counted("pee", lambda: run_cases("pee"))
     pee_cfg = port.EncodeConfig(strategy="pee")
     groups = 0
-    for case in cases.CASES:
-        if case.strategy == "pee":
-            img, _, bits, res = results[case.name]
-            t0 = pee_start_thresholds(img[None], [bits.size],
-                                      case.bits_stored, pee_cfg, dev)
-            groups += cases.pee_attempt_groups(
-                t0, [parse_pee_ext(res.meta.ext)[0]])
-    expected["pee"] = {"raster_embed": 0, "raster_extract": 0,
-                       "pee_embed": 2 * groups,
-                       "pee_extract": 2 * (len(cases.CASES) - n_raster)}
+    for case in by_path["pee"]:
+        img, _, bits, res = results[case.name]
+        t0 = pee_start_thresholds(img[None], [bits.size],
+                                  case.bits_stored, pee_cfg, dev)
+        groups += cases.pee_attempt_groups(
+            t0, [parse_pee_ext(res.meta.ext)[0]])
+    expected["pee"] = {**no_launch, "pee_embed": 2 * groups,
+                       "pee_extract": 2 * n_path["pee"]}
+    # block_adaptive: torch ops on the card to encode, the host to decode
+    counted("block", lambda: run_cases("block"))
+    expected["block"] = dict(no_launch)
+    # the host embed route: no K1; its containers decode through K2
+    counted("host", lambda: run_cases("host"))
+    expected["host"] = {**no_launch, "raster_extract": n_path["host"]}
     batch_txt, expected["pee_batch"] = phase3_batch(port, results, parity,
                                                     counted, dev)
-    phase(3, f"{len(cases.CASES)} parity cases byte-identical to the JAX "
-             f"package, decoded and restored exactly; PEE batch of four "
-             f"512x512 ({batch_txt}) equal to single-image encodes")
+    phase(3, f"{len(cases.CASES)} parity cases ({n_path}) byte-identical to "
+             f"the JAX package, decoded and restored exactly; PEE batch of "
+             f"four 512x512 ({batch_txt}) equal to single-image encodes")
 
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
@@ -954,6 +1171,7 @@ def main() -> int:
     goldens = (("hybrid", "golden_image.npy"),
                ("hybrid_packed", "golden_image.npy"),
                ("multi_plane", "golden_image.npy"),
+               ("block_adaptive", "golden_image.npy"),
                ("pee", "golden_pee_image.npy"))
     blobs = {}
     for name, _ in goldens:
@@ -970,13 +1188,13 @@ def main() -> int:
               f"golden_{name}: payload differs")
         check(np.array_equal(decs[name].original, golden_img),
               f"golden_{name}: original differs")
-    phase(4, "golden hybrid / hybrid_packed / multi_plane / pee containers "
-             "decode")
+    phase(4, "golden hybrid / hybrid_packed / multi_plane / block_adaptive / "
+             "pee containers decode")
 
     # -- phase 5: the CLI in subprocesses ------------------------------------
     phase5_cli(parity)
-    phase(5, "CLI encode/decode on the card (hybrid and pee): container, "
-             "message and original exact")
+    phase(5, "CLI encode/decode on the card (hybrid, pee, block_adaptive and "
+             "--device-policy host): container, message and original exact")
 
     # -- phase 6: each path's launches, read right after it ran --------------
     for path, counts in paths.items():
@@ -991,6 +1209,8 @@ def main() -> int:
     # -- phase 7: times -------------------------------------------------------
     raster = time_raster(results, dev)
     pee = time_pee(results, dev)
+    time_block(results, dev)
+    time_routes(port, results)
     cfg = port.EncodeConfig()
 
     def cycle_of(name, config):
@@ -1004,6 +1224,9 @@ def main() -> int:
 
     cycle_report("raster encode+decode 512x512 u16 (304 bits)",
                  cycle_of("mr512_u16", cfg), 5)
+    cycle_report("block encode+decode 512x512 u16 (304 bits)",
+                 cycle_of("blk_mr512_u16",
+                          port.EncodeConfig(strategy="block_adaptive")), 5)
     cycle_report("pee encode+decode 512x512 u16 (304 bits)",
                  cycle_of("pee_mr512_u16_text", pee_cfg), 5)
     cycle_report("pee encode+decode 2048x2048 u16 (3 Mbit)",

@@ -2,7 +2,9 @@
 
 Reversible steganography for medical (DICOM) images on an NVIDIA Hopper GPU:
 adaptive bit-plane decomposition, raster LSB embedding (``hybrid`` and
-``multi_plane``) with XOR location maps, prediction-error expansion
+``multi_plane``, on the device or, as ``device_policy`` routes it, on the
+host) and variance-ranked block embedding (``block_adaptive``) with XOR
+location maps, prediction-error expansion
 (``pee``, single images and batches in :mod:`.parallel.batch_pee`), the
 STGC v2 container with the ``deflate`` transport codec, exact payload
 extraction and original-image restoration. Containers are byte-identical

@@ -60,8 +60,9 @@ def _build_parser() -> argparse.ArgumentParser:
     enc.add_argument("--container-version", type=int, default=2, choices=(1, 2))
     enc.add_argument("--device-policy", choices=("auto", "device", "host"),
                      default="auto",
-                     help="where the raster embed runs; the port runs the "
-                          "device route only")
+                     help="where the raster embed runs: 'host' places the "
+                          "payload with numpy windows, 'auto' does so when "
+                          "no metrics are asked for")
     enc.add_argument("--device", default="cuda",
                      help="torch device: cuda (kernels) or cpu (plain torch)")
     enc.add_argument("--report", help="write a JSON run report here")

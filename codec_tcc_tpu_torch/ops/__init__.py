@@ -7,7 +7,10 @@ Modules:
 * :mod:`.decompose`      — adaptive cut point (bit-identical to NumPy)
 * :mod:`.segments`       — host segment distribution and plane plans
 * :mod:`.blocks`         — device tile popcounts + exact host ranking
-* :mod:`.embed`          — plain torch raster embed/extract + XOR maps
+* :mod:`.embed`          — plain torch raster and block embed/extract +
+                           XOR maps
+* :mod:`.host_embed`     — numpy raster embed of the host route
+* :mod:`.host_extract`   — numpy raster and block extraction
 * :mod:`.raster_kernels` — CUDA kernels K1/K2, their wrappers and counts
 * :mod:`.pee`            — plain torch PEE passes, histograms, both-pass
                            chains

@@ -1,7 +1,8 @@
-# Port of codec_tcc_tpu/ops/embed.py, raster half plus pack_bits_batch: the
-# plain torch versions of the raster embed and extract. The hand-written kernels that replace
-# them on the GPU live in ops/raster_kernels.py.
-"""Plain torch raster embed / extract and XOR location maps.
+# Port of codec_tcc_tpu/ops/embed.py, raster and block halves plus
+# pack_bits_batch: the plain torch versions of the raster embed and extract,
+# whose hand-written kernels live in ops/raster_kernels.py, and the block
+# embed and extract, which run as torch ops on the image's device.
+"""Plain torch raster and block embed / extract and XOR location maps.
 
 All raster strategies compute one function. For every plane ``p < s`` a
 pixel ``pos`` whose window offset ``rel = (pos - start_p) mod N`` is below
@@ -18,11 +19,18 @@ These are the reference formulations of kernels K1 ``raster_embed``
 ``chip_smoke.py`` holds the CUDA kernels against them on the card. They run
 on any device. ``uint16`` has no shifts in torch, so pixels are widened to
 ``int32`` for the arithmetic and narrowed back at the end (exact).
+
+Strategy ``block_adaptive`` (:func:`embed_block_adaptive`,
+:func:`extract_block_message_device`) fills each plane's window in
+variance-ranked tile order instead of raster order. The JAX package runs it
+as XLA one-hot matmuls, not as a Pallas kernel, so here it is torch ops;
+the encoder runs the embed on the device, the decoder extracts on the host
+(:mod:`.host_extract`), as the JAX package does.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +41,9 @@ __all__ = [
     "assemble_message",
     "assemble_message_device",
     "extract_message_device",
+    "embed_block_adaptive",
+    "extract_block_aligned",
+    "extract_block_message_device",
     "xor_maps_packed_batch",
     "pack_bits_batch",
     "restore_original",
@@ -211,6 +222,133 @@ def restore_original(
         torch.where(active, maps.to(torch.int32), 0) << shifts.view(nbits, 1, 1)
     ).sum(dim=0)
     return (stego.to(torch.int32) ^ diff).to(stego.dtype)
+
+
+def _block_fill_rank(
+    h: int, w: int, block: int, device: torch.device
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Tile id and within-tile raster rank of every pixel, ``(N,) int64``
+    each, in raster order. A plane with per-tile base offsets ``base``
+    (:func:`codec_tcc_tpu_torch.ops.blocks.block_base_offsets`) fills pixel
+    ``i`` at rank ``base[tile[i]] + r[i]``: tiles in variance order, raster
+    within a tile. Edge tiles are narrower (``bw_real = min(block, w -
+    x0)``), so ``r`` counts within the tile's real width."""
+    y = torch.arange(h, dtype=torch.int64, device=device)[:, None]
+    x = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+    nw = -(-w // block)
+    ty = y // block
+    tx = x // block
+    x0 = tx * block
+    bw_real = torch.clamp(w - x0, max=block)
+    tile = ty * nw + tx
+    r = (y - ty * block) * bw_real + (x - x0)
+    return tile.reshape(-1), r.reshape(-1)
+
+
+def _base_table(base_offsets, device: torch.device) -> torch.Tensor:
+    """``(nbits, ntiles)`` tile bases as int64 on ``device``."""
+    return torch.as_tensor(np.asarray(base_offsets)).to(
+        device=device, dtype=torch.int64
+    )
+
+
+def embed_block_adaptive(
+    image: torch.Tensor,          # (H, W) uint8/uint16
+    msg_bits: torch.Tensor,       # (L,) uint8 0/1 on the image's device
+    base_offsets,                 # (nbits, ntiles) per-plane tile bases
+    seg_len: Sequence[int],       # (nbits,) embedded bits per plane
+    msg_off: Sequence[int],       # (nbits,) message bit offset per plane
+    s: int,                       # runtime cut point
+    nbits: int,
+    block: int,
+) -> torch.Tensor:
+    """Strategy ``block_adaptive``: variance-ranked block fill, bit-exact
+    with the JAX package's ``embed_block_adaptive``.
+
+    One formulation for every geometry. For each plane ``p < s`` a pixel of
+    fill rank ``rank = base_p[tile] + r`` below ``len_p`` gets bit ``p`` set
+    to ``msg[off_p + rank]``; bits past ``L`` read as 0. The JAX package
+    has two routes for this function (a one-hot matmul permutation for
+    uniform tilings and a clipped gather for edge tiles); on a message
+    padded by :func:`pad_message` both equal this one. The only indexed
+    reads are of the int64 base table and of the message."""
+    h, w = image.shape
+    n = h * w
+    dev = image.device
+    tile, r = _block_fill_rank(h, w, block, dev)
+    base = _base_table(base_offsets, dev)
+    acc = image.reshape(n).to(torch.int32)
+    msg = msg_bits.to(device=dev, dtype=torch.int32)
+    L = msg.numel()
+    for p in range(nbits):
+        ln = int(seg_len[p])
+        if p >= s or ln <= 0:
+            continue                      # no pixel of the plane is active
+        rank = base[p][tile] + r
+        idx = int(msg_off[p]) + rank
+        if L:
+            bits = torch.where(idx < L, msg[idx.clamp(0, L - 1)], 0)
+        else:
+            bits = torch.zeros_like(acc)
+        newv = (acc & ~(1 << p)) | (bits << p)
+        acc = torch.where(rank < ln, newv, acc)
+    return acc.to(image.dtype).reshape(h, w)
+
+
+def extract_block_aligned(
+    stego: torch.Tensor,
+    base_offsets,
+    seg_len: Sequence[int],
+    s: int,
+    nbits: int,
+    block: int,
+) -> torch.Tensor:
+    """Inverse front half of :func:`embed_block_adaptive`: ``(nbits, H*W)
+    uint8`` where row p holds plane p's bits in fill-rank (message) order,
+    masked to its window and to ``p < s``, ready for
+    :func:`assemble_message_device`.
+
+    Each plane's bits are scattered to their fill ranks. The base rows of
+    the planes below ``s`` must come from
+    :func:`~codec_tcc_tpu_torch.ops.blocks.block_base_offsets` over the
+    restored original's planes, so that the ranks are a permutation of
+    ``0..N-1``, as the encoder's were."""
+    h, w = stego.shape
+    n = h * w
+    dev = stego.device
+    flat = stego.reshape(n).to(torch.int32)
+    tile, r = _block_fill_rank(h, w, block, dev)
+    base = _base_table(base_offsets, dev)
+    iota = torch.arange(n, dtype=torch.int64, device=dev)
+    rows = torch.zeros((nbits, n), dtype=torch.uint8, device=dev)
+    for p in range(nbits):
+        ln = int(seg_len[p])
+        if p >= s or ln <= 0:
+            continue                      # masked: the row stays zero
+        fill = torch.empty(n, dtype=torch.uint8, device=dev)
+        fill[base[p][tile] + r] = ((flat >> p) & 1).to(torch.uint8)
+        rows[p] = torch.where(iota < ln, fill, 0)
+    return rows
+
+
+def extract_block_message_device(
+    stego: torch.Tensor,
+    base_offsets,
+    seg_len: Sequence[int],
+    msg_off: Sequence[int],
+    s: int,
+    nbits: int,
+    block: int,
+    out_len: int,
+) -> torch.Tensor:
+    """:func:`extract_block_aligned` + :func:`assemble_message_device`:
+    the ``(out_len,)`` payload bits on the stego's device. Later planes
+    overwrite earlier ones where windows alias, and a plane at or past the
+    cut point with a nonzero length writes zeros over its window (its row
+    is masked, its window still assembled), as in the JAX package."""
+    aligned = extract_block_aligned(stego, base_offsets, seg_len, s, nbits,
+                                    block)
+    return assemble_message_device(aligned, msg_off, seg_len, out_len)
 
 
 def pad_message(msg_bits, n_pixels: int, max_offset: int):

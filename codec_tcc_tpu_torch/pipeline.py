@@ -1,4 +1,5 @@
-# Port of codec_tcc_tpu/pipeline.py (encode/decode of the raster strategies).
+# Port of codec_tcc_tpu/pipeline.py (encode/decode of the raster and block
+# strategies, and the host embed route).
 """End-to-end encode / decode pipelines (host orchestration shell).
 
 The raster path of the JAX package, in torch: the image is uploaded once;
@@ -9,12 +10,19 @@ and the STGC container stay host code. Decode inflates the stego on the
 host, uploads it, extracts the payload bits with kernel K2 and restores the
 original from the container's maps on the host.
 
-Strategy ``pee`` dispatches early to :mod:`.models.pee` (kernels K3/K4).
+Strategy ``block_adaptive`` encodes on the device in torch ops (tile
+popcounts, the variance-ranked embed, the packed maps) and decodes on the
+host (:mod:`.ops.host_extract`), as the JAX package does. The host embed
+route (``device_policy="host"``, or ``"auto"`` with
+``compute_metrics=False``; ``EncodeConfig.resolve_host_route``) places a
+raster payload with numpy windows (:mod:`.ops.host_embed`) and never
+uploads the image. Strategy ``pee`` dispatches early to
+:mod:`.models.pee` (kernels K3/K4).
 
 Containers are byte-identical to the JAX package's for the strategies,
-codecs and container versions ported so far (``hybrid``, ``multi_plane``
-and ``pee``; ``deflate``; STGC v2/v2.1). Everything else raises
-``NotImplementedError`` naming its ROADMAP.md item.
+codecs and container versions ported so far (``hybrid``, ``multi_plane``,
+``block_adaptive`` and ``pee``; ``deflate``; STGC v2/v2.1). Everything else
+raises ``NotImplementedError`` naming its ROADMAP.md item.
 
 Every entry point takes ``device`` (default ``"cuda"``). The CPU runs the
 kernels' plain torch versions, and only when a caller passes ``"cpu"``.
@@ -36,9 +44,13 @@ from .io.codecs import get as get_codec
 from .io.codecs import names as codec_names
 from .ops import blocks as block_ops
 from .ops import decompose as decompose_ops
+from .ops import embed as embed_ops
+from .ops import host_extract
 from .ops import metrics as metric_ops
 from .ops import raster_kernels
 from .ops import segments as segment_ops
+from .ops.host_embed import embed_raster_host_packed
+from .parallel.batch import hybrid_base_offsets_host
 from .profiling import stage
 from .utils import bits as bit_utils
 from .utils.logging import get_logger
@@ -55,9 +67,7 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
-def _check_ported(strategy: str, codec: str, version: int) -> None:
-    if strategy == "block_adaptive":
-        raise _not_ported("strategy 'block_adaptive'", "block_adaptive")
+def _check_ported(codec: str, version: int) -> None:
     if version == 1:
         raise _not_ported(
             "STGC container v1", "other codecs with v1 containers"
@@ -146,6 +156,73 @@ def _host_xor_maps(original: np.ndarray, stego: np.ndarray, s: int) -> np.ndarra
     return out
 
 
+def _block_bases(
+    image: torch.Tensor, nbits: int, s: int, block: int, h: int, w: int
+) -> np.ndarray:
+    """``(nbits, ntiles) int32`` tile bases of the block fill order: the
+    tile popcounts of planes ``0..s-1`` on the image's device, ranked on the
+    host; rows at and past ``s`` are zero."""
+    ntiles = (-(-h // block)) * (-(-w // block))
+    base = np.zeros((nbits, ntiles), dtype=np.int32)
+    counts = block_ops.block_bit_counts_all(image, s, block).cpu().numpy()
+    for p in range(s):
+        b, _ = block_ops.block_base_offsets(counts[p], h, w, block)
+        base[p] = b
+    return base
+
+
+# Each embed route returns (stego, packed XOR maps or None, pair_stats
+# moments or None); the maps come back only when the container stores them
+# packed.
+
+
+def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
+    """K1: stego + packed XOR maps in one launch, then the moments."""
+    stego_dev, packed_dev = raster_kernels.raster_embed(
+        image_dev, _upload(msg_bits, image_dev.device), pp.starts,
+        pp.lengths, pp.offsets, s, emit_maps=emit_maps,
+    )
+    stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
+    packed = None if packed_dev is None else packed_dev.cpu().numpy()
+    return stego_dev.cpu().numpy(), packed, stats
+
+
+def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
+                 with_stats):
+    """block_adaptive on the image's device: the tile popcounts, the
+    variance-ranked embed, the moments and the packed XOR maps."""
+    h, w = image_dev.shape
+    with stage("block_rank"):
+        bases = _block_bases(image_dev, nbits, s, block, h, w)
+    stego_dev = embed_ops.embed_block_adaptive(
+        image_dev, _upload(msg_bits, image_dev.device), bases, pp.lengths,
+        pp.offsets, s, nbits, block,
+    )
+    stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
+    packed = None
+    if emit_maps:
+        packed = embed_ops.xor_maps_packed_batch(
+            image_dev[None], stego_dev[None], s
+        )[0].cpu().numpy()
+    return stego_dev.cpu().numpy(), packed, stats
+
+
+def _embed_host(image, msg_bits, pp, s, with_stats, dev):
+    """The raster embed as O(payload) host window placement: no image
+    upload. Metrics, when a forced "host" still asks for them, are the
+    moments on the caller's device."""
+    msg_pad = embed_ops.pad_message(
+        msg_bits, image.size, int(pp.offsets.max(initial=0))
+    )
+    stego, packed = embed_raster_host_packed(
+        image, msg_pad, pp.starts, pp.lengths, pp.offsets, s, max(s, 1)
+    )
+    stats = None
+    if with_stats:
+        stats = metric_ops.pair_stats(_upload(image, dev), _upload(stego, dev))
+    return stego, packed, stats
+
+
 # ---------------------------------------------------------------------------
 # encode
 # ---------------------------------------------------------------------------
@@ -162,7 +239,7 @@ def encode_array(
     """Embed ``payload`` into ``image`` and build an STGC container."""
     config = config.validate()
     dev = _resolve_device(device)
-    _check_ported(config.strategy, config.codec, config.container_version)
+    _check_ported(config.codec, config.container_version)
     if config.strategy == "pee":
         # before the host-route check: as in the JAX package, PEE always
         # runs its passes on the device, whatever device_policy says
@@ -178,11 +255,6 @@ def encode_array(
     h, w = image.shape
     n = h * w
     dtype_bits = image.dtype.itemsize * 8
-    if config.device_policy == "host" or config.resolve_host_route(n):
-        raise _not_ported(
-            "the host embed route (device_policy='host', or 'auto' with "
-            "compute_metrics=False)", "host route",
-        )
 
     nbits = config.nbits
     if nbits is None:
@@ -195,13 +267,17 @@ def encode_array(
     msg_bits = _as_payload_bits(payload)
     total_bits = int(msg_bits.size)
 
-    # upload once: the histogram, the block scan, K1 and the metric moments
-    # all read the device copy
-    image_dev = _upload(image, dev)
+    # The route is the config's choice (resolve_host_route), not a
+    # fallback. The device route uploads the image once: the histogram, the
+    # block scans, the embed and the metric moments all read that copy. The
+    # host route never uploads it; its histogram runs on the host, as the
+    # JAX package's does for a numpy image.
+    host_route = config.device_policy == "host" or config.resolve_host_route(n)
+    image_t = _upload(image, torch.device("cpu") if host_route else dev)
 
-    # 1. decomposition: one device histogram + exact host cut-point math
+    # 1. decomposition: one histogram + exact host cut-point math
     with stage("decompose"):
-        dec = decompose_ops.decompose(image_dev, beta=config.beta, nbits=nbits)
+        dec = decompose_ops.decompose(image_t, beta=config.beta, nbits=nbits)
     s = dec.s
 
     # 2. segment plan (host scalar work)
@@ -217,38 +293,51 @@ def encode_array(
         )
 
     # 3. strategy-specific plane plan (the hybrid start comes from the
-    # device block scan of plane 0)
+    # block scan of plane 0)
     kernel_bits = _plane_bucket(s, dtype_bits)
+    if host_route:
+        # a forced "host" that the window form cannot serve raises here,
+        # after the capacity check, as in the JAX package
+        config.resolve_host_route(n)
     if config.strategy == "hybrid":
         with stage("block_scan"):
-            counts0 = block_ops.block_bit_counts(
-                image_dev, 0, config.search_block_size
-            ).cpu().numpy()
-            start = block_ops.best_offset_from_counts(
-                counts0, h, w, config.search_block_size
-            )
+            if host_route:
+                start = hybrid_base_offsets_host(
+                    image[None], h, w, config.search_block_size
+                )[0]
+            else:
+                counts0 = block_ops.block_bit_counts(
+                    image_t, 0, config.search_block_size
+                ).cpu().numpy()
+                start = block_ops.best_offset_from_counts(
+                    counts0, h, w, config.search_block_size
+                )
         pp = segment_ops.raster_plane_plan(
             plan, n, kernel_bits, start, config.align_across_planes
         )
-    else:  # multi_plane
+    else:  # multi_plane, block_adaptive
         pp = segment_ops.raster_plane_plan(plan, n, kernel_bits, 0, True)
 
     # v2.1 bit-packed maps when the geometry packs; raw maps otherwise
     bitmaps_packed = config.store_bitmaps and n % 8 == 0
     with stage("embed"):
-        # 4. K1: stego + packed XOR maps in one launch, then the moments
-        msg_dev = _upload(msg_bits, dev)
-        stego_dev, packed_dev = raster_kernels.raster_embed(
-            image_dev, msg_dev, pp.starts, pp.lengths, pp.offsets, s,
-            emit_maps=bitmaps_packed,
-        )
-        metrics = None
-        if config.compute_metrics:
-            metrics = metric_ops.quality_report(
-                metric_ops.pair_stats(image_dev, stego_dev)
+        # 4. stego, the packed XOR maps (when the container stores them
+        # packed) and the metric moments
+        if host_route:
+            stego, packed_maps, stats = _embed_host(
+                image, msg_bits, pp, s, config.compute_metrics, dev
             )
-        stego = stego_dev.cpu().numpy()
-        packed_maps = None if packed_dev is None else packed_dev.cpu().numpy()
+        elif config.strategy == "block_adaptive":
+            stego, packed_maps, stats = _embed_block(
+                image_t, msg_bits, pp, s, kernel_bits, config.block_size,
+                bitmaps_packed, config.compute_metrics,
+            )
+        else:
+            stego, packed_maps, stats = _embed_raster(
+                image_t, msg_bits, pp, s, bitmaps_packed,
+                config.compute_metrics,
+            )
+        metrics = None if stats is None else metric_ops.quality_report(stats)
 
     # 5. transport codec + container
     with stage("transport_codec"):
@@ -262,6 +351,10 @@ def encode_array(
             bitmaps_blob = container_io.compress_bitmaps(
                 _host_xor_maps(image, stego, s)
             )
+
+    ext = b""
+    if config.strategy == "block_adaptive":
+        ext = container_io.pack_block_ext(config.block_size)
 
     meta = container_io.ContainerMeta(
         version=config.container_version,
@@ -283,6 +376,7 @@ def encode_array(
         indices=plan.indices,
         eff_lengths=tuple(int(v) for v in pp.lengths[:s]),
         plane_starts=tuple(int(v) for v in pp.starts[:s]),
+        ext=ext,
     )
     blob = container_io.pack(meta, bitmaps_blob, stego_blob)
 
@@ -354,7 +448,7 @@ def decode_container(
     dev = _resolve_device(device)
     cont = container_io.parse(data) if isinstance(data, (bytes, bytearray)) else data
     meta = cont.meta
-    _check_ported(meta.strategy, meta.codec, meta.version)
+    _check_ported(meta.codec, meta.version)
     if meta.strategy == "pee":
         from .models.pee import decode_pee_container
 
@@ -375,6 +469,29 @@ def decode_container(
 
     starts, lengths, offsets = _plane_plan_from_meta(meta, n, kernel_bits)
     out_len = max(int(meta.payload_bits), 1)
+
+    if meta.strategy == "block_adaptive":
+        # on the host, as in the JAX package: the fill order is ranked from
+        # the restored original, so the maps come first
+        diff = cont.diff(stego.dtype)
+        if diff is None:
+            raise ValueError(
+                "block_adaptive extraction requires the XOR location maps"
+            )
+        block = container_io.parse_block_ext(meta.ext)
+        original = stego ^ diff
+        with stage("extract"):
+            counts = host_extract.block_counts_host(original, meta.s, block)
+            rankings = [
+                block_ops.ranking_from_counts(counts[p], h, w, block)
+                for p in range(meta.s)
+            ]
+            bits = host_extract.extract_block_host(
+                stego, rankings, lengths, offsets, meta.s, block, out_len,
+            )[: meta.payload_bits]
+        return DecodeResult(
+            bits, stego, meta, original if restore_original else None
+        )
 
     with stage("extract"):
         # K2 reads only the payload's pixels and writes them in message

@@ -1,7 +1,8 @@
 """Write ``tests/data/torch_port_parity.json``: the JAX package's containers
 for every case of ``tests/torch_port_cases.py``, as hashes.
 
-Per case it records the cut point ``s`` (0 for ``pee``), the payload size
+Each case's ``EncodeConfig`` is the default with its strategy and its
+overrides (``Case.config``). Per case it records the cut point ``s`` (0 for ``pee``), the payload size
 and sha256 (of the uint8 0/1 bit array), the container's length and
 sha256 and, for ``pee``, the PEE ext ``(T, passes, nproc0, nproc1, bits0,
 bits1)``, so that a mismatch says which pass differed; all from
@@ -42,8 +43,7 @@ def jax_entry(case: cases.Case) -> dict:
         capacity = usable_capacity_bits(s, img.size, 42)
     bits = cases.payload_bits(case, capacity)
     res = encode_array(
-        img, bits, EncodeConfig(strategy=case.strategy),
-        bits_stored=case.bits_stored,
+        img, bits, case.config(EncodeConfig), bits_stored=case.bits_stored,
     )
     assert res.s == s
     entry = {
@@ -62,9 +62,16 @@ def main() -> int:
     out = {
         "generator": "tests/make_torch_port_fixtures.py",
         "reference": "codec_tcc_tpu.encode_array, EncodeConfig defaults "
-                     "except strategy, container v2, deflate",
+                     "except strategy and each case's overrides, container "
+                     "v2, deflate",
         "cases": {c.name: jax_entry(c) for c in cases.CASES},
     }
+    if os.path.exists(cases.PARITY_JSON):
+        # a new case must not move an entry already committed
+        for name, entry in cases.load_parity().items():
+            assert out["cases"].get(name) == entry, (
+                f"{name}: the regenerated entry differs from the committed "
+                f"one: {out['cases'].get(name)} != {entry}")
     with open(cases.PARITY_JSON, "w", encoding="utf-8") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")

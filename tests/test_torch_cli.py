@@ -1,6 +1,7 @@
 """``python -m codec_tcc_tpu_torch encode|decode --device cpu`` on a DICOM
-that the port's own writer made, with the default strategy and with
-``--strategy pee``: the message and the restored original come back
+that the port's own writer made, with the default strategy, with
+``--strategy pee``, with ``--strategy block_adaptive`` and with
+``--device-policy host``: the message and the restored original come back
 exact."""
 
 import os
@@ -69,9 +70,27 @@ def test_cli_pee_roundtrip_on_cpu(tmp_path, dicom_input):
     np.testing.assert_array_equal(original, img)
 
 
+@pytest.mark.parametrize("extra,stored", [
+    (["--strategy", "block_adaptive", "--block-size", "12"], "block_adaptive"),
+    (["--device-policy", "host"], "hybrid"),
+], ids=["block_adaptive", "device_policy_host"])
+def test_cli_block_and_host_route_roundtrip_on_cpu(tmp_path, dicom_input,
+                                                   extra, stored):
+    img, path = dicom_input
+    enc = _run(["encode", str(path), "out.stgc", "--message", MESSAGE,
+                *extra, "--device", "cpu"], tmp_path)
+    assert enc.returncode == 0, enc.stderr
+    assert f"strategy             : {stored}" in enc.stdout
+    dec = _run(["decode", "out.stgc", "--output-prefix", "dec",
+                "--device", "cpu"], tmp_path)
+    assert dec.returncode == 0, dec.stderr
+    assert (tmp_path / "dec_message.txt").read_text(encoding="utf-8") == MESSAGE
+    original, _ = dicom.load_image(str(tmp_path / "dec_original.dcm"))
+    np.testing.assert_array_equal(original, img)
+
+
 def test_cli_reports_unported_request(tmp_path, dicom_input, capsys):
     _, path = dicom_input
     rc = cli.main(["encode", str(path), str(tmp_path / "o.stgc"),
-                   "--message", "x", "--strategy", "block_adaptive",
-                   "--device", "cpu"])
+                   "--message", "x", "--codec", "png", "--device", "cpu"])
     assert rc == 1 and "not yet ported" in capsys.readouterr().err

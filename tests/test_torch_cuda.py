@@ -1,6 +1,8 @@
-"""The port's CUDA kernels on a GPU: K1-K4 against their plain versions and
-the raster and PEE encode paths against the CPU path. Marked ``cuda``: they skip where no
-GPU is present and run on the GPU machine with
+"""The port's CUDA kernels on a GPU: K1-K4 against their plain versions; the
+raster, PEE and block_adaptive encode paths against the CPU path; the
+device block extract against its host twin; the host embed route with no
+K1. Marked ``cuda``: they skip where no GPU is present and run on the GPU
+machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 
@@ -423,3 +425,85 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
     assert pk.LAUNCHES == {
         "pee_embed": 2 * groups,
         "pee_extract": 2 * len(set(res_g.thresholds.tolist()))}
+
+
+def test_gpu_block_encode_equals_cpu_encode(cuda):
+    """block_adaptive on the card: the CPU's container, no kernel launched
+    (its device work is torch ops), decoded on the host."""
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(3)
+    img = np.clip(rng.normal(2000, 300, (96, 84)), 0, 4095).astype(np.uint16)
+    cfg = port.EncodeConfig(strategy="block_adaptive", block_size=12)
+    rk.reset_launch_counts()
+    pk.reset_launch_counts()
+    res_g = port.encode_array(img, "block", cfg, bits_stored=12, device=cuda)
+    res_c = port.encode_array(img, "block", cfg, bits_stored=12, device="cpu")
+    assert res_g.container == res_c.container
+    dec = port.decode_container(res_g.container, device=cuda)
+    assert dec.message == "block"
+    np.testing.assert_array_equal(dec.original, img)
+    assert set(rk.LAUNCHES.values()) == {0} and set(pk.LAUNCHES.values()) == {0}
+
+
+@pytest.mark.parametrize("h,w,block,dtype", [(64, 64, 8, np.uint16),
+                                             (61, 67, 12, np.uint16),
+                                             (500, 501, 8, np.uint8)])
+def test_gpu_block_extract_equals_host_extract(cuda, h, w, block, dtype):
+    """The device block extract on the card equals ``extract_block_host``
+    on a real embed, and on an aliased plan with a past-s plane."""
+    from codec_tcc_tpu_torch.ops import blocks as block_ops
+    from codec_tcc_tpu_torch.ops import embed as embed_ops
+    from codec_tcc_tpu_torch.ops import host_extract
+    from codec_tcc_tpu_torch.ops import segments as segment_ops
+
+    rng = np.random.default_rng(h * w)
+    n = h * w
+    img = rng.integers(0, 1 << (8 * np.dtype(dtype).itemsize), (h, w))
+    img = img.astype(dtype)
+    s, nbits = 4, 4
+    counts = host_extract.block_counts_host(img, s, block)
+    base = np.zeros((nbits, counts[0].size), np.int32)
+    rankings = []
+    for p in range(s):
+        base[p], ranking = block_ops.block_base_offsets(counts[p], h, w, block)
+        rankings.append(ranking)
+    total = segment_ops.usable_capacity_bits(s, n, 42)
+    pp = segment_ops.raster_plane_plan(
+        segment_ops.distribute_segments(s, total, 42), n, nbits, 0, True)
+    msg = rng.integers(0, 2, total).astype(np.uint8)
+    stego = embed_ops.embed_block_adaptive(
+        torch.from_numpy(img).to(cuda), torch.from_numpy(msg).to(cuda), base,
+        pp.lengths, pp.offsets, s, nbits, block)
+    stego_np = stego.cpu().numpy()
+    plans = [(pp.lengths, pp.offsets, total),
+             (np.array([n, 300, 40, 77]), np.array([0, 0, 9, 0]), 1000)]
+    for lens, offs, out_len in plans:
+        got = embed_ops.extract_block_message_device(
+            stego, base, lens, offs, s - 1, nbits, block, out_len)
+        want = host_extract.extract_block_host(
+            stego_np, rankings, lens, offs, s - 1, block, out_len)
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    got = embed_ops.extract_block_message_device(
+        stego, base, pp.lengths, pp.offsets, s, nbits, block, total)
+    np.testing.assert_array_equal(got.cpu().numpy(), msg)
+
+
+def test_gpu_host_route_launches_no_k1_and_matches_fixture(cuda):
+    """``device_policy="host"`` with ``device="cuda"``: no K1 launch, the
+    JAX package's container (the fixture's hash), and K2 once to decode."""
+    import torch_port_cases as cases
+
+    case = cases.BY_NAME["host_mr512_u16"]
+    want = cases.load_parity()[case.name]
+    img = cases.image(case)
+    bits = cases.payload_bits(case, 0)
+    rk.reset_launch_counts()
+    res = port.encode_array(img, bits, case.config(port.EncodeConfig),
+                            bits_stored=case.bits_stored, device=cuda)
+    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 0}
+    assert cases.sha256(res.container) == want["container_sha256"]
+    dec = port.decode_container(res.container, device=cuda)
+    np.testing.assert_array_equal(dec.payload_bits, bits)
+    np.testing.assert_array_equal(dec.original, img)
+    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 1}

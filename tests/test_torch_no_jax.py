@@ -1,7 +1,7 @@
 """The port runs where jax does not exist: in a fresh interpreter that
 cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
-the CPU (raster and PEE, single image and batch), and nothing of the JAX
-package gets loaded."""
+the CPU (raster, block_adaptive, the host embed route and PEE, single
+image and batch), and nothing of the JAX package gets loaded."""
 
 import os
 import subprocess
@@ -27,6 +27,13 @@ res = port.encode_array(img, "pee, no jax", pee, bits_stored=12, device="cpu")
 dec = port.decode_container(res.container, device="cpu")
 assert dec.message == "pee, no jax", dec.message
 assert np.array_equal(dec.original, img)
+for cfg in (port.EncodeConfig(strategy="block_adaptive"),
+            port.EncodeConfig(compute_metrics=False)):
+    res = port.encode_array(img, "block, host", cfg, bits_stored=12,
+                            device="cpu")
+    dec = port.decode_container(res.container, device="cpu")
+    assert dec.message == "block, host", dec.message
+    assert np.array_equal(dec.original, img)
 from codec_tcc_tpu_torch.parallel import batch_pee
 batch = batch_pee.encode_pee_batch(np.stack([img, img]), ["a", "bc"], pee,
                                    bits_stored=12, device="cpu")

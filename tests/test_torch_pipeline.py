@@ -1,8 +1,8 @@
 """The port's encode/decode pipeline (on the CPU, through the kernels' plain
 versions) against the JAX package's: containers byte-identical, each side
-decoding the other's, the committed goldens and parity hashes, strategy
-``pee`` through the same entry points, and the requests that are not yet
-ported."""
+decoding the other's, the committed goldens and parity hashes, strategies
+``block_adaptive`` and ``pee`` and the host embed route through the same
+entry points, and the requests that are not yet ported."""
 
 import os
 
@@ -117,7 +117,10 @@ def test_golden_pee_container_decodes():
     np.testing.assert_array_equal(dec.original, img)
 
 
-@pytest.mark.parametrize("name", ["mr512_u16", "ot512_u8"])
+@pytest.mark.parametrize("name", ["mr512_u16", "ot512_u8", "blk_mr512_u16",
+                                  "blk_odd500x501_u8",
+                                  "blk_odd640x480_u16_b12", "host_mr512_u16",
+                                  "host_odd640x480_u16"])
 def test_parity_fixture_regenerates(name):
     """Both packages reproduce the committed hashes the GPU run checks."""
     case = cases.BY_NAME[name]
@@ -126,10 +129,10 @@ def test_parity_fixture_regenerates(name):
     bits = cases.payload_bits(case, 0)
     assert cases.sha256(bits) == want["payload_sha256"]
     res_j = jax_pkg.encode_array(
-        img, bits, jax_pkg.EncodeConfig(strategy=case.strategy),
+        img, bits, case.config(jax_pkg.EncodeConfig),
         bits_stored=case.bits_stored)
     res_p = port.encode_array(
-        img, bits, port.EncodeConfig(strategy=case.strategy),
+        img, bits, case.config(port.EncodeConfig),
         bits_stored=case.bits_stored, device="cpu")
     for res in (res_j, res_p):
         assert res.s == want["s"]
@@ -158,13 +161,10 @@ def test_cuda_default_raises_without_gpu():
 
 
 @pytest.mark.parametrize("overrides,item", [
-    ({"strategy": "block_adaptive"}, "block_adaptive"),
-    ({"device_policy": "host"}, "host route"),
-    ({"compute_metrics": False}, "host route"),
     ({"container_version": 1}, "v1 containers"),
     ({"codec": "png"}, "other codecs"),
     ({"strategy": "pee", "codec": "png"}, "other codecs"),
-], ids=["block_adaptive", "host", "auto_no_metrics", "v1", "png", "pee_png"])
+], ids=["v1", "png", "pee_png"])
 def test_unported_encode_requests_raise(overrides, item):
     img = _image(32, 32, np.uint16)
     with pytest.raises(NotImplementedError, match=item):
@@ -181,8 +181,90 @@ def test_device_policy_device_without_metrics_is_ported():
     assert res_p.container == res_j.container
 
 
+def _cross_decode(img, payload, cfg, bits_stored):
+    """Both packages encode ``img``: containers byte-identical; each decodes
+    the other's to the payload and the original."""
+    res_p = port.encode_array(img, payload, port.EncodeConfig(**cfg),
+                              bits_stored=bits_stored, device="cpu")
+    res_j = jax_pkg.encode_array(img, payload, jax_pkg.EncodeConfig(**cfg),
+                                 bits_stored=bits_stored)
+    assert res_p.container == res_j.container
+    np.testing.assert_array_equal(res_p.stego, res_j.stego)
+    dec_p = port.decode_container(res_j.container, device="cpu")
+    dec_j = jax_pkg.decode_container(res_p.container)
+    for dec in (dec_p, dec_j):
+        np.testing.assert_array_equal(dec.payload_bits, payload)
+        np.testing.assert_array_equal(dec.stego, res_j.stego)
+        np.testing.assert_array_equal(dec.original, img)
+    return res_p
+
+
+@pytest.mark.parametrize("payload", ["text", "capacity"])
+@pytest.mark.parametrize("h,w,block", [(64, 64, 8), (37, 53, 8), (40, 41, 12),
+                                       (48, 64, 16)])
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_block_adaptive_encodes_as_in_jax(dtype, h, w, block, payload):
+    bits_stored = 8 if dtype == np.uint8 else 12
+    img = _image(h, w, dtype)
+    bits = _payload(payload, img, bits_stored)
+    res = _cross_decode(img, bits, dict(strategy="block_adaptive",
+                                        block_size=block), bits_stored)
+    assert res.meta.strategy == "block_adaptive"
+    assert res.meta.bitmaps_packed == ((h * w) % 8 == 0)
+    assert port_container.parse_block_ext(res.meta.ext) == block
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "multi_plane"])
+def test_host_policy_encodes_as_in_jax(strategy):
+    img = _image(40, 48, np.uint16)
+    res = _cross_decode(img, _payload("capacity", img, 12),
+                        dict(strategy=strategy, device_policy="host"), 12)
+    assert res.metrics is not None
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "multi_plane"])
+def test_auto_no_metrics_encodes_as_in_jax(strategy):
+    img = _image(32, 32, np.uint8)
+    bits = _payload("text", img, 8)
+    res = _cross_decode(img, bits, dict(strategy=strategy,
+                                        compute_metrics=False), 8)
+    assert res.metrics is None
+
+
+def test_block_adaptive_with_host_policy_raises_as_in_jax():
+    img = _image(32, 32, np.uint16)
+    cfg = dict(strategy="block_adaptive", device_policy="host")
+    with pytest.raises(ValueError, match="device_policy='host'"):
+        jax_pkg.encode_array(img, TEXT, jax_pkg.EncodeConfig(**cfg))
+    with pytest.raises(ValueError, match="device_policy='host'"):
+        port.encode_array(img, TEXT, port.EncodeConfig(**cfg), device="cpu")
+
+
+def test_golden_block_adaptive_container_decodes():
+    img = np.load(os.path.join(DATA, "golden_image.npy"))
+    with open(os.path.join(DATA, "golden_payload.bin"), "rb") as f:
+        payload = f.read()
+    with open(os.path.join(DATA, "golden_block_adaptive.stgc"), "rb") as f:
+        dec = port.decode_container(f.read(), device="cpu")
+    assert dec.meta.strategy == "block_adaptive"
+    assert dec.payload == payload
+    np.testing.assert_array_equal(dec.original, img)
+
+
+def test_block_adaptive_without_maps_raises_on_decode():
+    img = _image(32, 32, np.uint16)
+    cfg = dict(strategy="block_adaptive", store_bitmaps=False)
+    blob = port.encode_array(img, TEXT, port.EncodeConfig(**cfg),
+                             device="cpu").container
+    assert blob == jax_pkg.encode_array(img, TEXT,
+                                        jax_pkg.EncodeConfig(**cfg)).container
+    for decode in (jax_pkg.decode_container,
+                   lambda b: port.decode_container(b, device="cpu")):
+        with pytest.raises(ValueError, match="XOR location maps"):
+            decode(blob)
+
+
 @pytest.mark.parametrize("fixture,item", [
-    ("golden_block_adaptive.stgc", "block_adaptive"),
     ("ref_v1_pe.bin", "v1 containers"),
 ])
 def test_unported_containers_raise_on_decode(fixture, item):

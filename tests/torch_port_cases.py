@@ -18,6 +18,12 @@ The ``pee_*`` cases run strategy ``pee`` (no cut point: ``s = 0``). Between
 them they take every branch of the PEE path: one pass and two, threshold
 escalation after a shortfall, a saturated pass 0, u8 overflow pixels and
 geometries with odd widths and ``H*W % 8 != 0``.
+
+The ``blk_*`` cases run strategy ``block_adaptive`` (block 8, or 12 on
+``blk_odd640x480_u16_b12``): uniform tilings, edge tiles on one axis and on
+both, raw maps (``H*W % 8 != 0``) and 2048x2048 at capacity. The ``host_*``
+cases take the host embed route: ``device_policy="host"``, and ``"auto"``
+with ``compute_metrics=False`` at 2048x2048.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import hashlib
 import json
 import os
 from dataclasses import dataclass
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -46,6 +52,12 @@ class Case:
     payload: str         # "text", "capacity" or "bits:<n>"
     strategy: str
     seed: int
+    # EncodeConfig fields other than the strategy, as (name, value) pairs
+    overrides: Tuple[Tuple[str, object], ...] = ()
+
+    def config(self, config_cls):
+        """``config_cls`` (either package's ``EncodeConfig``) for the case."""
+        return config_cls(strategy=self.strategy, **dict(self.overrides))
 
 
 CASES = (
@@ -65,6 +77,22 @@ CASES = (
          25),
     Case("pee_cr2048_u16_3m", 2048, 2048, "uint16", 12, "bits:3000000", "pee",
          26),
+    Case("blk_mr512_u16", 512, 512, "uint16", 12, "text", "block_adaptive",
+         31),
+    Case("blk_mr512_u16_full", 512, 512, "uint16", 12, "capacity",
+         "block_adaptive", 32),
+    Case("blk_odd500x501_u8", 500, 501, "uint8", 8, "bits:4096",
+         "block_adaptive", 33),
+    Case("blk_odd640x480_u16_b12", 480, 640, "uint16", 12, "bits:4096",
+         "block_adaptive", 34, (("block_size", 12),)),
+    Case("blk_cr2048_u16_full", 2048, 2048, "uint16", 12, "capacity",
+         "block_adaptive", 35),
+    Case("host_mr512_u16", 512, 512, "uint16", 12, "text", "hybrid", 36,
+         (("device_policy", "host"),)),
+    Case("host_odd640x480_u16", 480, 640, "uint16", 12, "bits:4096",
+         "multi_plane", 37, (("device_policy", "host"),)),
+    Case("host_cr2048_u16_full", 2048, 2048, "uint16", 12, "capacity",
+         "hybrid", 38, (("compute_metrics", False),)),
 )
 BY_NAME = {c.name: c for c in CASES}
 
