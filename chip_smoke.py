@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's encode/decode paths (raster, PEE, block_adaptive and the
-host embed route) through its four hand-written CUDA kernels (K1
-``raster_embed``, K2 ``raster_extract``, K3 ``pee_embed``, K4
-``pee_extract``) and checks them, phase by phase; any failure exits
-non-zero:
+Drives the port's encode/decode paths (raster, PEE, block_adaptive, the
+host embed route and the container batch path) through its hand-written
+CUDA kernels (K1 ``raster_embed`` and its batch form
+``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
+K3 ``pee_embed``, K4 ``pee_extract``) and checks them, phase by phase; any
+failure exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
@@ -24,7 +25,13 @@ non-zero:
    mid-chunk, odd starts, ``out_len`` 1, 15, 16, 17 and past every window)
    at uint8 and uint16, the stego at an aligned and an odd element
    address; each then on a 2048x2048 five-plane plan launched 20 times with
-   identical outputs; K3/K4 on batches of three with both parities, T in
+   identical outputs; the batch forms of K1/K2 at B in {1, 3, 32}, each
+   image on its own K1 plan (cut points 1 to 16, images and map rows off
+   16-byte alignment), at B = 64 with sixteen-plane segment tables (more
+   than one launch's parameters hold), at B = 1 against the single-image
+   wrappers and at B = 32 x 512x512 and B = 8 x 2048x2048 uint16 on
+   five-plane plans, 5 identical repeats; K3/K4 on batches of three with
+   both parities, T in
    {1, 2, 47, 128}, per-image wants of 0, under capacity and over it
    (saturated), then 2**30 (the message-index clamp), and an ``out_len``
    below the expanded count, and on bright uint8 batches at ``max_val``
@@ -47,20 +54,33 @@ non-zero:
    ext tuple) must equal the JAX package's, and
    ``decode_container(device="cuda")`` must give the payload and the
    original back exactly; then ``encode_pee_batch``/``decode_pee_batch`` on
-   the four 512x512 uint16 case images as one batch of mixed T;
+   the four 512x512 uint16 case images as one batch of mixed T; then the
+   container batch path: ``encode_batch_containers`` at B = 32 x 512x512
+   and B = 8 x 2048x2048 uint16 (device route: one K1 launch per batch),
+   B = 32 on the host route and a block_adaptive batch of four, every
+   container equal to the single-image ``encode_array`` container and, for
+   the parity cases in the batches, to the JAX package's;
+   ``extract_batch`` (one K2 launch) gives the payloads back, and
+   ``decode_batch_containers`` over all of them, mixed, the payloads and
+   originals;
 4. the committed golden raster, block_adaptive and PEE containers decode
    on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
    DICOMs written by the port, default strategy, ``--strategy pee``,
-   ``--strategy block_adaptive`` and ``--device-policy host``: container,
-   message and restored pixels exact;
+   ``--strategy block_adaptive`` and ``--device-policy host``, then
+   ``encode-batch`` (the per-item runner, and ``--fused`` with the default
+   strategy and with ``--strategy pee``) and ``decode-batch`` over three
+   of them: container, message and restored pixels exact;
 6. the launch counts of each path, set to 0 just before it and read just
    after it: the raster cases (K1 and K2 once per encode and decode), the
    PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
    twice per decode group), the block cases (no kernel: torch ops to
    encode, the host to decode), the host-route cases (no K1, K2 once per
-   decode) and the golden decodes; every count must be exactly what the
-   path should launch, so every kernel runs on the path that needs it;
+   decode), the golden decodes and the batch paths (one batch K1 per
+   device-route batch encode, one batch K2 per ``extract_batch``, none for
+   the host and block batches and the batch decode); every count must be
+   exactly what the path should launch, so every kernel runs on the path
+   that needs it;
 7. times, printed and not asserted: per call of each kernel and of its
    plain version (median of 20 CUDA-event reps, wrapper included; and
    device time alone from ``torch.profiler``) at the main path's shapes:
@@ -73,7 +93,13 @@ non-zero:
    ``"host"`` at ``mr512_u16_full`` and ``cr2048_u16_full``; warm
    encode+decode cycles (host wall, stage means, device busy share): raster
    512x512 with 304 bits, block_adaptive 512x512 with 304 bits, PEE 512x512
-   with 304 bits and PEE 2048x2048 with 3 Mbit.
+   with 304 bits and PEE 2048x2048 with 3 Mbit; the batch K1/K2 at the
+   container batches' inputs (B = 32 x 512x512 and B = 8 x 2048x2048
+   uint16) beside their plain versions and B single-image launches, with
+   their bounds; and the host walls of ``encode_batch_containers`` (under
+   ``device_policy`` "device" and "host" without metrics, and the default
+   config) and ``decode_batch_containers`` at B = 32 x 512x512 uint16 with
+   304 bits, with their stage means.
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
 ``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
@@ -144,6 +170,35 @@ def device_ms(fn, reps: int = REPS):
     device activity."""
     total = sum(ms for _, ms in device_ops_ms(fn, reps))
     return total if total > 0 else None
+
+
+def queued_ms(fn, cold: bool, reps: int = 10) -> float:
+    """Device time of ``fn()`` from CUDA events, with the host's part
+    hidden: a spin kernel of about 10 ms is queued first, so every launch
+    of ``fn`` is queued before the card reaches the start event and they
+    run back to back (launch gaps, and the L2 write-backs a gap would
+    absorb, count). ``cold``: a read of 128 MB between the spin and the
+    start event leaves nothing of the previous call in the 50 MB L2, and
+    clean lines only, so no write-back of the flush is charged. Median of
+    ``reps``."""
+    import torch
+
+    flush_buf = torch.ones(32 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        if cold:
+            flush_buf.amax()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def fmt_ms(v) -> str:
@@ -357,6 +412,97 @@ def phase2_k2(dev) -> tuple:
               f"K2 repeat {rep} on the 2048x2048 five-plane plan differs")
     return err, (f"K2 {count} boundary plans exact, 20 identical repeats of "
                  f"the 2048x2048 five-plane plan ({plan[5]} bits)")
+
+
+BATCH_SHAPES = ((64, 64, "uint16"), (40, 41, "uint8"), (40, 41, "uint16"),
+                (37, 53, "uint8"))
+
+
+def phase2_batch(dev) -> tuple:
+    """The batch kernels against their plain versions: K1 and K2 at B in
+    {1, 3, 32}, each image on its own plan of
+    ``tests/torch_raster_cases.py::k1_plans`` (cut points 1 to 16; at
+    40x41 and 37x53 the images of a batch start off 16-byte alignment and
+    a map row is an odd number of bytes); B = 64 tables of sixteen-plane
+    segment plans (64 x 788 bytes, more than the launch parameters of one
+    launch hold); B = 1 against the single-image wrappers; then the main
+    path's shapes, B = 32 x 512x512 and B = 8 x 2048x2048 uint16 on
+    five-plane capacity plans, launched 5 times with identical outputs.
+    Returns (max abs errors, text for phase 2)."""
+    import numpy as np
+    import torch
+    import torch_raster_cases as rc
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+
+    rng = np.random.default_rng(2028)
+    err = {"raster_embed_batch": 0, "raster_extract_batch": 0}
+    count = 0
+
+    def inputs(b, h, w, dt, plans):
+        dt = np.dtype(dt)
+        imgs = torch.from_numpy(rng.integers(
+            0, 1 << (8 * dt.itemsize), (b, h, w)).astype(dt)).to(dev)
+        s, starts, lens, offs, out_len = rc.batch_plans(plans, b)
+        msgs = torch.from_numpy(
+            rng.integers(0, 2, (b, out_len)).astype(np.uint8)).to(dev)
+        return imgs, msgs, (starts, lens, offs, s), out_len
+
+    def one(imgs, msgs, plan, out_len, what, repeats=0):
+        nonlocal count
+        emit = imgs[0].numel() % 8 == 0
+        got = rk.raster_embed_batch(imgs, msgs, *plan, emit_maps=emit)
+        torch.cuda.synchronize()
+        ref = rk.raster_embed_batch_plain(imgs, msgs, *plan, emit_maps=emit)
+        e = max_abs_diff(got, ref)
+        err["raster_embed_batch"] = max(err["raster_embed_batch"], e)
+        check(e == 0, f"batch K1 != plain ({what})")
+        bits = None
+        for length in (out_len, 17):
+            bits = rk.raster_extract_batch(got[0], *plan, length)
+            torch.cuda.synchronize()
+            want = rk.raster_extract_batch_plain(got[0], *plan, length)
+            e = max_abs_diff((bits,), (want,))
+            err["raster_extract_batch"] = max(err["raster_extract_batch"], e)
+            check(e == 0, f"batch K2 != plain ({what}, out_len {length})")
+        count += 1
+        for rep in range(repeats):
+            again = rk.raster_embed_batch(imgs, msgs, *plan, emit_maps=emit)
+            check(all(torch.equal(a, b) for a, b in zip(again, got)),
+                  f"batch K1 repeat {rep} differs ({what})")
+            check(torch.equal(rk.raster_extract_batch(got[0], *plan, 17),
+                              bits),
+                  f"batch K2 repeat {rep} differs ({what})")
+        return got
+
+    for h, w, dt in BATCH_SHAPES:
+        plans = rc.k1_plans(h * w, seed=h * w)
+        for b in (1, 3, 32):
+            one(*inputs(b, h, w, dt, plans), f"B={b} {h}x{w} {dt}")
+    for dt in ("uint8", "uint16"):
+        n = 30 * 40
+        plans = [rc.many_segment_plan(n), rc.sixteen_plane_plan(n)]
+        one(*inputs(64, 30, 40, dt, plans), f"B=64 30x40 {dt}")
+    for plan in rc.k1_plans(512 * 512, seed=3)[::5]:
+        imgs, msgs, bplan, out_len = inputs(1, 512, 512, "uint16", [plan])
+        got = one(imgs, msgs, bplan, out_len, f"B=1 512x512 {plan[0]}")
+        starts, lens, offs, s = (v[0] for v in bplan)
+        single = rk.raster_embed(imgs[0], msgs[0], starts, lens, offs,
+                                 int(s), emit_maps=True)
+        check(torch.equal(single[0], got[0][0])
+              and torch.equal(single[1], got[1][0]),
+              f"batch K1 at B=1 != the single-image K1 ({plan[0]})")
+        bits = rk.raster_extract_batch(got[0], *bplan, out_len)
+        check(torch.equal(rk.raster_extract(single[0], starts, lens, offs,
+                                            int(s), out_len), bits[0]),
+              f"batch K2 at B=1 != the single-image K2 ({plan[0]})")
+    for b, side in ((32, 512), (8, 2048)):
+        n = side * side
+        plans = [rc.five_plane_plan(n, seed=i) for i in range(b)]
+        one(*inputs(b, side, side, "uint16", plans),
+            f"B={b} {side}x{side} uint16", repeats=5)
+    return err, (f"batch K1/K2 {count} batches exact (B in 1, 3, 32 and 64, "
+                 f"unaligned images, B=1 == single-image wrappers), 5 "
+                 f"identical repeats at B=32x512^2 and B=8x2048^2")
 
 
 def phase2_pee(dev) -> dict:
@@ -705,6 +851,97 @@ def phase3_batch(port, results, parity, counted, dev):
             expected)
 
 
+def batch_inputs(names, b, h, w, seed):
+    """A batch whose first images are the parity cases ``names`` with their
+    payloads and the rest seeded phantoms of the same geometry with the
+    304-bit text payload."""
+    import numpy as np
+    import torch_port_cases as cases
+
+    imgs, pays = [], []
+    for name in names:
+        img, _, bits = case_payload(cases.BY_NAME[name])
+        imgs.append(img)
+        pays.append(bits)
+    for i in range(len(names), b):
+        imgs.append(cases.image(cases.Case(f"batch{i}", h, w, "uint16", 12,
+                                           "text", "hybrid", seed + i)))
+        pays.append(cases.payload_bits(cases.BY_NAME["mr512_u16"], 0))
+    return np.stack(imgs), pays
+
+
+def phase3_raster_batch(port, parity, counted, launches):
+    """The container batch path on the card: ``encode_batch_containers``
+    for B = 32 x 512x512 and B = 8 x 2048x2048 uint16 (hybrid, the default
+    config: the device route, one K1 launch per batch), a host-route batch
+    (``device_policy="host"``: no launch) and a block_adaptive batch (torch
+    ops, no launch); every container equal to the single-image
+    ``encode_array`` container on the card and, for the parity cases in
+    the batch, to the JAX package's; ``extract_batch`` on each device batch
+    (one K2 launch) gives the payloads back; ``decode_batch_containers``
+    over all of them mixed (host decode, no launch) gives the payloads and
+    originals back. Returns (text for phase 3, the launches each path must
+    make, the device batches for phase 7)."""
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import batch as tb
+
+    runs = (
+        ("batch_512", ("mr512_u16", "mr512_u16_full"), 32, 512,
+         port.EncodeConfig()),
+        ("batch_2048", ("cr2048_u16_full",), 8, 2048, port.EncodeConfig()),
+        ("batch_host_512", ("host_mr512_u16",), 32, 512,
+         port.EncodeConfig(device_policy="host")),
+        ("batch_block_512", ("blk_mr512_u16", "blk_mr512_u16_full"), 4, 512,
+         port.EncodeConfig(strategy="block_adaptive")),
+    )
+    expected, device_batches, everything = {}, {}, []
+    for path, names, b, side, cfg in runs:
+        imgs, pays = batch_inputs(names, b, side, side, seed=100 * b)
+        singles = [cases.sha256(port.encode_array(
+            img, bits, cfg, bits_stored=12, device="cuda").container)
+            for img, bits in zip(imgs, pays)]
+        res = counted(path, lambda: tb.encode_batch_containers(
+            imgs, pays, cfg, bits_stored=12, device="cuda"))
+        raster = path in ("batch_512", "batch_2048")
+        expected[path] = launches(raster_embed_batch=int(raster))
+        for i, blob in enumerate(res.containers):
+            check(cases.sha256(blob) == singles[i],
+                  f"{path}: container {i} differs from encode_array's")
+        for name, blob in zip(names, res.containers):
+            check(cases.sha256(blob) == parity[name]["container_sha256"],
+                  f"{path}: the container of {name} differs from the JAX "
+                  f"package's")
+        if raster:
+            bits = counted(path.replace("batch", "extract"),
+                           lambda: tb.extract_batch(res.stego, res.plan,
+                                                    device="cuda"))
+            expected[path.replace("batch", "extract")] = launches(
+                raster_extract_batch=1)
+            for i, want in enumerate(pays):
+                check(np.array_equal(bits[i, :want.size], want),
+                      f"{path}: extract_batch payload {i} differs")
+            device_batches[side] = (imgs, pays, res)
+        everything += [(blob, img, bits) for blob, img, bits
+                       in zip(res.containers, imgs, pays)]
+        print(f"  {path}: B={b} {side}x{side} u16 {cfg.strategy} "
+              f"{cfg.device_policy}: containers equal encode_array's and "
+              f"the JAX package's for {list(names)}", flush=True)
+    order = np.random.default_rng(76).permutation(len(everything))
+    mixed = [everything[i] for i in order]
+    decs = counted("batch_decode", lambda: tb.decode_batch_containers(
+        [m[0] for m in mixed], device="cuda"))
+    expected["batch_decode"] = launches()
+    for (_, img, bits), dec in zip(mixed, decs):
+        check(np.array_equal(dec.payload_bits, bits),
+              "batch decode: a payload differs")
+        check(np.array_equal(dec.original, img),
+              "batch decode: an original differs")
+    return (f"container batches {[r[0] for r in runs]} equal to "
+            f"encode_array and the JAX package, {len(mixed)} mixed decoded",
+            expected, device_batches)
+
+
 def run_cli(tmp, env, args):
     proc = subprocess.run(
         [sys.executable, "-m", "codec_tcc_tpu_torch", *args],
@@ -745,6 +982,48 @@ def phase5_cli(parity) -> None:
             restored, _ = dicom.load_image(os.path.join(tmp, "dec_original.dcm"))
             check(np.array_equal(restored, img),
                   f"CLI restored pixels differ ({name})")
+    # encode-batch (the per-item runner and --fused) and decode-batch
+    names = ("mr512_u16", "pee_mr512_u16_text", "host_mr512_u16")
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = []
+        for name in names:
+            case = cases.BY_NAME[name]
+            dicom.save_image(cases.image(case), os.path.join(tmp, f"{name}.dcm"),
+                             bits_stored=case.bits_stored)
+            inputs.append(f"{name}.dcm")
+        run_cli(tmp, env, ["encode-batch", *inputs[:1], "--output-dir", "run",
+                           "--message", cases.TEXT_PAYLOAD])
+        for strategy, name in (("hybrid", "mr512_u16"),
+                               ("pee", "pee_mr512_u16_text")):
+            out = f"fused_{strategy}"
+            run_cli(tmp, env, ["encode-batch", *inputs, "--output-dir", out,
+                               "--message", cases.TEXT_PAYLOAD, "--fused",
+                               "--strategy", strategy])
+            with open(os.path.join(tmp, out, f"{name}.stgc"), "rb") as f:
+                check(cases.sha256(f.read())
+                      == parity[name]["container_sha256"],
+                      f"CLI encode-batch --fused container ({name}) differs "
+                      f"from the JAX package's")
+            run_cli(tmp, env, ["decode-batch",
+                               *[os.path.join(out, f"{n}.stgc")
+                                 for n in names],
+                               "--output-dir", f"dec_{strategy}"])
+            for n in names:
+                with open(os.path.join(tmp, f"dec_{strategy}",
+                                       f"{n}_message.txt"),
+                          encoding="utf-8") as f:
+                    check(f.read() == cases.TEXT_PAYLOAD,
+                          f"CLI decode-batch message differs ({n})")
+                restored, _ = dicom.load_image(os.path.join(
+                    tmp, f"dec_{strategy}", f"{n}_original.dcm"))
+                check(np.array_equal(restored,
+                                     cases.image(cases.BY_NAME[n])),
+                      f"CLI decode-batch original differs ({n})")
+        with open(os.path.join(tmp, "run", "mr512_u16.stgc"), "rb") as f:
+            check(cases.sha256(f.read())
+                  == parity["mr512_u16"]["container_sha256"],
+                  "CLI encode-batch (runner) container differs from the JAX "
+                  "package's")
 
 
 def cycle_report(label: str, cycle, reps: int) -> None:
@@ -816,6 +1095,8 @@ def time_raster(results, dev) -> dict:
         row["k1_bound"] = bound(k1_bytes, k1_ops)
         row["k2_bound"] = bound(k2_bytes, 3 * out_len)
         row.update({f"dev_{k}": v for k, v in dev_row.items()})
+        cold = {k: queued_ms(f, cold=True)
+                for k, f in (("k1", k1), ("k2", k2))}
         # yardsticks: one torch copy that moves each kernel's bytes (half
         # read, half written)
         copy_ms = {}
@@ -840,7 +1121,8 @@ def time_raster(results, dev) -> dict:
                      f"{100 * row[key + '_bound'][0] / dev_row[key]:.1f}%")
             print(f"  {label} u16 {tag}: {share} of its bound's rate; a "
                   f"torch copy of the same {nbytes} B takes "
-                  f"{fmt_ms(copy_ms[key])} device", flush=True)
+                  f"{fmt_ms(copy_ms[key])} device; queued after a spin "
+                  f"with L2 flushed: {cold[key]:.4f} ms", flush=True)
     return timing
 
 
@@ -1044,6 +1326,157 @@ def time_routes(port, results) -> None:
               f"{med['host']:.2f} ms", flush=True)
 
 
+def time_batch_kernels(device_batches, dev) -> dict:
+    """The batch kernels at the container batches' own inputs (B = 32 x
+    512x512 and B = 8 x 2048x2048 uint16, their plans and payloads): per
+    call (CUDA events, wrapper and table upload included), device time
+    (profiler) and device time queued after a spin, warm and with L2
+    flushed (:func:`queued_ms`), of one batch launch, of its plain version
+    and of B launches of the single-image wrapper on the same inputs, and
+    the bound from the bytes each batch must move."""
+    import numpy as np
+    import torch
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.pipeline import _next_pow2
+
+    timing = {}
+    for side, (imgs, pays, res) in sorted(device_batches.items()):
+        plan = res.plan
+        b, n = imgs.shape[0], imgs[0].size
+        max_s = int(plan.s.max())
+        imgs_d = torch.from_numpy(imgs).to(dev)
+        msgs_d = torch.from_numpy(np.ascontiguousarray(
+            tb._msg_prefix(plan))).to(dev)
+        stego_d = torch.from_numpy(res.stego).to(dev)
+        out_len = _next_pow2(int(plan.payload_bits.max()))
+        args = (plan.starts, plan.lengths, plan.offsets, plan.s)
+        rows = [(plan.starts[i], plan.lengths[i], plan.offsets[i],
+                 int(plan.s[i])) for i in range(b)]
+
+        def singles_k1():
+            for i, row in enumerate(rows):
+                rk.raster_embed(imgs_d[i], msgs_d[i], *row, emit_maps=True)
+
+        def singles_k2():
+            for i, row in enumerate(rows):
+                rk.raster_extract(stego_d[i], *row, out_len)
+
+        calls = {
+            "k1": lambda: rk.raster_embed_batch(
+                imgs_d, msgs_d, *args, emit_maps=True, max_s=max_s),
+            "k1_plain": lambda: rk.raster_embed_batch_plain(
+                imgs_d, msgs_d, *args, emit_maps=True, max_s=max_s),
+            "k1_singles": singles_k1,
+            "k2": lambda: rk.raster_extract_batch(stego_d, *args, out_len),
+            "k2_plain": lambda: rk.raster_extract_batch_plain(
+                stego_d, *args, out_len),
+            "k2_singles": singles_k2,
+        }
+        row = {k: cuda_median_ms(f) for k, f in calls.items()}
+        row.update({f"dev_{k}": device_ms(f) for k, f in calls.items()})
+        for k in ("k1", "k1_singles", "k2", "k2_singles"):
+            row[f"queued_{k}"] = queued_ms(calls[k], cold=False)
+            row[f"cold_{k}"] = queued_ms(calls[k], cold=True)
+        # bytes: K1 reads every image and its message bits and writes every
+        # stego and max_s packed map planes; K2 reads the pixels its
+        # windows cover up to out_len and writes B x out_len bits
+        k1_bytes = k1_ops = k2_bytes = 0
+        for i, (st, ln, of, si) in enumerate(rows):
+            nb, ops = k1_work(n, imgs.itemsize, si, ln, pays[i].size)
+            k1_bytes += nb + (max_s - si) * n // 8
+            k1_ops += ops
+            covered = sum(min(int(ln[p]), n, max(out_len - int(of[p]), 0))
+                          for p in range(si))
+            k2_bytes += imgs.itemsize * covered + out_len
+        row["k1_bound"] = bound(k1_bytes, k1_ops)
+        row["k2_bound"] = bound(k2_bytes, 3 * b * out_len)
+        timing[side] = row
+        label = f"B={b} {side}x{side} u16"
+        print(f"  {label} batch K1 (maps over {max_s} planes): per call "
+              f"{row['k1']:.4f} ms, device {fmt_ms(row['dev_k1'])} (plain "
+              f"{row['k1_plain']:.4f} / {fmt_ms(row['dev_k1_plain'])}; {b} "
+              f"single-image K1 launches {row['k1_singles']:.4f} / "
+              f"{fmt_ms(row['dev_k1_singles'])}), bound "
+              f"{row['k1_bound'][0]:.4f} ms ({k1_bytes} B); queued after a "
+              f"spin: batch {row['queued_k1']:.4f} ms, singles "
+              f"{row['queued_k1_singles']:.4f} ms; the same with L2 "
+              f"flushed: batch {row['cold_k1']:.4f} ms, singles "
+              f"{row['cold_k1_singles']:.4f} ms", flush=True)
+        print(f"  {label} batch K2 (out_len {out_len}): per call "
+              f"{row['k2']:.4f} ms, device {fmt_ms(row['dev_k2'])} (plain "
+              f"{row['k2_plain']:.4f} / {fmt_ms(row['dev_k2_plain'])}; {b} "
+              f"single-image K2 launches {row['k2_singles']:.4f} / "
+              f"{fmt_ms(row['dev_k2_singles'])}), bound "
+              f"{row['k2_bound'][0]:.4f} ms ({k2_bytes} B); queued after a "
+              f"spin: batch {row['queued_k2']:.4f} ms, singles "
+              f"{row['queued_k2_singles']:.4f} ms; the same with L2 "
+              f"flushed: batch {row['cold_k2']:.4f} ms, singles "
+              f"{row['cold_k2_singles']:.4f} ms", flush=True)
+    return timing
+
+
+def time_batch_walls(port, device_batches) -> None:
+    """Host walls of ``encode_batch_containers`` (``compute_metrics=False``
+    under ``device_policy`` "device" and "host", and the default config:
+    "auto" with metrics, which routes to the device) and of
+    ``decode_batch_containers`` at B = 32 x 512x512 uint16 with the 304-bit
+    payload, in turns, median of 5 after a warm-up round, with the stage
+    means of each."""
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.profiling import get_profiler
+
+    imgs, _ = batch_inputs((), 32, 512, 512, seed=9000)
+    text = cases.payload_bits(cases.BY_NAME["mr512_u16"], 0)
+    pays = [text] * len(imgs)
+    configs = {
+        "device": port.EncodeConfig(compute_metrics=False,
+                                    device_policy="device"),
+        "host": port.EncodeConfig(compute_metrics=False,
+                                  device_policy="host"),
+        "auto+metrics": port.EncodeConfig(),
+    }
+    walls = {k: [] for k in list(configs) + ["decode"]}
+    stages = {k: {} for k in walls}
+    blobs = {}
+    profiler = get_profiler()
+    for rep in range(6):
+        for key, cfg in configs.items():
+            profiler.reset()
+            t0 = time.perf_counter()
+            res = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
+                                             device="cuda")
+            wall = (time.perf_counter() - t0) * 1e3
+            blobs[key] = res.containers
+            if rep:
+                walls[key].append(wall)
+                for name, v in profiler.report().items():
+                    stages[key].setdefault(name, []).append(1e3 * v["wall_s"])
+        profiler.reset()
+        t0 = time.perf_counter()
+        decs = tb.decode_batch_containers(blobs["device"], device="cuda")
+        wall = (time.perf_counter() - t0) * 1e3
+        if rep:
+            walls["decode"].append(wall)
+            for name, v in profiler.report().items():
+                stages["decode"].setdefault(name, []).append(1e3 * v["wall_s"])
+    check(blobs["device"] == blobs["host"] == blobs["auto+metrics"],
+          "batch walls: the routes gave different containers")
+    check(all(np.array_equal(d.original, img) for d, img in zip(decs, imgs)),
+          "batch walls: a decoded original differs")
+    for key in walls:
+        med = statistics.median(walls[key])
+        per = {name: round(statistics.median(v), 3)
+               for name, v in stages[key].items()}
+        what = "decode" if key == "decode" else f"encode {key}"
+        print(f"  batch B=32 512x512 u16 304 bits, {what}: "
+              f"{med:.2f} ms host wall (median of 5), "
+              f"{1e3 * len(imgs) / med:.1f} images/s; stages (ms): {per}",
+              flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1079,17 +1512,25 @@ def main() -> int:
     max_err["raster_embed"] = max(max_err["raster_embed"], k1_err)
     k2_err, k2_txt = phase2_k2(dev)
     max_err["raster_extract"] = max(max_err["raster_extract"], k2_err)
+    batch_err, batch_k_txt = phase2_batch(dev)
+    max_err.update(batch_err)
     max_err.update(phase2_pee(dev))
     stress_txt = phase2_pee_stress(dev)
     block_txt = phase2_block(port, dev)
-    phase(2, f"K1-K4 == plain on the card (max abs err {max_err}); "
-             f"{k1_txt}; {k2_txt}; {stress_txt}; {block_txt}")
+    phase(2, f"K1-K4 and batch K1/K2 == plain on the card (max abs err "
+             f"{max_err}); {k1_txt}; {k2_txt}; {batch_k_txt}; {stress_txt}; "
+             f"{block_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is
     # read just after it (phase 6 checks them).
     parity = cases.load_parity()
     paths, expected = {}, {}
+    kernel_names = tuple(rk.LAUNCHES) + tuple(pk.LAUNCHES)
+
+    def launches(**nonzero):
+        """Launches by kernel: 0 for every kernel not named."""
+        return {**{name: 0 for name in kernel_names}, **nonzero}
 
     def counted(path, fn):
         rk.reset_launch_counts()
@@ -1136,11 +1577,9 @@ def main() -> int:
                   flush=True)
 
     n_path = {path: len(group) for path, group in by_path.items()}
-    no_launch = {"raster_embed": 0, "raster_extract": 0, "pee_embed": 0,
-                 "pee_extract": 0}
     counted("raster", lambda: run_cases("raster"))
-    expected["raster"] = {**no_launch, "raster_embed": n_path["raster"],
-                          "raster_extract": n_path["raster"]}
+    expected["raster"] = launches(raster_embed=n_path["raster"],
+                                  raster_extract=n_path["raster"])
     counted("pee", lambda: run_cases("pee"))
     pee_cfg = port.EncodeConfig(strategy="pee")
     groups = 0
@@ -1150,19 +1589,23 @@ def main() -> int:
                                   case.bits_stored, pee_cfg, dev)
         groups += cases.pee_attempt_groups(
             t0, [parse_pee_ext(res.meta.ext)[0]])
-    expected["pee"] = {**no_launch, "pee_embed": 2 * groups,
-                       "pee_extract": 2 * n_path["pee"]}
+    expected["pee"] = launches(pee_embed=2 * groups,
+                               pee_extract=2 * n_path["pee"])
     # block_adaptive: torch ops on the card to encode, the host to decode
     counted("block", lambda: run_cases("block"))
-    expected["block"] = dict(no_launch)
+    expected["block"] = launches()
     # the host embed route: no K1; its containers decode through K2
     counted("host", lambda: run_cases("host"))
-    expected["host"] = {**no_launch, "raster_extract": n_path["host"]}
-    batch_txt, expected["pee_batch"] = phase3_batch(port, results, parity,
-                                                    counted, dev)
+    expected["host"] = launches(raster_extract=n_path["host"])
+    batch_txt, pee_batch = phase3_batch(port, results, parity, counted, dev)
+    expected["pee_batch"] = launches(**pee_batch)
+    raster_batch_txt, batch_expected, device_batches = phase3_raster_batch(
+        port, parity, counted, launches)
+    expected.update(batch_expected)
     phase(3, f"{len(cases.CASES)} parity cases ({n_path}) byte-identical to "
              f"the JAX package, decoded and restored exactly; PEE batch of "
-             f"four 512x512 ({batch_txt}) equal to single-image encodes")
+             f"four 512x512 ({batch_txt}) equal to single-image encodes; "
+             f"{raster_batch_txt}")
 
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
@@ -1180,8 +1623,7 @@ def main() -> int:
     decs = counted("golden", lambda: {
         name: port.decode_container(blob, device="cuda")
         for name, blob in blobs.items()})
-    expected["golden"] = {"raster_embed": 0, "raster_extract": 3,
-                          "pee_embed": 0, "pee_extract": 2}
+    expected["golden"] = launches(raster_extract=3, pee_extract=2)
     for name, image in goldens:
         golden_img = np.load(os.path.join(data, image))
         check(decs[name].payload == golden_payload,
@@ -1194,16 +1636,18 @@ def main() -> int:
     # -- phase 5: the CLI in subprocesses ------------------------------------
     phase5_cli(parity)
     phase(5, "CLI encode/decode on the card (hybrid, pee, block_adaptive and "
-             "--device-policy host): container, message and original exact")
+             "--device-policy host) and encode-batch (runner, --fused hybrid "
+             "and pee) / decode-batch: container, message and original "
+             "exact")
 
     # -- phase 6: each path's launches, read right after it ran --------------
     for path, counts in paths.items():
         check(counts == expected[path],
               f"path {path} launched {counts}, expected {expected[path]}")
-    launches = {name: sum(counts[name] for counts in paths.values())
-                for name in expected["raster"]}
-    check(all(v > 0 for v in launches.values()),
-          f"the main path did not launch every kernel: {launches}")
+    totals = {name: sum(counts[name] for counts in paths.values())
+              for name in kernel_names}
+    check(all(v > 0 for v in totals.values()),
+          f"the main path did not launch every kernel: {totals}")
     phase(6, f"launches per path {paths} (each as expected)")
 
     # -- phase 7: times -------------------------------------------------------
@@ -1211,6 +1655,8 @@ def main() -> int:
     pee = time_pee(results, dev)
     time_block(results, dev)
     time_routes(port, results)
+    batch = time_batch_kernels(device_batches, dev)
+    time_batch_walls(port, device_batches)
     cfg = port.EncodeConfig()
 
     def cycle_of(name, config):
@@ -1245,12 +1691,18 @@ def main() -> int:
         ("pee_extract", "pee_extract.cu", "pallas_pee.py:781",
          pee["k4_pass1"]["ms"], pee["k4_pass1"]["plain_ms"],
          pee["k4_pass1"]["bound"]),
+        ("raster_embed_batch", "raster_embed.cu", "pallas_embed.py:308",
+         batch[2048]["k1"], batch[2048]["k1_plain"],
+         batch[2048]["k1_bound"]),
+        ("raster_extract_batch", "raster_extract.cu", "pallas_embed.py:386",
+         batch[2048]["k2"], batch[2048]["k2_plain"],
+         batch[2048]["k2_bound"]),
     )
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"codec_tcc_tpu_torch/csrc/{src}",
          "replaces": f"codec_tcc_tpu/ops/{tpu}",
-         "launches": launches[name],
+         "launches": totals[name],
          "launches_by_path": {path: counts[name]
                               for path, counts in paths.items()},
          "max_abs_err": max_err[name],

@@ -2,11 +2,16 @@
 // takes a RasterPlan (the plane plan as it is), K2 raster_extract.cu a
 // RasterSegments (the same plan resolved on the host into message order).
 //
-// Both travel to the kernel by value as a launch parameter (192 and 788
-// bytes), so no device buffer holds them and no copy precedes the launch.
-// Both kernels read runs of 16 consecutive pixels (K1 also 16 consecutive
-// message bytes) with raster_load_words and take one plane's bit of four
-// pixels per instruction with raster_plane_bytes.
+// For one image both travel to the kernel by value as a launch parameter
+// (192 and 788 bytes), so no device buffer holds them and no copy precedes
+// the launch. The batch kernels take one per image, which the 32 KB of
+// launch parameters cannot hold for a large batch (64 segment tables are
+// 50 KB): they read a table of RasterBatchPlan or RasterSegments entries
+// from device memory, which the wrapper uploads once per batch, and each
+// block copies its image's entry into shared memory. Both kernels read
+// runs of 16 consecutive pixels (K1 also 16 consecutive message bytes)
+// with raster_load_words and take one plane's bit of four pixels per
+// instruction with raster_plane_bytes.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -23,6 +28,13 @@ struct RasterPlan {
     int start[RASTER_MAX_PLANES];   // raster start of plane p, in [0, n)
     int len[RASTER_MAX_PLANES];     // window length of plane p, >= 0
     int off[RASTER_MAX_PLANES];     // message offset of plane p, >= 0
+};
+
+// One image's entry in K1's batch table: its plane plan and cut point, 49
+// int32 words (ops/raster_kernels.py builds it in this order).
+struct RasterBatchPlan {
+    RasterPlan plan;
+    int s;                          // planes p < s embed
 };
 
 // Copy the host arrays (np <= RASTER_MAX_PLANES entries) into a plan.
@@ -48,6 +60,46 @@ struct RasterSegments {
     int pos[RASTER_MAX_SEGMENTS];
     int plane[RASTER_MAX_SEGMENTS];
 };
+
+// Copy one table entry of type E into shared memory, word by word, with
+// the block's NT threads; the block waits until it is there.
+template <typename E, int NT>
+__device__ __forceinline__ void raster_load_entry(const E* __restrict__ src,
+                                                  E* dst) {
+    static_assert(sizeof(E) % 4 == 0, "entries are int32 words");
+    const int* s = reinterpret_cast<const int*>(src);
+    int* d = reinterpret_cast<int*>(dst);
+    for (int k = threadIdx.x; k < (int)(sizeof(E) / 4); k += NT) d[k] = s[k];
+    __syncthreads();
+}
+
+// NW 32-bit words to `dst` (any byte address): 16-byte stores where it is
+// 16-byte aligned, else the widest that its alignment allows. A batch
+// puts image i at i * N elements, which need not be a multiple of 16 bytes.
+template <int NW>
+__device__ __forceinline__ void raster_store_words(uint8_t* dst,
+                                                   const uint32_t (&w)[NW]) {
+    const unsigned a = (unsigned)(uintptr_t)dst;
+    if (NW % 4 == 0 && (a & 15u) == 0) {
+#pragma unroll
+        for (int i = 0; i < NW / 4; ++i) {
+            reinterpret_cast<uint4*>(dst)[i] =
+                make_uint4(w[4 * i], w[4 * i + 1], w[4 * i + 2], w[4 * i + 3]);
+        }
+    } else if ((a & 3u) == 0) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) reinterpret_cast<uint32_t*>(dst)[i] = w[i];
+    } else if ((a & 1u) == 0) {
+#pragma unroll
+        for (int i = 0; i < NW; ++i) {
+            reinterpret_cast<uint16_t*>(dst)[2 * i] = (uint16_t)w[i];
+            reinterpret_cast<uint16_t*>(dst)[2 * i + 1] = (uint16_t)(w[i] >> 16);
+        }
+    } else {
+#pragma unroll
+        for (int i = 0; i < 4 * NW; ++i) dst[i] = (uint8_t)(w[i / 4] >> 8 * (i % 4));
+    }
+}
 
 // The NW 32-bit words that start at byte address `a` (any alignment): the
 // aligned 16-byte vectors that hold one of their bytes (and no other, so no

@@ -5,7 +5,9 @@
 //   embed_batch_padded / _embed_kernel_padded_out        (pallas_call :248)
 //   embed_batch_preplaced / _embed_preplaced_kernel      (pallas_call :835)
 // and the XLA "packed" tier (preplace_packed_device + embed_batch_packed)
-// fused with ops/embed.py::xor_maps_packed_batch.
+// fused with ops/embed.py::xor_maps_packed_batch. Those Pallas kernels run
+// grid=(B, N/tile) over a batch with per-image (B, NP) plans:
+// raster_embed_batch is that batch axis, one launch per batch.
 //
 // Function: for each plane p < s, pixel pos with rel = (pos - start_p) mod N
 // below len_p gets bit p := the low bit of msg[off_p + rel] (0 past the
@@ -31,6 +33,14 @@
 // (pixel by pixel). The maps come from the chunk's diff, bit p of four
 // pixels per instruction, packed to bytes by one multiply. The stego goes
 // out as 16-byte stores; the last, partial chunk goes pixel by pixel.
+//
+// Batch: blockIdx.y selects the image. Its plan and cut point come from a
+// table in device memory (raster_common.cuh: RasterBatchPlan), which each
+// block copies into shared memory first; then the block runs the same
+// chunk code on image i. Image i starts at i * N elements, so its stores
+// take the widest width its alignment allows (raster_store_words). Map
+// rows go to (B, max_s, N/8); rows s_i..max_s - 1 of image i are zero
+// because its planes at and past s_i never change.
 #include "raster_common.cuh"
 
 #define RASTER_EMBED_PIXELS 16     // pixels per thread
@@ -78,13 +88,15 @@ __device__ __forceinline__ void raster_store_bytes(uint8_t* dst,
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(RASTER_EMBED_THREADS)
-raster_embed_kernel(const T* __restrict__ img,
-                    const uint8_t* __restrict__ msg, unsigned msg_len,
-                    const __grid_constant__ RasterPlan plan, int planes,
-                    int s, unsigned n, int emit_maps, T* __restrict__ stego,
-                    uint8_t* __restrict__ maps) {
+// Chunk g of one image: embed planes 0..planes-1 of the plan and, with
+// emit_maps, write map rows 0..map_rows-1. ANY_ALIGN: the stego need not be
+// 16-byte aligned (images of a batch past the first).
+template <typename T, bool ANY_ALIGN>
+__device__ __forceinline__ void raster_embed_chunk(
+    const T* __restrict__ img, const uint8_t* __restrict__ msg,
+    unsigned msg_len, const RasterPlan& plan, int planes, int map_rows,
+    unsigned n, int emit_maps, T* __restrict__ stego,
+    uint8_t* __restrict__ maps, unsigned g) {
     constexpr int CHUNK = RASTER_EMBED_PIXELS;
     constexpr int BITS = 8 * (int)sizeof(T);
     constexpr int PPW = 4 / (int)sizeof(T);      // pixels per word
@@ -94,7 +106,6 @@ raster_embed_kernel(const T* __restrict__ img,
     constexpr uint32_t LANES = sizeof(T) == 1 ? 0x01010101u : 0x00010001u;
     static_assert(CHUNK % 8 == 0 && MB <= 4, "chunks of 8, 16 or 32 pixels");
 
-    const unsigned g = blockIdx.x * RASTER_EMBED_THREADS + threadIdx.x;
     const unsigned base = g * CHUNK;
     if (base >= n) return;
     const unsigned cnt = min(n - base, (unsigned)CHUNK);
@@ -165,7 +176,9 @@ raster_embed_kernel(const T* __restrict__ img,
         // else outside the window: the plane stays as it is
     }
 
-    if (full) {
+    if (full && ANY_ALIGN) {
+        raster_store_words<NW>(reinterpret_cast<uint8_t*>(stego + base), v);
+    } else if (full) {
         if constexpr (NW % 4 == 0) {
 #pragma unroll
             for (int i = 0; i < NW / 4; ++i) {
@@ -195,7 +208,7 @@ raster_embed_kernel(const T* __restrict__ img,
         for (int i = 0; i < NW; ++i) d[i] = orig[i] ^ v[i];
         const size_t row_bytes = n / 8;   // the launch requires n % 8 == 0
         uint8_t* row = maps + (size_t)g * MB;
-        for (int p = 0; p < s; ++p, row += row_bytes) {
+        for (int p = 0; p < map_rows; ++p, row += row_bytes) {
             uint32_t q[MW];
 #pragma unroll
             for (int i = 0; i < MW; ++i) q[i] = 0u;
@@ -217,6 +230,41 @@ raster_embed_kernel(const T* __restrict__ img,
             }
         }
     }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(RASTER_EMBED_THREADS)
+raster_embed_kernel(const T* __restrict__ img,
+                    const uint8_t* __restrict__ msg, unsigned msg_len,
+                    const __grid_constant__ RasterPlan plan, int planes,
+                    int s, unsigned n, int emit_maps, T* __restrict__ stego,
+                    uint8_t* __restrict__ maps) {
+    raster_embed_chunk<T, false>(
+        img, msg, msg_len, plan, planes, s, n, emit_maps, stego, maps,
+        blockIdx.x * RASTER_EMBED_THREADS + threadIdx.x);
+}
+
+// Image blockIdx.y of a batch: pixels at img + i * n, message bytes at
+// msg + i * msg_len, its plan at table[i], map rows at maps + i * max_s *
+// n / 8.
+template <typename T>
+__global__ void __launch_bounds__(RASTER_EMBED_THREADS)
+raster_embed_batch_kernel(const T* __restrict__ img,
+                          const uint8_t* __restrict__ msg, unsigned msg_len,
+                          const RasterBatchPlan* __restrict__ table,
+                          int max_s, unsigned n, int emit_maps,
+                          T* __restrict__ stego, uint8_t* __restrict__ maps) {
+    __shared__ RasterBatchPlan entry;
+    const unsigned i = blockIdx.y;
+    raster_load_entry<RasterBatchPlan, RASTER_EMBED_THREADS>(table + i,
+                                                             &entry);
+    const int bits = 8 * (int)sizeof(T);
+    const size_t px = (size_t)i * n;
+    raster_embed_chunk<T, true>(
+        img + px, msg + (size_t)i * msg_len, msg_len, entry.plan,
+        entry.s < bits ? entry.s : bits, max_s, n, emit_maps, stego + px,
+        maps == nullptr ? nullptr : maps + (size_t)i * max_s * (n / 8),
+        blockIdx.x * RASTER_EMBED_THREADS + threadIdx.x);
 }
 
 template <typename T>
@@ -250,6 +298,56 @@ static int launch_embed(const void* img, const void* msg, long long msg_len,
     return (int)cudaGetLastError();
 }
 
+// Check one image's entry of the batch table as launch_embed checks a plan.
+static bool raster_batch_entry_ok(const RasterBatchPlan& e, int max_s,
+                                  long long n) {
+    if (e.s < 0 || e.s > max_s) return false;
+    for (int p = 0; p < e.s; ++p) {
+        const int len = e.plan.len[p];
+        if (len > 0 && (e.plan.start[p] < 0 || e.plan.start[p] >= n ||
+                        e.plan.off[p] < 0 ||
+                        e.plan.off[p] + n > 0x7fffffffLL)) {
+            return false;
+        }
+    }
+    return true;
+}
+
+// table_host and table_dev hold the same `batch` entries: the host copy is
+// checked here, the device copy is what the kernel reads.
+template <typename T>
+static int launch_embed_batch(const void* img, const void* msg,
+                              long long msg_len, const void* table_host,
+                              const void* table_dev, int batch, int max_s,
+                              long long n, int emit_maps, void* stego,
+                              void* maps, void* stream) {
+    if (batch < 1 || batch > 65535 || max_s < 0 ||
+        max_s > RASTER_MAX_PLANES || n < 0 || n > 0x7fffffffLL ||
+        msg_len < 0 || msg_len > 0x7fffffffLL || (emit_maps && n % 8) ||
+        (emit_maps && max_s > 0 && maps == nullptr) ||
+        ((uintptr_t)table_dev & 3u) != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const RasterBatchPlan* entries =
+        static_cast<const RasterBatchPlan*>(table_host);
+    for (int i = 0; i < batch; ++i) {
+        if (!raster_batch_entry_ok(entries[i], max_s, n)) {
+            return (int)cudaErrorInvalidValue;
+        }
+    }
+    if (n == 0) return 0;
+    const long long chunks = (n + RASTER_EMBED_PIXELS - 1) / RASTER_EMBED_PIXELS;
+    const long long blocks =
+        (chunks + RASTER_EMBED_THREADS - 1) / RASTER_EMBED_THREADS;
+    const dim3 grid((unsigned)blocks, (unsigned)batch);
+    raster_embed_batch_kernel<T><<<grid, RASTER_EMBED_THREADS, 0,
+                                   (cudaStream_t)stream>>>(
+        (const T*)img, (const uint8_t*)msg, (unsigned)msg_len,
+        static_cast<const RasterBatchPlan*>(table_dev), max_s, (unsigned)n,
+        emit_maps, (T*)stego, emit_maps ? (uint8_t*)maps : nullptr);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int raster_embed_u8(const void* img, const void* msg, long long msg_len,
@@ -266,6 +364,25 @@ int raster_embed_u16(const void* img, const void* msg, long long msg_len,
                      void* maps, void* stream) {
     return launch_embed<uint16_t>(img, msg, msg_len, starts, lens, offs, np,
                                   s, n, emit_maps, stego, maps, stream);
+}
+
+int raster_embed_batch_u8(const void* img, const void* msg, long long msg_len,
+                          const void* table_host, const void* table_dev,
+                          int batch, int max_s, long long n, int emit_maps,
+                          void* stego, void* maps, void* stream) {
+    return launch_embed_batch<uint8_t>(img, msg, msg_len, table_host,
+                                       table_dev, batch, max_s, n, emit_maps,
+                                       stego, maps, stream);
+}
+
+int raster_embed_batch_u16(const void* img, const void* msg,
+                           long long msg_len, const void* table_host,
+                           const void* table_dev, int batch, int max_s,
+                           long long n, int emit_maps, void* stego, void* maps,
+                           void* stream) {
+    return launch_embed_batch<uint16_t>(img, msg, msg_len, table_host,
+                                        table_dev, batch, max_s, n, emit_maps,
+                                        stego, maps, stream);
 }
 
 // Message of a CUDA error code, for the wrappers of every kernel.

@@ -6,7 +6,9 @@
 //   extract_raster_batch / _extract_raster_kernel         (pallas_call :897)
 // and the assembly that followed them on the TPU (ops/embed.py::
 // assemble_message_device / assemble_raster_device, the XLA packed tier's
-// extract_packed_batch + unpack_rows_device).
+// extract_packed_batch + unpack_rows_device). Those Pallas kernels run
+// grid=(B, N/tile) over a batch with per-image (B, NP) plans:
+// raster_extract_batch is that batch axis, one launch per batch.
 //
 // Function: out[j] comes from the HIGHEST plane p whose window covers j
 // (0 <= j - off_p < len_p, len_p > 0): (stego[(start_p + j - off_p) mod N]
@@ -31,6 +33,12 @@
 // of four pixels per instruction; a chunk that straddles a segment
 // boundary, or holds the tail, goes byte by byte. The planes re-read the
 // same pixels, but the stego fits in the 50 MB L2.
+//
+// Batch: blockIdx.y selects the image, whose segment table is entry i of a
+// table in device memory (one RasterSegments per image, 788 bytes), which
+// each block copies into shared memory before the same chunk code runs.
+// Output row i starts at i * out_len bytes, so its stores take the widest
+// width its alignment allows (raster_store_words).
 #include "raster_common.cuh"
 
 #define RASTER_EXTRACT_BYTES 16      // output bytes (bits) per thread
@@ -62,11 +70,13 @@ __device__ __forceinline__ void raster_bits_of_run(const T* px, int p,
 }
 
 // The chunk's bytes: vector stores when all CHUNK are in range, else the
-// first `rem` one by one.
-template <int CHUNK>
+// first `rem` one by one. ANY_ALIGN: dst need not be 16-byte aligned.
+template <int CHUNK, bool ANY_ALIGN>
 __device__ __forceinline__ void raster_store_chunk(
     uint8_t* dst, const uint32_t (&o)[CHUNK / 4], unsigned rem) {
-    if (rem >= (unsigned)CHUNK) {
+    if (ANY_ALIGN && rem >= (unsigned)CHUNK) {
+        raster_store_words<CHUNK / 4>(dst, o);
+    } else if (rem >= (unsigned)CHUNK) {
         if constexpr (CHUNK % 16 == 0) {
 #pragma unroll
             for (int i = 0; i < CHUNK / 16; ++i) {
@@ -88,15 +98,14 @@ __device__ __forceinline__ void raster_store_chunk(
     }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(RASTER_EXTRACT_THREADS)
-raster_extract_kernel(const T* __restrict__ stego,
-                      const __grid_constant__ RasterSegments seg,
-                      unsigned out_len, uint8_t* __restrict__ out) {
+// Chunk t of one image's message order: bits j0 = t * CHUNK onwards.
+template <typename T, bool ANY_ALIGN>
+__device__ __forceinline__ void raster_extract_chunk(
+    const T* __restrict__ stego, const RasterSegments& seg, unsigned out_len,
+    uint8_t* __restrict__ out, unsigned t) {
     constexpr int CHUNK = RASTER_EXTRACT_BYTES;
     static_assert(CHUNK % 8 == 0, "chunks are stored as 8/16-byte vectors");
-    const unsigned j0 =
-        (blockIdx.x * RASTER_EXTRACT_THREADS + threadIdx.x) * (unsigned)CHUNK;
+    const unsigned j0 = t * (unsigned)CHUNK;
     if (j0 >= out_len) return;
     int k = raster_find_segment(seg, j0);
     uint32_t o[CHUNK / 4];
@@ -124,19 +133,62 @@ raster_extract_kernel(const T* __restrict__ stego,
             }
         }
     }
-    raster_store_chunk<CHUNK>(out + j0, o, out_len - j0);
+    raster_store_chunk<CHUNK, ANY_ALIGN>(out + j0, o, out_len - j0);
 }
 
-// Copy the host arrays into a segment table and check it, so that no
-// segment reads outside the image or past the dtype's bits.
+template <typename T>
+__global__ void __launch_bounds__(RASTER_EXTRACT_THREADS)
+raster_extract_kernel(const T* __restrict__ stego,
+                      const __grid_constant__ RasterSegments seg,
+                      unsigned out_len, uint8_t* __restrict__ out) {
+    raster_extract_chunk<T, false>(
+        stego, seg, out_len, out,
+        blockIdx.x * RASTER_EXTRACT_THREADS + threadIdx.x);
+}
+
+// Image blockIdx.y of a batch: pixels at stego + i * n, its segments at
+// table[i], its bits at out + i * out_len.
+template <typename T>
+__global__ void __launch_bounds__(RASTER_EXTRACT_THREADS)
+raster_extract_batch_kernel(const T* __restrict__ stego,
+                            const RasterSegments* __restrict__ table,
+                            unsigned n, unsigned out_len,
+                            uint8_t* __restrict__ out) {
+    __shared__ RasterSegments seg;
+    const unsigned i = blockIdx.y;
+    raster_load_entry<RasterSegments, RASTER_EXTRACT_THREADS>(table + i, &seg);
+    raster_extract_chunk<T, true>(
+        stego + (size_t)i * n, seg, out_len, out + (size_t)i * out_len,
+        blockIdx.x * RASTER_EXTRACT_THREADS + threadIdx.x);
+}
+
+// Check a segment table, so that no segment reads outside the image or
+// past the dtype's bits.
+template <typename T>
+static bool raster_segments_ok(const RasterSegments& seg, long long n,
+                               long long out_len) {
+    const int count = seg.count;
+    if (count < 1 || count > RASTER_MAX_SEGMENTS || seg.begin[0] != 0 ||
+        seg.begin[count] != out_len) {
+        return false;
+    }
+    for (int k = 0; k < count; ++k) {
+        const long long len = (long long)seg.begin[k + 1] - seg.begin[k];
+        const int plane = seg.plane[k];
+        if (len <= 0 || plane < -1 || plane >= 8 * (int)sizeof(T) ||
+            (plane >= 0 && (seg.pos[k] < 0 || seg.pos[k] + len > n))) {
+            return false;
+        }
+    }
+    return true;
+}
+
+// Copy the host arrays into a segment table and check it.
 template <typename T>
 static bool raster_make_segments(const int* begin, const int* pos,
                                  const int* plane, int count, long long n,
                                  long long out_len, RasterSegments* seg) {
-    if (count < 1 || count > RASTER_MAX_SEGMENTS || begin[0] != 0 ||
-        begin[count] != out_len) {
-        return false;
-    }
+    if (count < 1 || count > RASTER_MAX_SEGMENTS) return false;
     seg->count = count;
     for (int k = 0; k <= RASTER_MAX_SEGMENTS; ++k) {
         seg->begin[k] = k <= count ? begin[k] : (int)out_len;
@@ -145,14 +197,7 @@ static bool raster_make_segments(const int* begin, const int* pos,
         seg->pos[k] = k < count ? pos[k] : 0;
         seg->plane[k] = k < count ? plane[k] : -1;
     }
-    for (int k = 0; k < count; ++k) {
-        const long long len = (long long)begin[k + 1] - begin[k];
-        if (len <= 0 || plane[k] < -1 || plane[k] >= 8 * (int)sizeof(T) ||
-            (plane[k] >= 0 && (pos[k] < 0 || pos[k] + len > n))) {
-            return false;
-        }
-    }
-    return true;
+    return raster_segments_ok<T>(*seg, n, out_len);
 }
 
 template <typename T>
@@ -175,6 +220,36 @@ static int launch_extract(const void* stego, const int* begin, const int* pos,
     return (int)cudaGetLastError();
 }
 
+// table_host and table_dev hold the same `batch` segment tables: the host
+// copy is checked here, the device copy is what the kernel reads.
+template <typename T>
+static int launch_extract_batch(const void* stego, const void* table_host,
+                                const void* table_dev, int batch, long long n,
+                                long long out_len, void* out, void* stream) {
+    if (batch < 1 || batch > 65535 || n <= 0 || n > 0x7fffffffLL ||
+        out_len < 1 || out_len > 0x7fffffffLL ||
+        ((uintptr_t)table_dev & 3u) != 0) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const RasterSegments* tables =
+        static_cast<const RasterSegments*>(table_host);
+    for (int i = 0; i < batch; ++i) {
+        if (!raster_segments_ok<T>(tables[i], n, out_len)) {
+            return (int)cudaErrorInvalidValue;
+        }
+    }
+    const long long chunks = (out_len + RASTER_EXTRACT_BYTES - 1) /
+                             RASTER_EXTRACT_BYTES;
+    const long long blocks = (chunks + RASTER_EXTRACT_THREADS - 1) /
+                             RASTER_EXTRACT_THREADS;
+    const dim3 grid((unsigned)blocks, (unsigned)batch);
+    raster_extract_batch_kernel<T><<<grid, RASTER_EXTRACT_THREADS, 0,
+                                     (cudaStream_t)stream>>>(
+        (const T*)stego, static_cast<const RasterSegments*>(table_dev),
+        (unsigned)n, (unsigned)out_len, (uint8_t*)out);
+    return (int)cudaGetLastError();
+}
+
 extern "C" {
 
 int raster_extract_u8(const void* stego, const int* begin, const int* pos,
@@ -189,6 +264,20 @@ int raster_extract_u16(const void* stego, const int* begin, const int* pos,
                        long long out_len, void* out, void* stream) {
     return launch_extract<uint16_t>(stego, begin, pos, plane, count, n,
                                     out_len, out, stream);
+}
+
+int raster_extract_batch_u8(const void* stego, const void* table_host,
+                            const void* table_dev, int batch, long long n,
+                            long long out_len, void* out, void* stream) {
+    return launch_extract_batch<uint8_t>(stego, table_host, table_dev, batch,
+                                         n, out_len, out, stream);
+}
+
+int raster_extract_batch_u16(const void* stego, const void* table_host,
+                             const void* table_dev, int batch, long long n,
+                             long long out_len, void* out, void* stream) {
+    return launch_extract_batch<uint16_t>(stego, table_host, table_dev,
+                                          batch, n, out_len, out, stream);
 }
 
 }  // extern "C"

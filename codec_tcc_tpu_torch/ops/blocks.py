@@ -42,21 +42,23 @@ def block_bit_counts_all(
     image: torch.Tensor, nplanes: int, block: int
 ) -> torch.Tensor:
     """Tile popcounts for planes ``0..nplanes-1`` in one pass:
-    ``(H, W) -> (nplanes, ceil(H/b), ceil(W/b)) int32`` on the image's
-    device (``uint16`` widened to ``int32``: torch has no shift for it)."""
-    h, w = image.shape
+    ``(H, W) -> (nplanes, ceil(H/b), ceil(W/b)) int32``, or for a batch
+    ``(B, H, W) -> (B, nplanes, ...)``, on the image's device (``uint16``
+    widened to ``int32``: torch has no shift for it)."""
+    *lead, h, w = image.shape
     nh = -(-h // block)
     nw = -(-w // block)
     shifts = torch.arange(nplanes, dtype=torch.int32, device=image.device)
-    bits = (image.to(torch.int32)[None] >> shifts.view(nplanes, 1, 1)) & 1
+    bits = (image.to(torch.int32)[..., None, :, :]
+            >> shifts.view(nplanes, 1, 1)) & 1
     padded = torch.zeros(
-        (nplanes, nh * block, nw * block), dtype=torch.int32,
+        (*lead, nplanes, nh * block, nw * block), dtype=torch.int32,
         device=image.device,
     )
-    padded[:, :h, :w] = bits
+    padded[..., :h, :w] = bits
     return (
-        padded.view(nplanes, nh, block, nw, block)
-        .sum(dim=(2, 4), dtype=torch.int32)
+        padded.view(*lead, nplanes, nh, block, nw, block)
+        .sum(dim=(-3, -1), dtype=torch.int32)
     )
 
 

@@ -38,21 +38,39 @@ def decompose(
     image: torch.Tensor,
     beta: float = 0.8,
     nbits: Optional[int] = None,
+    *,
+    histogram_counts: Optional[np.ndarray] = None,
+    full_curve: bool = True,
 ) -> DecompositionResult:
     """Find the adaptive cut point ``s``; the histogram runs on
-    ``image``'s device, the full MI curve on the host.
+    ``image``'s device, the MI curve on the host.
 
     ``nbits`` defaults to the dtype width like the reference (its defect
     B6 — callers that know DICOM BitsStored should pass it explicitly).
+    A precomputed ``histogram_counts`` skips the histogram: ``image`` is
+    then read only for its dtype and size, and may be a numpy array (the
+    batch planner passes a zero-size proxy).
+
+    ``full_curve=False`` stops the MI scan at the cut point like the
+    reference's early-exit loop: ``s``, ``entropy``, ``target`` and the
+    curve up to ``s`` are unchanged, entries past it stay 0.
     """
-    itemsize = image.element_size()
+    if isinstance(image, torch.Tensor):
+        itemsize, size = image.element_size(), int(image.numel())
+    else:
+        itemsize, size = np.dtype(image.dtype).itemsize, int(image.size)
     if nbits is None:
         nbits = itemsize * 8
     max_val = 255 if itemsize == 1 else 65535
-    size = int(image.numel())
 
-    counts = hist_ops.value_histogram(image, max_val + 1).cpu().numpy()
-    mi, h = hist_ops.plane_mi_curve(counts, size, nbits, max_val)
+    if histogram_counts is None:
+        histogram_counts = (
+            hist_ops.value_histogram(image, max_val + 1).cpu().numpy()
+        )
+    mi, h = hist_ops.plane_mi_curve(
+        histogram_counts, size, nbits, max_val,
+        stop_at_beta=None if full_curve else beta,
+    )
 
     target = beta * h
     # replay the reference's sequential float64 accumulation (codec.py:580-593)

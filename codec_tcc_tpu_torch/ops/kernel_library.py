@@ -99,9 +99,16 @@ def library() -> ctypes.CDLL:
         # stego, maps, stream
         "raster_embed": [ptr, ptr, i64, ptr, ptr, ptr, i32, i32, i64, i32,
                          ptr, ptr, ptr],
+        # imgs, msgs, msg_len (per image), table (host copy, device copy),
+        # batch, max_s, n, emit_maps, stego, maps, stream
+        "raster_embed_batch": [ptr, ptr, i64, ptr, ptr, i32, i32, i64, i32,
+                               ptr, ptr, ptr],
         # stego, begin, pos, plane (the segment plan), count, n, out_len,
         # out, stream
         "raster_extract": [ptr, ptr, ptr, ptr, i32, i64, i64, ptr, ptr],
+        # stegos, segment tables (host copy, device copy), batch, n,
+        # out_len, out, stream
+        "raster_extract_batch": [ptr, ptr, ptr, i32, i64, i64, ptr, ptr],
         # img, msg, msg_len, msg_base, want, batch, h, w, parity, t,
         # max_val, stego, over, scratch (used, nproc, cap at its front),
         # stream

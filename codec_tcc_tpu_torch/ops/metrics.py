@@ -28,32 +28,34 @@ __all__ = [
 
 
 def pair_stats(a: torch.Tensor, b: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """One-pass sums for an image pair (float32 accumulate), as 0-d tensors
-    on the images' device.
+    """One-pass sums for an image pair (float32 accumulate), on the images'
+    device: 0-d tensors for two ``(H, W)`` images, ``(B,)`` tensors, one
+    entry per pair, for two ``(B, H, W)`` batches.
 
     Returns raw moments; combine with :func:`quality_report` (host). The
     float32 sums run in another order than XLA's, so the moments agree with
     the JAX package's to float32 rounding, not bit for bit; ``changed``,
     ``max_absdiff`` and the maxima are exact (integers below 2^24)."""
-    af = a.to(torch.float32)
-    bf = b.to(torch.float32)
+    af = a.to(torch.float32).flatten(-2)
+    bf = b.to(torch.float32).flatten(-2)
     diff = af - bf
     adiff = diff.abs()
     return {
-        "n": torch.tensor(a.numel(), dtype=torch.float32, device=a.device),
-        "sum_a": af.sum(),
-        "sum_b": bf.sum(),
-        "sum_a2": (af * af).sum(),
-        "sum_b2": (bf * bf).sum(),
-        "sum_ab": (af * bf).sum(),
-        "sum_sqdiff": (diff * diff).sum(),
-        "sum_absdiff": adiff.sum(),
-        "max_absdiff": adiff.max(),
+        "n": torch.full(af.shape[:-1], af.shape[-1], dtype=torch.float32,
+                        device=a.device),
+        "sum_a": af.sum(-1),
+        "sum_b": bf.sum(-1),
+        "sum_a2": (af * af).sum(-1),
+        "sum_b2": (bf * bf).sum(-1),
+        "sum_ab": (af * bf).sum(-1),
+        "sum_sqdiff": (diff * diff).sum(-1),
+        "sum_absdiff": adiff.sum(-1),
+        "max_absdiff": adiff.amax(-1),
         # float compare: uint16 has no `!=` in torch, and float32 holds
         # every uint16 value exactly
-        "changed": (af != bf).sum(dtype=torch.float32),
-        "max_a": af.max(),
-        "max_b": bf.max(),
+        "changed": (af != bf).sum(-1, dtype=torch.float32),
+        "max_a": af.amax(-1),
+        "max_b": bf.amax(-1),
     }
 
 

@@ -14,6 +14,11 @@ Two kernels carry the default encode/decode path on an NVIDIA Hopper GPU:
   plan is resolved on the host into message-order segments
   (:func:`extract_segments`).
 
+Each has a batch form, one launch per batch of equal geometry with a plan
+per image (:func:`raster_embed_batch`, :func:`raster_extract_batch`): the
+batch axis of the Pallas kernels' ``grid=(B, N/tile)``. The per-image plans
+go to the card as one small table per batch.
+
 Both are built from the package's own sources, with the PEE kernels, into
 one library (:mod:`.kernel_library`) and bound through ``ctypes`` with a
 plain C interface. A wrapper given a CUDA tensor launches its kernel on the
@@ -40,8 +45,12 @@ __all__ = [
     "MAX_PLANES",
     "MAX_SEGMENTS",
     "raster_embed",
+    "raster_embed_batch",
+    "raster_embed_batch_plain",
     "raster_embed_plain",
     "raster_extract",
+    "raster_extract_batch",
+    "raster_extract_batch_plain",
     "raster_extract_plain",
     "extract_segments",
     "reset_launch_counts",
@@ -51,7 +60,13 @@ MAX_PLANES = 16       # RASTER_MAX_PLANES in csrc/raster_common.cuh
 MAX_SEGMENTS = 4 * MAX_PLANES + 1   # RASTER_MAX_SEGMENTS there
 _INT32_MAX = (1 << 31) - 1
 
-LAUNCHES = {"raster_embed": 0, "raster_extract": 0}
+LAUNCHES = {"raster_embed": 0, "raster_extract": 0, "raster_embed_batch": 0,
+            "raster_extract_batch": 0}
+# int32 words of one table entry: RasterBatchPlan (start, len, off per
+# plane, then s) and RasterSegments (count, begin, pos, plane), as
+# csrc/raster_common.cuh lays them out
+_EMBED_ENTRY = 3 * MAX_PLANES + 1
+_SEGMENT_ENTRY = 1 + (MAX_SEGMENTS + 1) + 2 * MAX_SEGMENTS
 
 
 def reset_launch_counts() -> None:
@@ -88,11 +103,32 @@ def _plan_arrays(starts, lens, offs, s: int, n: int) -> Tuple[np.ndarray, ...]:
                  for v in _plan_lists(starts, lens, offs, s, n))
 
 
-def _check_cuda_image(t: torch.Tensor, what: str) -> None:
+def _check_cuda_image(t: torch.Tensor, what: str, dims: int = 2) -> None:
     if t.dtype not in (torch.uint8, torch.uint16):
         raise ValueError(f"{what} must be uint8/uint16, got {t.dtype}")
-    if t.dim() != 2 or not t.is_contiguous():
-        raise ValueError(f"{what} must be a contiguous 2-D tensor")
+    if t.dim() != dims or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous {dims}-D tensor")
+
+
+def _batch_plans(starts, lens, offs, s, b: int, n: int):
+    """Per-image ``(starts, lens, offs, s)`` of a ``(B, NP)`` plan with
+    ``(B,)`` cut points, each checked by :func:`_plan_lists` (starts
+    reduced mod ``n``)."""
+    st, ln, of = (np.asarray(v, dtype=np.int64) for v in (starts, lens, offs))
+    cuts = np.asarray(s, dtype=np.int64).reshape(-1)
+    if st.ndim != 2 or st.shape[0] != b or cuts.size != b:
+        raise ValueError(
+            f"batch plans need (B, NP) starts/lens/offs and (B,) cut points "
+            f"for B={b}, got {st.shape} and {cuts.shape}"
+        )
+    return [(*_plan_lists(st[i], ln[i], of[i], int(cuts[i]), n),
+             int(cuts[i])) for i in range(b)]
+
+
+def _upload_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A batch's plan table on ``device``: one copy from pinned memory,
+    queued on the current stream ahead of the launch that reads it."""
+    return torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -162,6 +198,103 @@ def raster_embed(
     )
     check(lib, err, "raster_embed")
     LAUNCHES["raster_embed"] += 1
+    return stego, maps
+
+
+def raster_embed_batch_plain(
+    images: torch.Tensor, msgs: torch.Tensor, starts, lens, offs, s, *,
+    emit_maps: bool, max_s: Optional[int] = None,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of :func:`raster_embed_batch`: :func:`.embed.embed`
+    per image, then :func:`.embed.xor_maps_packed_batch` over ``max_s``
+    planes."""
+    b, h, w = images.shape
+    plans = _batch_plans(starts, lens, offs, s, b, h * w)
+    max_s = _max_s(plans, max_s)
+    stego = torch.stack([
+        embed_ops.embed(images[i], msgs[i], st, ln, of, si, len(st))
+        for i, (st, ln, of, si) in enumerate(plans)
+    ])
+    maps = None
+    if emit_maps:
+        maps = embed_ops.xor_maps_packed_batch(images, stego, max_s)
+    return stego, maps
+
+
+def _max_s(plans, max_s: Optional[int]) -> int:
+    top = max((p[3] for p in plans), default=0)
+    if max_s is None:
+        return top
+    if not top <= max_s <= MAX_PLANES:
+        raise ValueError(
+            f"max_s={max_s} outside [{top}, {MAX_PLANES}] (the largest cut "
+            f"point of the batch and the plane limit)"
+        )
+    return max_s
+
+
+def raster_embed_batch(
+    images: torch.Tensor,         # (B, H, W) uint8/uint16
+    msgs: torch.Tensor,           # (B, L) uint8 0/1 message bits per image
+    starts, lens, offs,           # (B, NP) plane plans, NP <= 16
+    s,                            # (B,) cut points
+    *,
+    emit_maps: bool,              # also return (B, max_s, N/8) packed maps
+    max_s: Optional[int] = None,  # map rows; default: the largest cut point
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """K1 over a batch, in one launch: image ``i`` is embedded as
+    :func:`raster_embed` embeds it with plan ``i``, cut point ``s[i]`` and
+    message row ``i`` (bits past ``L`` read as 0). With ``emit_maps`` the
+    maps are ``(B, max_s, N/8)``, MSB-first packed ``orig ^ stego``; rows
+    ``p >= s[i]`` of image ``i`` are zero. The plans travel as one table
+    per batch, uploaded ahead of the launch. Returns ``(stego, maps or
+    None)`` on the images' device."""
+    if images.device.type == "cpu":
+        return raster_embed_batch_plain(images, msgs, starts, lens, offs, s,
+                                        emit_maps=emit_maps, max_s=max_s)
+    if images.device.type != "cuda":
+        raise ValueError(
+            f"raster_embed_batch runs on cuda or cpu, not {images.device}")
+    _check_cuda_image(images, "images", dims=3)
+    b, h, w = images.shape
+    n = h * w
+    if (msgs.device != images.device or msgs.dtype != torch.uint8
+            or msgs.dim() != 2 or msgs.shape[0] != b):
+        raise ValueError("msgs must be a (B, L) uint8 tensor on the images' "
+                         "device")
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch of {b} images outside [1, 65535]")
+    if emit_maps and n % 8:
+        raise ValueError("packed XOR maps need H*W % 8 == 0")
+    msgs = msgs.contiguous()
+    plans = _batch_plans(starts, lens, offs, s, b, n)
+    max_s = _max_s(plans, max_s)
+    table = np.zeros((b, _EMBED_ENTRY), np.int32)
+    for i, (st, ln, of, si) in enumerate(plans):
+        npl = len(st)
+        table[i, :npl] = st
+        table[i, MAX_PLANES:MAX_PLANES + npl] = ln
+        table[i, 2 * MAX_PLANES:2 * MAX_PLANES + npl] = of
+        table[i, -1] = si
+    table_dev = _upload_table(table, images.device)
+    stego = torch.empty_like(images)
+    maps = (
+        torch.empty((b, max_s, n // 8), dtype=torch.uint8,
+                    device=images.device)
+        if emit_maps else None
+    )
+    lib = library()
+    fn = (lib.raster_embed_batch_u8 if images.dtype == torch.uint8
+          else lib.raster_embed_batch_u16)
+    err = fn(
+        images.data_ptr(), msgs.data_ptr() if msgs.numel() else None,
+        msgs.shape[1], table.ctypes.data, table_dev.data_ptr(), b, max_s, n,
+        int(emit_maps), stego.data_ptr(),
+        maps.data_ptr() if maps is not None and maps.numel() else None,
+        stream_ptr(images),
+    )
+    check(lib, err, "raster_embed_batch")
+    LAUNCHES["raster_embed_batch"] += 1
     return stego, maps
 
 
@@ -263,4 +396,71 @@ def raster_extract(
     )
     check(lib, err, "raster_extract")
     LAUNCHES["raster_extract"] += 1
+    return out
+
+
+
+def raster_extract_batch_plain(
+    stego: torch.Tensor, starts, lens, offs, s, out_len: int
+) -> torch.Tensor:
+    """Plain torch version of :func:`raster_extract_batch`:
+    :func:`.embed.extract_message_device` per image."""
+    b, h, w = stego.shape
+    plans = _batch_plans(starts, lens, offs, s, b, h * w)
+    return torch.stack([
+        embed_ops.extract_message_device(stego[i], st, ln, of, si, len(st),
+                                         out_len)
+        for i, (st, ln, of, si) in enumerate(plans)
+    ])
+
+
+def raster_extract_batch(
+    stego: torch.Tensor,          # (B, H, W) uint8/uint16
+    starts, lens, offs,           # (B, NP) plane plans
+    s,                            # (B,) cut points
+    out_len: int,
+) -> torch.Tensor:
+    """K2 over a batch, in one launch: ``(B, out_len) uint8``, row ``i``
+    what :func:`raster_extract` gives for image ``i`` with plan ``i`` and
+    cut point ``s[i]``. Each plan is resolved into its segments
+    (:func:`extract_segments`); the tables travel as one per batch,
+    uploaded ahead of the launch. On the GPU, ``out_len`` must fit
+    int32."""
+    if out_len < 1:
+        raise ValueError(f"out_len must be >= 1, got {out_len}")
+    if stego.device.type == "cpu":
+        return raster_extract_batch_plain(stego, starts, lens, offs, s,
+                                          out_len)
+    if stego.device.type != "cuda":
+        raise ValueError(
+            f"raster_extract_batch runs on cuda or cpu, not {stego.device}")
+    _check_cuda_image(stego, "stego", dims=3)
+    b, h, w = stego.shape
+    n = h * w
+    if not 1 <= b <= 65535:
+        raise ValueError(f"batch of {b} images outside [1, 65535]")
+    bits = 8 * stego.element_size()
+    table = np.zeros((b, _SEGMENT_ENTRY), np.int32)
+    for i, (st, ln, of, si) in enumerate(
+            _batch_plans(starts, lens, offs, s, b, n)):
+        begin, pos, plane = extract_segments(st, ln, of, si, n, out_len, bits)
+        count = plane.size
+        row = table[i]
+        row[0] = count
+        row[1:MAX_SEGMENTS + 2] = out_len
+        row[1:count + 2] = begin
+        row[MAX_SEGMENTS + 2:MAX_SEGMENTS + 2 + count] = pos
+        row[2 * MAX_SEGMENTS + 2:] = -1
+        row[2 * MAX_SEGMENTS + 2:2 * MAX_SEGMENTS + 2 + count] = plane
+    table_dev = _upload_table(table, stego.device)
+    out = torch.empty((b, out_len), dtype=torch.uint8, device=stego.device)
+    lib = library()
+    fn = (lib.raster_extract_batch_u8 if stego.dtype == torch.uint8
+          else lib.raster_extract_batch_u16)
+    err = fn(
+        stego.data_ptr(), table.ctypes.data, table_dev.data_ptr(), b, n,
+        out_len, out.data_ptr(), stream_ptr(stego),
+    )
+    check(lib, err, "raster_extract_batch")
+    LAUNCHES["raster_extract_batch"] += 1
     return out

@@ -1,2 +1,4 @@
-"""Batched pipelines: :mod:`.batch_pee` (PEE with per-image thresholds) and
-:mod:`.batch` (the host hybrid start scan the raster encoders share)."""
+"""Batched pipelines: :mod:`.batch` (the raster and block batch and the
+container-level batch encode/decode), :mod:`.batch_pee` (PEE with
+per-image thresholds) and :mod:`.runner` (per-item jobs with a
+checkpointed manifest)."""

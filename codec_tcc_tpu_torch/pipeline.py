@@ -99,6 +99,10 @@ def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
     return torch.from_numpy(arr).to(dev)
 
 
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1)).bit_length()
+
+
 def _plane_bucket(s: int, dtype_bits: int) -> int:
     """Plane count of the kernels' plan: 4, 8 or dtype width."""
     if s <= 4:
@@ -403,6 +407,35 @@ def encode_dicom(
     return encode_array(
         image, payload, config, bits_stored=ds.bits_stored, device=device
     )
+
+
+def encode_file(
+    path: str,
+    payload: Union[bytes, str, np.ndarray],
+    config: EncodeConfig = EncodeConfig(),
+    *,
+    device: DeviceLike = "cuda",
+) -> EncodeResult:
+    """Encode any supported image file: DICOM through the native reader
+    (BitsStored plumbed through), PNG/PIL grayscale formats otherwise."""
+    if path.lower().endswith(".dcm"):
+        image, ds = dicom.load_image(path)
+        if image.ndim == 3:
+            raise ValueError(
+                f"{path} is a multi-frame DICOM ({image.shape[0]} frames); "
+                f"use encode-volume / parallel.volume for volumes"
+            )
+        if image.dtype == np.int16:
+            image = image.astype(np.uint16)
+        return encode_array(
+            image, payload, config, bits_stored=ds.bits_stored, device=device
+        )
+    from PIL import Image
+
+    arr = np.array(Image.open(path))
+    if arr.dtype == np.int32:
+        arr = arr.astype(np.uint16)
+    return encode_array(arr, payload, config, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on a GPU: K1-K4 against their plain versions; the
-raster, PEE and block_adaptive encode paths against the CPU path; the
-device block extract against its host twin; the host embed route with no
-K1. Marked ``cuda``: they skip where no GPU is present and run on the GPU
+"""The port's CUDA kernels on a GPU: K1-K4 and the batch forms of K1/K2
+against their plain versions; the raster, PEE, block_adaptive and
+container batch encode paths against the CPU path; the device block
+extract against its host twin; the host embed route with no K1. Marked ``cuda``: they skip where no GPU is present and run on the GPU
 machine with
 
     python -m pytest tests/test_torch_cuda.py -m cuda -q
@@ -501,9 +501,153 @@ def test_gpu_host_route_launches_no_k1_and_matches_fixture(cuda):
     rk.reset_launch_counts()
     res = port.encode_array(img, bits, case.config(port.EncodeConfig),
                             bits_stored=case.bits_stored, device=cuda)
-    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 0}
+    assert set(rk.LAUNCHES.values()) == {0}
     assert cases.sha256(res.container) == want["container_sha256"]
     dec = port.decode_container(res.container, device=cuda)
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
-    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 1}
+    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 1,
+                           "raster_embed_batch": 0, "raster_extract_batch": 0}
+
+
+# ---------------------------------------------------------------------------
+# the batch axis of K1 and K2
+# ---------------------------------------------------------------------------
+
+
+def _batch_inputs(cuda, b, h, w, dtype, plans, seed):
+    import torch_raster_cases as rc
+
+    rng = np.random.default_rng(seed)
+    hi = 1 << (8 * np.dtype(dtype).itemsize)
+    imgs = torch.from_numpy(
+        rng.integers(0, hi, (b, h, w)).astype(dtype)).to(cuda)
+    s, starts, lens, offs, out_len = rc.batch_plans(plans, b)
+    msgs = torch.from_numpy(
+        rng.integers(0, 2, (b, out_len)).astype(np.uint8)).to(cuda)
+    return imgs, msgs, s, starts, lens, offs, out_len
+
+
+@pytest.mark.parametrize("b", [1, 3, 32])
+@pytest.mark.parametrize("h,w,dtype", [(64, 64, np.uint16), (40, 41, np.uint8),
+                                       (40, 41, np.uint16), (37, 53, np.uint8)])
+def test_batch_kernels_match_plain_on_gpu(cuda, b, h, w, dtype):
+    """K1 and K2 over a batch, each image on its own plan of
+    ``tests/torch_raster_cases.py::k1_plans`` (cut points 1 to 16), equal
+    to their plain versions; at 40x41 and 37x53 the images start at
+    addresses that are not 16-byte aligned, and at 40x41 each map row is an
+    odd number of bytes."""
+    import torch_raster_cases as rc
+
+    n = h * w
+    imgs, msgs, s, starts, lens, offs, out_len = _batch_inputs(
+        cuda, b, h, w, dtype, rc.k1_plans(n, seed=b), seed=b * n)
+    emit = n % 8 == 0
+    got = rk.raster_embed_batch(imgs, msgs, starts, lens, offs, s,
+                                emit_maps=emit)
+    ref = rk.raster_embed_batch_plain(imgs, msgs, starts, lens, offs, s,
+                                      emit_maps=emit)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0])
+    if emit:
+        assert torch.equal(got[1], ref[1])
+    for length in (out_len, 17):
+        bits = rk.raster_extract_batch(got[0], starts, lens, offs, s, length)
+        want = rk.raster_extract_batch_plain(got[0], starts, lens, offs, s,
+                                             length)
+        torch.cuda.synchronize()
+        assert torch.equal(bits, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_batch_tables_past_launch_parameters_on_gpu(cuda, dtype):
+    """B = 64 images, half of them on a sixteen-plane plan of 48 K2
+    segments (24 on uint8), the other half on sixteen short windows: 64
+    segment tables of 788 bytes, more than the 32 KB of launch parameters
+    one launch may take. Both kernels equal their plain versions."""
+    import torch_raster_cases as rc
+
+    h, w = 30, 40
+    plans = [rc.many_segment_plan(h * w), rc.sixteen_plane_plan(h * w)]
+    imgs, msgs, s, starts, lens, offs, out_len = _batch_inputs(
+        cuda, 64, h, w, dtype, plans, seed=64)
+    bits_px = 8 * np.dtype(dtype).itemsize
+    for p in range(0, 64, 2):
+        _, _, plane = rk.extract_segments(
+            starts[p], lens[p], offs[p], int(s[p]), h * w, out_len, bits_px)
+        assert plane.size == 3 * min(16, bits_px)
+    got = rk.raster_embed_batch(imgs, msgs, starts, lens, offs, s,
+                                emit_maps=True)
+    ref = rk.raster_embed_batch_plain(imgs, msgs, starts, lens, offs, s,
+                                      emit_maps=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    bits = rk.raster_extract_batch(got[0], starts, lens, offs, s, out_len)
+    want = rk.raster_extract_batch_plain(got[0], starts, lens, offs, s,
+                                         out_len)
+    torch.cuda.synchronize()
+    assert torch.equal(bits, want)
+
+
+@pytest.mark.parametrize("h,w,dtype", [(512, 512, np.uint16),
+                                       (40, 41, np.uint8)])
+def test_batch_of_one_equals_single_wrappers_on_gpu(cuda, h, w, dtype):
+    """B = 1 of the batch kernels gives what the single-image wrappers
+    give."""
+    import torch_raster_cases as rc
+
+    n = h * w
+    for plan in rc.k1_plans(n, seed=3)[::5]:
+        imgs, msgs, s, starts, lens, offs, out_len = _batch_inputs(
+            cuda, 1, h, w, dtype, [plan], seed=len(plan[0]))
+        emit = n % 8 == 0
+        batch = rk.raster_embed_batch(imgs, msgs, starts, lens, offs, s,
+                                      emit_maps=emit)
+        single = rk.raster_embed(imgs[0], msgs[0], starts[0], lens[0],
+                                 offs[0], int(s[0]), emit_maps=emit)
+        torch.cuda.synchronize()
+        assert torch.equal(batch[0][0], single[0])
+        if emit:
+            assert torch.equal(batch[1][0], single[1])
+        bits = rk.raster_extract_batch(batch[0], starts, lens, offs, s,
+                                       out_len)
+        one = rk.raster_extract(single[0], starts[0], lens[0], offs[0],
+                                int(s[0]), out_len)
+        torch.cuda.synchronize()
+        assert torch.equal(bits[0], one)
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "multi_plane",
+                                      "block_adaptive", "pee"])
+def test_gpu_batch_containers_equal_cpu_batch(cuda, strategy):
+    """``encode_batch_containers`` on the card writes the CPU path's
+    containers, a raster batch with exactly one K1 launch;
+    ``extract_batch`` reads the payloads back with one K2 launch; the
+    batch decode gives the payloads and originals back."""
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.utils.bits import bits_to_bytes
+
+    rng = np.random.default_rng(5)
+    imgs = rng.integers(0, 4096, (4, 96, 80)).astype(np.uint16)
+    pays = ["batch %d" % i * (i + 1) for i in range(4)]
+    cfg = port.EncodeConfig(strategy=strategy)
+    cpu = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
+                                     device="cpu")
+    rk.reset_launch_counts()
+    gpu = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
+                                     device=cuda)
+    raster = strategy in ("hybrid", "multi_plane")
+    assert rk.LAUNCHES["raster_embed_batch"] == int(raster)
+    assert rk.LAUNCHES["raster_embed"] == 0
+    assert gpu.containers == cpu.containers
+    if raster:
+        rk.reset_launch_counts()
+        bits = tb.extract_batch(gpu.stego, gpu.plan, device=cuda)
+        assert rk.LAUNCHES["raster_extract_batch"] == 1
+        for i, p in enumerate(pays):
+            n_i = int(gpu.plan.payload_bits[i])
+            assert bits_to_bytes(bits[i, :n_i]) == p.encode()
+    decs = tb.decode_batch_containers(gpu.containers, device=cuda)
+    for d, p, img in zip(decs, pays, imgs):
+        assert d.message == p
+        np.testing.assert_array_equal(d.original, img)

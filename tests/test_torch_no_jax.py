@@ -1,7 +1,8 @@
 """The port runs where jax does not exist: in a fresh interpreter that
 cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
 the CPU (raster, block_adaptive, the host embed route and PEE, single
-image and batch), and nothing of the JAX package gets loaded."""
+image and batch, the container batch path, the runner and the CLI), and
+nothing of the JAX package gets loaded."""
 
 import os
 import subprocess
@@ -39,6 +40,16 @@ batch = batch_pee.encode_pee_batch(np.stack([img, img]), ["a", "bc"], pee,
                                    bits_stored=12, device="cpu")
 decs = batch_pee.decode_pee_batch(batch.containers, device="cpu")
 assert [d.message for d in decs] == ["a", "bc"]
+from codec_tcc_tpu_torch import cli
+from codec_tcc_tpu_torch.parallel import batch, runner
+for cfg in (port.EncodeConfig(), port.EncodeConfig(strategy="pee")):
+    res = batch.encode_batch_containers(np.stack([img, img[::-1]]),
+                                        ["b1", "b22"], cfg, bits_stored=12,
+                                        device="cpu")
+    decs = batch.decode_batch_containers(res.containers, device="cpu")
+    assert [d.message for d in decs] == ["b1", "b22"]
+    assert np.array_equal(decs[1].original, img[::-1])
+assert runner.BatchRunner and cli.cmd_encode_batch and cli.cmd_decode_batch
 loaded = sorted(m for m in sys.modules
                 if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
                 or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))

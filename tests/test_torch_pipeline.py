@@ -145,7 +145,7 @@ def test_encode_counts_no_kernel_launch_on_cpu():
     res = port.encode_array(_image(32, 32, np.uint16), TEXT, bits_stored=12,
                             device="cpu")
     port.decode_container(res.container, device="cpu")
-    assert raster_kernels.LAUNCHES == {"raster_embed": 0, "raster_extract": 0}
+    assert set(raster_kernels.LAUNCHES.values()) == {0}
 
 
 def test_cuda_default_raises_without_gpu():

@@ -367,7 +367,7 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     assert maps.shape == (1, img.numel() // 8) and maps.dtype == torch.uint8
     bits = rk.raster_extract(stego, *plan, 1, 1000)
     assert torch.equal(bits, msg[:1000])
-    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 0}
+    assert set(rk.LAUNCHES.values()) == {0}
 
 
 def test_wrappers_reject_other_devices_and_bad_plans():
@@ -390,3 +390,180 @@ def test_wrappers_reject_other_devices_and_bad_plans():
         rk.raster_extract(img, [0], [1], [(1 << 31) - 10], 1, 4)
     with pytest.raises(ValueError, match="out_len"):
         rk.raster_extract(img, [0], [1], [0], 1, 0)
+
+
+# ---------------------------------------------------------------------------
+# the batch axis: raster_embed_batch / raster_extract_batch (plain versions)
+# ---------------------------------------------------------------------------
+
+
+def _batch_case(seed, b, h, w, dtype, nbits=4):
+    """A batch as the planners make it: per-image cut points, payload
+    lengths and hybrid starts (planes >= s carry zero-length windows)."""
+    rng = np.random.default_rng(seed)
+    n = h * w
+    imgs = np.stack([_image(rng, h, w, dtype) for _ in range(b)])
+    starts, lens, offs = (np.zeros((b, nbits), np.int32) for _ in range(3))
+    svals = np.zeros(b, np.int32)
+    bits = []
+    for i in range(b):
+        s = 1 + (i % nbits)
+        svals[i] = s
+        plan = jax_segments.distribute_segments(
+            s, int(rng.integers(1, min(2 * n, s * n))))
+        pp = jax_segments.raster_plane_plan(
+            plan, n, nbits, int(rng.integers(0, n)), bool(i % 2))
+        starts[i], lens[i], offs[i] = pp.starts, pp.lengths, pp.offsets
+        bits.append(rng.integers(0, 2, plan.total_bits).astype(np.uint8))
+    lpad = max(int((offs + n).max()), max(x.size for x in bits))
+    msgs = np.zeros((b, lpad), np.uint8)
+    for i, x in enumerate(bits):
+        msgs[i, :x.size] = x
+    return imgs, msgs, starts, lens, offs, svals
+
+
+def _plain_k1_batch(imgs, msgs, starts, lens, offs, svals, max_s=None):
+    st, mp = rk.raster_embed_batch(
+        torch.from_numpy(imgs), torch.from_numpy(msgs), starts, lens, offs,
+        svals, emit_maps=imgs[0].size % 8 == 0, max_s=max_s,
+    )
+    return st.numpy(), None if mp is None else mp.numpy()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_k1_batch_matches_pallas_embed_batch_and_preplaced(dtype):
+    """B = 3 with differing cut points and payload lengths: the plain
+    batch K1 equals the windowed Pallas ``embed_batch`` and
+    ``embed_batch_preplaced`` (interpret mode) image for image, and its
+    maps are ``xor_maps_packed_batch`` over the largest cut point (rows
+    past each image's own cut point zero)."""
+    b, h, w, nbits = 3, 32, 128, 4
+    n = h * w
+    imgs, msgs, starts, lens, offs, svals = _batch_case(11, b, h, w, dtype)
+    stego, maps = _plain_k1_batch(imgs, msgs, starts, lens, offs, svals)
+
+    tile = pe.pick_tile(n)
+    msg2d, l2 = pe.shift_messages_2d(msgs, n)
+    windowed = np.asarray(pe.embed_batch(
+        jnp.asarray(imgs).reshape(b, n // 128, 128), jnp.asarray(msg2d),
+        jnp.asarray(starts), jnp.asarray(lens), jnp.asarray(offs), nbits,
+        tile, l2,
+    )).reshape(b, h, w)
+    np.testing.assert_array_equal(stego, windowed)
+    bits4 = pe.preplace_bits(msgs, starts, lens, offs, n)
+    preplaced = np.asarray(pe.embed_batch_preplaced(
+        jnp.asarray(imgs).reshape(b, n // 128, 128), jnp.asarray(bits4),
+        jnp.asarray(starts), jnp.asarray(lens), nbits, tile,
+    )).reshape(b, h, w)
+    np.testing.assert_array_equal(stego, preplaced)
+
+    max_s = int(svals.max())
+    want_maps = np.asarray(jax_embed.xor_maps_packed_batch(
+        jnp.asarray(imgs), jnp.asarray(stego), max_s))
+    np.testing.assert_array_equal(maps, want_maps)
+    for i in range(b):
+        assert not maps[i, svals[i]:].any()
+        single, single_maps = _plain_k1(imgs[i], msgs[i], starts[i], lens[i],
+                                        offs[i], int(svals[i]), True)
+        np.testing.assert_array_equal(stego[i], single)
+        np.testing.assert_array_equal(maps[i, :svals[i]], single_maps)
+    # more map rows than the largest cut point: zeros
+    _, wide = _plain_k1_batch(imgs, msgs, starts, lens, offs, svals,
+                              max_s=max_s + 2)
+    np.testing.assert_array_equal(wide[:, :max_s], maps)
+    assert not wide[:, max_s:].any()
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_k1_k2_batch_odd_geometry_match_pallas_padded(dtype):
+    """An odd N (50x100: no tile divides it) runs the Pallas preplaced
+    kernels on the zero-padded flat buffer with split windows (wpp = 2);
+    the plain batch K1 and K2 equal them, a wrapping window included."""
+    b, h, w, nbits = 3, 50, 100, 4
+    n = h * w
+    assert pe.pick_tile(n) == 0
+    imgs, msgs, starts, lens, offs, svals = _batch_case(12, b, h, w, dtype)
+    starts[0, 0], lens[0, 0] = n - 70, 200            # wraps
+    n_buf, tile = pe.padded_flat(n)
+    stego, _ = _plain_k1_batch(imgs, msgs, starts, lens, offs, svals)
+
+    bits4 = np.asarray(pe.preplace_bits_device(
+        jnp.asarray(msgs), jnp.asarray(starts), jnp.asarray(lens),
+        jnp.asarray(offs), n, nbits, n_buf,
+    ))
+    st2, ln2 = pe.split_windows(starts, lens, n)
+    flat = jnp.pad(jnp.asarray(imgs).reshape(b, n), ((0, 0), (0, n_buf - n)))
+    pallas = np.asarray(pe.embed_batch_preplaced(
+        flat.reshape(b, n_buf // 128, 128), jnp.asarray(bits4),
+        jnp.asarray(st2), jnp.asarray(ln2), nbits, tile, 2,
+    )).reshape(b, n_buf)[:, :n].reshape(b, h, w)
+    np.testing.assert_array_equal(stego, pallas)
+
+    out_len = int((offs + lens).max())
+    got = rk.raster_extract_batch(torch.from_numpy(stego), starts, lens,
+                                  offs, svals, out_len).numpy()
+    sflat = jnp.pad(jnp.asarray(stego).reshape(b, n),
+                    ((0, 0), (0, n_buf - n)))
+    rows = pe.extract_raster_batch(
+        sflat.reshape(b, n_buf // 128, 128), jnp.asarray(st2),
+        jnp.asarray(ln2), nbits, tile, 2,
+    ).reshape(b, nbits, n_buf)[:, :, :n]
+    want = pe.assemble_raster(np.asarray(rows), starts, lens, offs, out_len)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.uint8, np.uint16])
+def test_k2_batch_matches_pallas_extract_raster_batch(dtype):
+    """The plain batch K2 equals ``extract_raster_batch`` +
+    ``assemble_raster`` and the host extractor, image for image, at an
+    ``out_len`` past every window and at one inside them."""
+    b, h, w, nbits = 3, 32, 128, 4
+    n = h * w
+    imgs, msgs, starts, lens, offs, svals = _batch_case(13, b, h, w, dtype)
+    stego, _ = _plain_k1_batch(imgs, msgs, starts, lens, offs, svals)
+    rows = pe.extract_raster_batch(
+        jnp.asarray(stego).reshape(b, n // 128, 128), jnp.asarray(starts),
+        jnp.asarray(lens), nbits, pe.pick_tile(n),
+    )
+    for out_len in (int((offs + lens).max()), 100):
+        got = rk.raster_extract_batch(torch.from_numpy(stego), starts, lens,
+                                      offs, svals, out_len).numpy()
+        want = pe.assemble_raster(np.asarray(rows), starts, lens, offs,
+                                  out_len)
+        np.testing.assert_array_equal(got, want)
+        for i in range(b):
+            np.testing.assert_array_equal(got[i], host_extract.extract_raster_host(
+                stego[i], starts[i], lens[i], offs[i], int(svals[i]), out_len))
+            np.testing.assert_array_equal(got[i], _plain_k2(
+                stego[i], starts[i], lens[i], offs[i], int(svals[i]),
+                out_len))
+
+
+def test_batch_wrappers_on_cpu_run_plain_and_check_plans():
+    rk.reset_launch_counts()
+    imgs, msgs, starts, lens, offs, svals = _batch_case(14, 2, 16, 16,
+                                                        np.uint16)
+    timgs, tmsgs = torch.from_numpy(imgs), torch.from_numpy(msgs)
+    st, mp = rk.raster_embed_batch(timgs, tmsgs, starts, lens, offs, svals,
+                                   emit_maps=True)
+    want, want_mp = rk.raster_embed_batch_plain(
+        timgs, tmsgs, starts, lens, offs, svals, emit_maps=True)
+    assert torch.equal(st, want) and torch.equal(mp, want_mp)
+    assert mp.shape == (2, int(svals.max()), 32)
+    bits = rk.raster_extract_batch(st, starts, lens, offs, svals, 64)
+    assert bits.shape == (2, 64) and bits.dtype == torch.uint8
+    assert set(rk.LAUNCHES.values()) == {0}
+    with pytest.raises(ValueError, match=r"\(B, NP\)"):
+        rk.raster_embed_batch(timgs, tmsgs, starts[:1], lens[:1], offs[:1],
+                              svals[:1], emit_maps=False)
+    with pytest.raises(ValueError, match="max_s"):
+        rk.raster_embed_batch(timgs, tmsgs, starts, lens, offs, svals,
+                              emit_maps=True, max_s=int(svals.max()) - 1)
+    with pytest.raises(ValueError, match="cut point"):
+        rk.raster_extract_batch(st, starts, lens, offs, [0, 5], 8)
+    meta = torch.empty((1, 8, 8), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rk.raster_embed_batch(meta, torch.zeros((1, 8), dtype=torch.uint8),
+                              [[0]], [[1]], [[0]], [1], emit_maps=False)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        rk.raster_extract_batch(meta, [[0]], [[1]], [[0]], [1], 4)

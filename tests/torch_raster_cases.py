@@ -152,3 +152,31 @@ def five_plane_plan(n: int, seed: int) -> Plan:
         offs[p] = offs[p - 1] + lens[p - 1]
     starts = [int(v) for v in rng.integers(0, n, 5)] + [0, 0, 0]
     return ("five_planes", 5, starts, lens, offs, offs[4] + lens[4])
+
+
+def many_segment_plan(n: int) -> Plan:
+    """Sixteen consecutive windows, each longer than N and wrapping: each
+    plane is three segments (up to the raster end, from pixel 0, then
+    zeros), 48 in all on uint16 and 24 on uint8, where planes 8-15 read
+    zeros."""
+    starts = [(7 + 13 * p) % n or 1 for p in range(16)]
+    lens = [n + 10 + p for p in range(16)]
+    offs = [int(v) for v in np.cumsum([0] + lens[:-1])]
+    return ("many_segments", 16, starts, lens, offs, offs[-1] + lens[-1] + 9)
+
+
+def batch_plans(plans: List[Plan], b: int, planes: int = 16):
+    """The plans ``plans[i % len(plans)]`` of a batch of ``b`` images as
+    the batch kernels take them: ``(s (B,), starts, lens, offs (B,
+    planes), out_len)``, each plan padded with zero-length windows and
+    ``out_len`` the largest of the plans'."""
+    s = np.zeros(b, np.int64)
+    starts, lens, offs = (np.zeros((b, planes), np.int64) for _ in range(3))
+    out_len = 1
+    for i in range(b):
+        _, si, st, ln, of, ol = plans[i % len(plans)]
+        k = len(st)
+        s[i] = si
+        starts[i, :k], lens[i, :k], offs[i, :k] = st, ln, of
+        out_len = max(out_len, ol)
+    return s, starts, lens, offs, out_len
