@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Drives the port's encode/decode paths (raster, PEE, block_adaptive, the
-host embed route and the container batch path) through its hand-written
+host embed route, the container batch path and the STGV volume path, with
+capacity and analyze) through its hand-written
 CUDA kernels (K1 ``raster_embed`` and its batch form
 ``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
 K3 ``pee_embed``, K4 ``pee_extract``) and checks them, phase by phase; any
@@ -63,6 +64,18 @@ failure exits non-zero:
    ``extract_batch`` (one K2 launch) gives the payloads back, and
    ``decode_batch_containers`` over all of them, mixed, the payloads and
    originals;
+3v. the volume path (``tests/torch_port_cases.py::VOLUME_CASES``):
+   ``encode_volume`` + ``pack_volume`` on the 64x512x512 uint16 volume of
+   BASELINE.json config[3] under ``hybrid`` and ``multi_plane`` with the
+   304-bit text and with half its LSB capacity, PEE on 8x512x512 uint16
+   with 1 Mbit, ``block_adaptive`` on 8x512x512 uint16 and a 5x500x501
+   uint8 volume (raw maps): every STGV sha256 equal to the JAX package's,
+   ``unpack_volume`` gives the payload and the volume back and
+   ``extract_volume`` the payload; batch K1/K2 against their plain
+   versions at each raster volume's own plan; ``golden_block_volume.stgv``
+   decodes; ``capacity_report`` on ``mr512_u16`` and on the 64-slice volume
+   equals the JAX package's dict; ``analyze_pair`` (device moments, and the
+   float64 branch) equals the fixture's within rtol 1e-4 / 1e-12;
 4. the committed golden raster, block_adaptive and PEE containers decode
    on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
@@ -70,7 +83,10 @@ failure exits non-zero:
    ``--strategy block_adaptive`` and ``--device-policy host``, then
    ``encode-batch`` (the per-item runner, and ``--fused`` with the default
    strategy and with ``--strategy pee``) and ``decode-batch`` over three
-   of them: container, message and restored pixels exact;
+   of them: container, message and restored pixels exact; then
+   ``encode-volume`` / ``decode-volume --dicom`` on the 64-slice volume
+   (STGV equal to the JAX package's), ``capacity --json`` on it,
+   ``analyze --windowed-ssim``, ``analyze-batch`` and ``demo``;
 6. the launch counts of each path, set to 0 just before it and read just
    after it: the raster cases (K1 and K2 once per encode and decode), the
    PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
@@ -78,7 +94,11 @@ failure exits non-zero:
    encode, the host to decode), the host-route cases (no K1, K2 once per
    decode), the golden decodes and the batch paths (one batch K1 per
    device-route batch encode, one batch K2 per ``extract_batch``, none for
-   the host and block batches and the batch decode); every count must be
+   the host and block batches and the batch decode), the volumes (one
+   batch K1 per raster volume encode, one batch K2 per ``extract_volume``,
+   none for a raster or block ``unpack_volume``, K3 twice per equal-T
+   attempt group of the PEE volume, K4 twice per decode group), the
+   capacity probes (K3 twice each) and analyze (none); every count must be
    exactly what the path should launch, so every kernel runs on the path
    that needs it;
 7. times, printed and not asserted: per call of each kernel and of its
@@ -99,7 +119,11 @@ failure exits non-zero:
    their bounds; and the host walls of ``encode_batch_containers`` (under
    ``device_policy`` "device" and "host" without metrics, and the default
    config) and ``decode_batch_containers`` at B = 32 x 512x512 uint16 with
-   304 bits, with their stage means.
+   304 bits, with their stage means; the host walls of ``encode_volume`` +
+   ``pack_volume``, ``unpack_volume`` and ``extract_volume`` at the
+   64x512x512 uint16 hybrid volume with half its LSB capacity (median of
+   3, stage means), and batch K1/K2 at that volume's plan (per call,
+   device, queued with L2 flushed, bound).
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
 ``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
@@ -141,7 +165,7 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def phase(n: int, msg: str) -> None:
+def phase(n, msg: str) -> None:
     print(f"phase {n}: {msg}", flush=True)
 
 
@@ -771,7 +795,7 @@ def case_path(port, case) -> str:
         else "raster"
 
 
-def case_payload(case):
+def case_payload(case, dev="cuda"):
     from codec_tcc_tpu_torch.ops.decompose import decompose
     from codec_tcc_tpu_torch.ops.segments import usable_capacity_bits
     import torch
@@ -780,7 +804,7 @@ def case_payload(case):
     img = cases.image(case)
     if case.strategy == "pee":
         return img, 0, cases.payload_bits(case, 0)
-    s = decompose(torch.from_numpy(img).to("cuda"), 0.4, case.bits_stored).s
+    s = decompose(torch.from_numpy(img).to(dev), 0.4, case.bits_stored).s
     return img, s, cases.payload_bits(case, usable_capacity_bits(s, img.size,
                                                                  42))
 
@@ -942,13 +966,210 @@ def phase3_raster_batch(port, parity, counted, launches):
             expected, device_batches)
 
 
-def run_cli(tmp, env, args):
+def volume_inputs(vcase, vparity):
+    """A volume case's volume and payload, the payload checked against the
+    fixture's."""
+    import torch_port_cases as cases
+
+    want = vparity[vcase.name]
+    vol = cases.volume(vcase)
+    bits = cases.volume_payload_bits(vcase, want["lsb_bits"])
+    check(cases.sha256(bits) == want["payload_sha256"],
+          f"{vcase.name}: payload differs from the fixture's")
+    return vol, bits
+
+
+def volume_pee_expected(res, vol, t_min, dev):
+    """The K3 launches a PEE volume encode must make (one successful split:
+    2 per equal-T attempt group from the histogram's first T to each
+    slice's final T) and the K4 launches its decode must make (2 per
+    distinct T)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.io.container import parse, parse_pee_ext
+    from codec_tcc_tpu_torch.parallel import batch_pee
+
+    t_final = [parse_pee_ext(parse(c).meta.ext)[0] for c in res.containers]
+    max_val = (1 << (8 * vol.dtype.itemsize)) - 1
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(vol).to(dev), np.asarray(res.slice_bits), max_val,
+        t_min)
+    return (2 * cases.pee_attempt_groups(t_start, t_final),
+            2 * len(set(t_final)))
+
+
+def check_volume_metrics(tag, got, want) -> None:
+    """A volume's quality report against the JAX package's: the counts and
+    maxima exactly, the rest (float32 moment sums in another order) within
+    rtol 1e-4, the limit of ``tests/test_torch_volume.py``."""
+    check(got is not None and got.keys() == want.keys(),
+          f"{tag}: volume report keys {None if got is None else sorted(got)}"
+          f" != the JAX package's {sorted(want)}")
+    for k, v in want.items():
+        exact = k in ("changed_pixels", "max_abs_diff", "max_value")
+        check(got[k] == v if exact else abs(got[k] - v) <= 1e-4 * abs(v),
+              f"{tag}: volume report {k} {got[k]} != the JAX package's {v}")
+
+
+def phase3_volumes(port, vparity, counted, launches, dev, max_err):
+    """The volume path on the card, through ``encode_volume`` +
+    ``pack_volume``, ``unpack_volume`` and ``extract_volume``: every STGV
+    file equal to the JAX package's (the fixture's sha256), the payload and
+    the volume back exactly; batch K1/K2 against their plain versions at
+    each raster volume's own plan; the quality report of the
+    ``VOLUME_METRICS_CASES`` equal to the JAX package's;
+    ``golden_block_volume.stgv``;
+    ``capacity_report`` on a 512x512 image and on the 64-slice volume and
+    ``analyze_pair`` equal to the fixture's. Returns (text, the launches
+    each path must make, the inputs of the walls)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.parallel import volume as pv
+    from codec_tcc_tpu_torch.pipeline import _next_pow2
+
+    expected, walls = {}, {}
+    for vcase in cases.VOLUME_CASES:
+        want = vparity[vcase.name]
+        vol, bits = volume_inputs(vcase, vparity)
+        cfg = vcase.config(port.EncodeConfig)
+        tag = vcase.name
+
+        def encode():
+            res = pv.encode_volume(vol, bits, cfg, device=dev)
+            return res, pv.pack_volume(vol, res, cfg, device=dev)
+
+        res, blob = counted(f"{tag}_encode", encode)
+        check(res.s == want["s"] and res.threshold == want["threshold"],
+              f"{tag}: s={res.s} T={res.threshold} != the JAX package's "
+              f"{want['s']} / {want['threshold']}")
+        check(res.slice_bits.tolist() == want["slice_bits"],
+              f"{tag}: the payload split differs from the JAX package's")
+        check(cases.sha256(blob) == want["stgv_sha256"],
+              f"{tag}: STGV differs from the JAX package's")
+        if tag in cases.VOLUME_METRICS_CASES:
+            check_volume_metrics(tag, res.metrics, vparity[f"metrics_{tag}"])
+        payload, _, original = counted(
+            f"{tag}_unpack", lambda: pv.unpack_volume(blob, device=dev))
+        check(np.array_equal(payload, bits), f"{tag}: unpacked payload differs")
+        check(original is not None and np.array_equal(original, vol),
+              f"{tag}: restored volume differs")
+        if vcase.strategy == "pee":
+            k3, k4 = volume_pee_expected(res, vol, cfg.pee_threshold, dev)
+            expected[f"{tag}_encode"] = launches(pee_embed=k3)
+            expected[f"{tag}_unpack"] = launches(pee_extract=k4)
+        else:
+            raster = vcase.strategy != "block_adaptive"
+            expected[f"{tag}_encode"] = launches(
+                raster_embed_batch=int(raster))
+            # raster and block slices decode on the host
+            expected[f"{tag}_unpack"] = launches()
+        if vcase.strategy in ("hybrid", "multi_plane"):
+            got = counted(f"{tag}_extract", lambda: pv.extract_volume(
+                res.stego, res.plan, device=dev))
+            expected[f"{tag}_extract"] = launches(raster_extract_batch=1)
+            check(np.array_equal(got, bits),
+                  f"{tag}: extract_volume payload differs")
+            # the batch kernels at this volume's own plan, beside their
+            # plain versions (outside the counted windows)
+            plan = res.plan
+            vol_d = torch.from_numpy(vol).to(dev)
+            msgs = torch.from_numpy(np.ascontiguousarray(
+                tb._msg_prefix(plan))).to(dev)
+            args = (plan.starts, plan.lengths, plan.offsets, plan.s)
+            emit = vol[0].size % 8 == 0
+            k = rk.raster_embed_batch(vol_d, msgs, *args, emit_maps=emit,
+                                      max_s=res.s)
+            torch.cuda.synchronize()
+            p = rk.raster_embed_batch_plain(vol_d, msgs, *args,
+                                            emit_maps=emit, max_s=res.s)
+            e = max_abs_diff(k, p)
+            max_err["raster_embed_batch"] = max(
+                max_err["raster_embed_batch"], e)
+            check(e == 0, f"{tag}: batch K1 != plain at the volume plan")
+            out_len = _next_pow2(int(plan.payload_bits.max()))
+            k = rk.raster_extract_batch(k[0], *args, out_len)
+            torch.cuda.synchronize()
+            p = rk.raster_extract_batch_plain(p[0], *args, out_len)
+            e = max_abs_diff((k,), (p,))
+            max_err["raster_extract_batch"] = max(
+                max_err["raster_extract_batch"], e)
+            check(e == 0, f"{tag}: batch K2 != plain at the volume plan")
+            del vol_d, msgs, k, p
+        walls[tag] = (vol, bits, cfg, res, blob)
+        print(f"  {tag}: {vcase.depth}x{vcase.height}x{vcase.width} "
+              f"{vcase.dtype} {vcase.strategy} s={res.s} T={res.threshold} "
+              f"payload={bits.size} bits STGV={len(blob)} B sha256 ok, "
+              f"unpack ok", flush=True)
+
+    # the committed golden block_adaptive volume (host decode: no launch)
+    data = os.path.join(HERE, "tests", "data")
+    with open(os.path.join(data, "golden_block_volume.stgv"), "rb") as f:
+        golden = f.read()
+    with open(os.path.join(data, "golden_payload.bin"), "rb") as f:
+        gbits = np.unpackbits(np.frombuffer(f.read(), np.uint8))[:1200]
+    payload, _, original = counted(
+        "vol_golden_block", lambda: pv.unpack_volume(golden, device=dev))
+    expected["vol_golden_block"] = launches()
+    check(np.array_equal(payload, gbits), "golden_block_volume: payload")
+    check(np.array_equal(original, np.load(os.path.join(
+        data, "golden_block_volume.npy"))), "golden_block_volume: original")
+
+    # capacity_report: the K3 saturated probe, 2 launches each
+    for name, source in cases.CAPACITY_CASES:
+        if source in cases.BY_NAME:
+            case = cases.BY_NAME[source]
+            arr, bs = cases.image(case), case.bits_stored
+        else:
+            arr, bs = cases.volume(cases.VOLUMES_BY_NAME[source]), None
+        rep = counted(name, lambda: pipeline.capacity_report(
+            arr, bits_stored=bs, device=dev))
+        expected[name] = launches(pee_embed=2)
+        check(json.loads(json.dumps(rep)) == vparity[name],
+              f"{name}: capacity_report {rep} != the JAX package's "
+              f"{vparity[name]}")
+
+    # analyze_pair: device moments (data ranges) or float64 host (12/16)
+    for name, source, ranges in cases.ANALYZE_CASES:
+        case = cases.BY_NAME[source]
+        img, _, pay = case_payload(case, dev)
+        stego = port.encode_array(img, pay, case.config(port.EncodeConfig),
+                                  bits_stored=case.bits_stored,
+                                  device=dev).stego
+        check(cases.sha256(stego) == vparity[name]["stego_sha256"],
+              f"{name}: stego differs from the JAX package's")
+        rep = counted(name, lambda: port.analyze_pair(
+            img, stego, device=dev, **cases.ANALYZE_RANGES[ranges]))
+        expected[name] = launches()
+        ref = vparity[name]["report"]
+        check(rep.keys() == ref.keys(), f"{name}: report keys differ")
+        for k, v in ref.items():
+            # float32 moments in another order: rtol 1e-4; the normalised
+            # branch is the same float64 numpy code, whose sums may round
+            # in the last place on another numpy build: rtol 1e-12
+            tol = (1e-12 if ranges == "12_16" else 1e-4) * abs(v)
+            check(abs(rep[k] - v) <= tol,
+                  f"{name}: {k} {rep[k]} != the JAX package's {v}")
+    return (f"{len(cases.VOLUME_CASES)} volumes' STGV byte-identical to the "
+            f"JAX package, unpacked and extracted exactly; "
+            f"{len(cases.VOLUME_METRICS_CASES)} volume quality reports, "
+            f"golden_block_volume decodes; capacity_report and analyze_pair "
+            f"equal to the fixture's",
+            expected, walls)
+
+
+def run_cli(tmp, env, args) -> str:
     proc = subprocess.run(
         [sys.executable, "-m", "codec_tcc_tpu_torch", *args],
         cwd=tmp, env=env, capture_output=True, text=True, timeout=300,
     )
     check(proc.returncode == 0,
           f"CLI {args[0]} failed:\n{proc.stdout}\n{proc.stderr}")
+    return proc.stdout
 
 
 def phase5_cli(parity) -> None:
@@ -1024,6 +1245,68 @@ def phase5_cli(parity) -> None:
                   == parity["mr512_u16"]["container_sha256"],
                   "CLI encode-batch (runner) container differs from the JAX "
                   "package's")
+
+
+def phase5_cli_volume(vparity) -> None:
+    """encode-volume (default strategy, multi_plane, with the text: the
+    fixture's ``vol64_u16_multi_text``) and decode-volume --dicom on the
+    64-slice volume, capacity --json on it, analyze (with --windowed-ssim,
+    its report held against the JAX CLI's) and analyze-batch on a DICOM
+    pair, demo; each a subprocess on the card."""
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.io import dicom
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    vol = cases.volume(cases.VOLUMES_BY_NAME["vol64_u16_multi_text"])
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(os.path.join(tmp, "vol.npy"), vol)
+        run_cli(tmp, env, ["encode-volume", "vol.npy", "--output", "v.stgv",
+                           "--message", cases.TEXT_PAYLOAD])
+        with open(os.path.join(tmp, "v.stgv"), "rb") as f:
+            check(cases.sha256(f.read())
+                  == vparity["vol64_u16_multi_text"]["stgv_sha256"],
+                  "CLI encode-volume STGV differs from the JAX package's")
+        run_cli(tmp, env, ["decode-volume", "v.stgv", "--output-prefix",
+                           "dec", "--dicom"])
+        with open(os.path.join(tmp, "dec_payload.bin"), "rb") as f:
+            check(f.read() == cases.TEXT_PAYLOAD.encode(),
+                  "CLI decode-volume payload differs")
+        check(np.array_equal(np.load(os.path.join(tmp, "dec_original.npy")),
+                             vol), "CLI decode-volume original differs")
+        restored, _ = dicom.load_image(os.path.join(tmp, "dec_original.dcm"))
+        check(np.array_equal(restored, vol),
+              "CLI decode-volume DICOM original differs")
+        out = run_cli(tmp, env, ["capacity", "vol.npy", "--json"])
+        rep = json.loads(out.strip().splitlines()[-1])
+        check(rep == {"input": "vol.npy", **vparity["cap_vol64_u16"]},
+              f"CLI capacity --json {rep} differs from the JAX package's")
+        cases.cli_analyze_pair(dicom.save_image, tmp)
+        out = run_cli(tmp, env, ["analyze", "o.dcm", "s.dcm",
+                                 "--windowed-ssim", "--report", "a.json"])
+        n = cases.image(cases.BY_NAME["mr512_u16"]).size
+        check(f"pixels changed       : {n} (100.000%)" in out,
+              f"CLI analyze output differs:\n{out}")
+        with open(os.path.join(tmp, "a.json"), encoding="utf-8") as f:
+            rep = json.load(f)
+        want = vparity[cases.CLI_ANALYZE_CASE]["report"]
+        check(rep.keys() == want.keys(),
+              f"CLI analyze report keys {sorted(rep)} != {sorted(want)}")
+        for k, v in want.items():
+            # windowed SSIM: float32 box means in another order, the limits
+            # of tests/test_torch_analyze.py (rtol 1e-5, atol 1e-6); the
+            # global report: float32 moments, rtol 1e-4
+            tol = (1e-5 * abs(v) + 1e-6 if k == "ssim_windowed"
+                   else 0 if isinstance(v, str) else 1e-4 * abs(v))
+            check(rep[k] == v if isinstance(v, str) else abs(rep[k] - v) <= tol,
+                  f"CLI analyze {k} {rep[k]} != the JAX CLI's {v}")
+        run_cli(tmp, env, ["analyze-batch", "o.dcm", "s.dcm", "o.dcm",
+                           "o.dcm", "--report", "r.json"])
+        out = run_cli(tmp, env, ["demo", "--input", "o.dcm", "--output-dir",
+                                 "demo"])
+        check("original restored    : OK" in out, f"CLI demo:\n{out}")
 
 
 def cycle_report(label: str, cycle, reps: int) -> None:
@@ -1477,6 +1760,100 @@ def time_batch_walls(port, device_batches) -> None:
               flush=True)
 
 
+def time_volume_walls(walls) -> None:
+    """Host walls, median of 3 after a warm-up, with the stage means of
+    each, at the 64x512x512 uint16 hybrid volume with half its LSB
+    capacity: ``encode_volume`` + ``pack_volume``, ``unpack_volume`` and
+    ``extract_volume``."""
+    import numpy as np
+    from codec_tcc_tpu_torch.parallel import volume as pv
+    from codec_tcc_tpu_torch.profiling import get_profiler
+
+    vol, bits, cfg, res, blob = walls["vol64_u16_hybrid_half"]
+    calls = {
+        "encode_volume + pack_volume": lambda: pv.pack_volume(
+            vol, pv.encode_volume(vol, bits, cfg, device="cuda"), cfg,
+            device="cuda"),
+        "unpack_volume": lambda: pv.unpack_volume(blob, device="cuda"),
+        "extract_volume": lambda: pv.extract_volume(res.stego, res.plan,
+                                                    device="cuda"),
+    }
+    profiler = get_profiler()
+    for what, fn in calls.items():
+        times, stages = [], {}
+        for rep in range(4):
+            profiler.reset()
+            t0 = time.perf_counter()
+            out = fn()
+            wall = (time.perf_counter() - t0) * 1e3
+            if rep:                     # the first call warms up
+                times.append(wall)
+                for name, v in profiler.report().items():
+                    stages.setdefault(name, []).append(1e3 * v["wall_s"])
+        if what == "encode_volume + pack_volume":
+            check(out == blob, "volume walls: the STGV changed")
+        elif what == "extract_volume":
+            check(np.array_equal(out, bits), "volume walls: extract differs")
+        per = {name: round(statistics.mean(v), 3)
+               for name, v in stages.items()}
+        med = statistics.median(times)
+        print(f"  volume 64x512x512 u16 hybrid, {bits.size} bits, {what}: "
+              f"{med:.2f} ms host wall (median of 3; "
+              f"{vol.nbytes / med / 1e3:.1f} MB/s of volume); stage means "
+              f"(ms): {per}", flush=True)
+    time_volume_kernels(vol, bits, res)
+
+
+def time_volume_kernels(vol, bits, res) -> None:
+    """Batch K1 (``encode_batch``: no maps) and batch K2
+    (``extract_volume``'s bucketed ``out_len``) at the 64-slice volume's
+    own plan: per call (CUDA events, wrapper and table upload included),
+    device time (profiler), queued after a spin with L2 flushed, and the
+    bound from the bytes each must move."""
+    import numpy as np
+    import torch
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.pipeline import _next_pow2
+
+    plan = res.plan
+    d, n = vol.shape[0], vol[0].size
+    vol_d = torch.from_numpy(vol).to("cuda")
+    stego_d = torch.from_numpy(res.stego).to("cuda")
+    msgs = torch.from_numpy(np.ascontiguousarray(
+        tb._msg_prefix(plan))).to("cuda")
+    args = (plan.starts, plan.lengths, plan.offsets, plan.s)
+    out_len = _next_pow2(int(plan.payload_bits.max()))
+    calls = {
+        "K1": lambda: rk.raster_embed_batch(vol_d, msgs, *args,
+                                            emit_maps=False),
+        "K2": lambda: rk.raster_extract_batch(stego_d, *args, out_len),
+    }
+    # K1 reads every slice and the message bits its windows cover and
+    # writes every stego; K2 reads the pixels its windows cover up to
+    # out_len and writes D x out_len bits
+    k1_bytes = k1_ops = k2_bytes = 0
+    for i in range(d):
+        si = int(plan.s[i])
+        nb, ops = k1_work(n, vol.itemsize, si, plan.lengths[i],
+                          int(plan.payload_bits[i]))
+        k1_bytes += nb - si * n // 8
+        k1_ops += ops - si * n
+        covered = sum(min(int(plan.lengths[i][p]), n,
+                          max(out_len - int(plan.offsets[i][p]), 0))
+                      for p in range(si))
+        k2_bytes += vol.itemsize * covered + out_len
+    bounds = {"K1": bound(k1_bytes, k1_ops),
+              "K2": bound(k2_bytes, 3 * d * out_len)}
+    for name, fn in calls.items():
+        print(f"  volume 64x512x512 u16 batch {name} at the {bits.size}-bit "
+              f"plan: per call {cuda_median_ms(fn):.4f} ms, device "
+              f"{fmt_ms(device_ms(fn))}, queued after a spin with L2 "
+              f"flushed {queued_ms(fn, cold=True):.4f} ms, bound "
+              f"{bounds[name][0]:.4f} ms "
+              f"({k1_bytes if name == 'K1' else k2_bytes} B)", flush=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1607,6 +1984,13 @@ def main() -> int:
              f"four 512x512 ({batch_txt}) equal to single-image encodes; "
              f"{raster_batch_txt}")
 
+    # -- phase 3v: volumes, capacity and analyze -----------------------------
+    vparity = cases.load_parity_volumes()
+    volume_txt, volume_expected, volume_walls = phase3_volumes(
+        port, vparity, counted, launches, dev, max_err=max_err)
+    expected.update(volume_expected)
+    phase("3v", volume_txt)
+
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
     with open(os.path.join(data, "golden_payload.bin"), "rb") as f:
@@ -1635,10 +2019,13 @@ def main() -> int:
 
     # -- phase 5: the CLI in subprocesses ------------------------------------
     phase5_cli(parity)
+    phase5_cli_volume(vparity)
     phase(5, "CLI encode/decode on the card (hybrid, pee, block_adaptive and "
-             "--device-policy host) and encode-batch (runner, --fused hybrid "
-             "and pee) / decode-batch: container, message and original "
-             "exact")
+             "--device-policy host), encode-batch (runner, --fused hybrid "
+             "and pee) / decode-batch, encode-volume / decode-volume "
+             "--dicom on the 64-slice volume: container, message and "
+             "original exact; capacity --json equal to the JAX package's; "
+             "analyze, analyze-batch and demo run")
 
     # -- phase 6: each path's launches, read right after it ran --------------
     for path, counts in paths.items():
@@ -1657,6 +2044,7 @@ def main() -> int:
     time_routes(port, results)
     batch = time_batch_kernels(device_batches, dev)
     time_batch_walls(port, device_batches)
+    time_volume_walls(volume_walls)
     cfg = port.EncodeConfig()
 
     def cycle_of(name, config):

@@ -1,19 +1,25 @@
-# Port of codec_tcc_tpu/cli.py: the encode, decode, encode-batch and
-# decode-batch subcommands, with the same flags, output lines, files and
-# exit codes plus --device. _load_any and load_fused_buckets are the same
-# code; the batch commands are the same code but for the device they pass.
-"""Command-line interface: ``encode`` / ``decode`` / ``encode-batch`` /
-``decode-batch`` subcommands.
+# Port of codec_tcc_tpu/cli.py: the encode, decode, analyze,
+# analyze-batch, capacity, demo, encode-volume, decode-volume, encode-batch
+# and decode-batch subcommands, with the same flags, output lines, files and
+# exit codes plus --device. _load_any, load_fused_buckets and _load_volume
+# are the same code; the batch, volume, capacity, analyze and demo commands
+# are the same code but for the device they pass. demo takes its --input
+# explicitly (the JAX CLI defaults it to the reference's bundled DICOM).
+"""Command-line interface.
 
     python -m codec_tcc_tpu_torch encode in.dcm out.stgc --message "..." [--beta ...]
     python -m codec_tcc_tpu_torch encode in.dcm out.stgc --message "..." --strategy pee
     python -m codec_tcc_tpu_torch decode out.stgc --output-prefix decoded
+    python -m codec_tcc_tpu_torch analyze original.dcm stego.dcm [--windowed-ssim]
+    python -m codec_tcc_tpu_torch capacity in.dcm [--json]
+    python -m codec_tcc_tpu_torch encode-volume vol.npy --output v.stgv --message "..."
+    python -m codec_tcc_tpu_torch decode-volume v.stgv --output-prefix vol [--dicom]
     python -m codec_tcc_tpu_torch encode-batch a.dcm b.dcm --output-dir out --message "..." [--fused]
     python -m codec_tcc_tpu_torch decode-batch out/*.stgc --output-dir dec
 
 All run on ``--device cuda`` (the default, through the hand-written
 kernels) or ``--device cpu`` (their plain torch versions). The JAX CLI's
-other subcommands are still to be ported (ROADMAP.md, queue 1).
+``serve`` and ``doctor`` are still to be ported (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -84,6 +90,102 @@ def _build_parser() -> argparse.ArgumentParser:
     dec.add_argument("--device", default="cuda",
                      help="torch device: cuda (kernels) or cpu (plain torch)")
     dec.add_argument("--report", help="write a JSON run report here")
+
+    ana = sub.add_parser("analyze", help="quality metrics between two images")
+    ana.add_argument("original")
+    ana.add_argument("stego")
+    ana.add_argument("--windowed-ssim", action="store_true",
+                     help="also compute mean windowed SSIM")
+    ana.add_argument("--bits-stored-range", action="store_true",
+                     help="use BitsStored-derived value ranges for DICOM "
+                          "inputs (the reference mse.py CLI's policy) "
+                          "instead of the data maxima")
+    ana.add_argument("--device", default="cuda",
+                     help="torch device: cuda or cpu")
+    ana.add_argument("--report", help="write a JSON run report here")
+
+    anb = sub.add_parser(
+        "analyze-batch",
+        help="quality metrics for many (original, stego) pairs "
+             "(the reference's analisar_multiplos_pares, mse.py:265-295)",
+    )
+    anb.add_argument(
+        "pairs", nargs="+",
+        help="original1 stego1 [original2 stego2 ...] (alternating paths)",
+    )
+    anb.add_argument("--windowed-ssim", action="store_true")
+    anb.add_argument("--device", default="cuda",
+                     help="torch device: cuda or cpu")
+    anb.add_argument("--report", help="write the aggregate JSON report here")
+
+    cap = sub.add_parser(
+        "capacity",
+        help="usable payload capacity of an image (or volume) per strategy, "
+             "before encoding anything",
+    )
+    cap.add_argument("input", help="DICOM / PNG / .npy image or volume")
+    cap.add_argument("--beta", type=float, default=0.4,
+                     help="entropy retention target (reference default 0.4)")
+    cap.add_argument("--seed", type=int, default=42)
+    cap.add_argument("--nbits", type=int, default=None,
+                     help="bit planes to consider (default: DICOM BitsStored)")
+    cap.add_argument("--ignore-bits-stored", action="store_true")
+    cap.add_argument("--pee-threshold", type=int, default=2)
+    cap.add_argument("--device", default="cuda",
+                     help="torch device: cuda (kernels) or cpu (plain torch)")
+    cap.add_argument("--json", action="store_true",
+                     help="machine-readable output")
+
+    demo = sub.add_parser(
+        "demo",
+        help="encode-then-decode self check (the reference's main() demo, "
+             "src/codec.py:847-926, which here round-trips)",
+    )
+    demo.add_argument("--input", required=True, help="input DICOM file")
+    demo.add_argument("--output-dir", default="output")
+    demo.add_argument("--codec", default="deflate")
+    demo.add_argument("--device", default="cuda",
+                      help="torch device: cuda (kernels) or cpu (plain torch)")
+
+    venc = sub.add_parser(
+        "encode-volume",
+        help="embed one payload across a volume (STGV container: one global "
+             "cut point, capacity-aware per-slice split, per-slice recovery)",
+    )
+    venc.add_argument(
+        "inputs", nargs="+",
+        help="one 3-D .npy volume, or 2-D slice files (DICOM/PNG) in order",
+    )
+    venc.add_argument("--output", required=True, help="output .stgv file")
+    gv = venc.add_mutually_exclusive_group(required=True)
+    gv.add_argument("--message", help="text payload")
+    gv.add_argument("--payload-file", help="binary payload file")
+    venc.add_argument("--beta", type=float, default=0.4)
+    venc.add_argument("--codec", default="deflate",
+                      help=f"transport codec (available: {available_names()})")
+    venc.add_argument("--seed", type=int, default=42)
+    venc.add_argument("--strategy", default="multi_plane",
+                      choices=["multi_plane", "hybrid", "block_adaptive",
+                               "pee"],
+                      help="multi_plane/hybrid/block_adaptive: global cut "
+                           "point + per-slice LSB placement (raster 0 / "
+                           "variance-chosen start / variance-ranked tiles); "
+                           "pee: per-slice-threshold prediction-error "
+                           "expansion")
+    venc.add_argument("--device", default="cuda",
+                      help="torch device: cuda (kernels) or cpu (plain torch)")
+    venc.add_argument("--report", help="write a JSON run report here")
+
+    vdec = sub.add_parser(
+        "decode-volume", help="extract payload + volumes from an STGV file"
+    )
+    vdec.add_argument("input", help=".stgv file")
+    vdec.add_argument("--output-prefix", default="volume")
+    vdec.add_argument("--dicom", action="store_true",
+                      help="also write stego/restored volumes as multiframe "
+                           "DICOM files (<prefix>_stego.dcm / _original.dcm)")
+    vdec.add_argument("--device", default="cuda",
+                      help="torch device: cuda (kernels) or cpu (plain torch)")
 
     benc = sub.add_parser(
         "encode-batch",
@@ -255,6 +357,237 @@ def cmd_decode(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_capacity(args: argparse.Namespace) -> int:
+    """Usable payload capacity per strategy (see pipeline.capacity_report)."""
+    import json as json_mod
+
+    from . import pipeline
+
+    arr, bits_stored = pipeline.load_input(args.input)
+    out = {"input": args.input}
+    out.update(pipeline.capacity_report(
+        arr, bits_stored=bits_stored, beta=args.beta, seed=args.seed,
+        nbits=args.nbits, use_bits_stored=not args.ignore_bits_stored,
+        pee_threshold=args.pee_threshold, device=args.device,
+    ))
+
+    if args.json:
+        print(json_mod.dumps(out))
+        return 0
+    geom = "x".join(str(v) for v in arr.shape)
+    bs = f" (BitsStored {bits_stored})" if bits_stored else ""
+    print(f"image                : {args.input}  {geom} {arr.dtype}{bs}")
+    print(f"cut point s          : {out['cut_point_s']} "
+          f"(beta={args.beta}, nbits={out['nbits']})")
+    print("usable payload capacity:")
+    print(f"  multi_plane/hybrid/block_adaptive : {out['lsb_bits']} bits "
+          f"({out['lsb_bits'] // 8} bytes)")
+    print(f"  pee (two-pass, T={out['pee_threshold']})               : "
+          f"{out['pee_bits']} bits ({out['pee_bits'] // 8} bytes)")
+    print(f"  [reference s*H*W rule claims {out['reference_rule_bits']} "
+          f"bits but oversubscribes plane 0]")
+    return 0
+
+
+def cmd_analyze(args: argparse.Namespace) -> int:
+    from . import pipeline
+
+    if args.bits_stored_range:
+        # the reference mse.py CLI derives ranges from carregar_imagem's
+        # BitsStored for DICOM inputs (src/mse.py:18-37)
+        from .analyze import load_image
+
+        orig, max_o, _ = load_image(args.original)
+        stego, max_s, _ = load_image(args.stego)
+        if orig.shape != stego.shape:
+            raise ValueError(f"Shape mismatch: {orig.shape} vs {stego.shape}")
+        rep = pipeline.analyze_pair(orig, stego, range_a=max_o, range_b=max_s,
+                                    device=args.device)
+        ssim_range = max(float(max_o), float(max_s))
+    else:
+        # multiframe DICOM pairs analyze as FULL volumes here (all frames in
+        # one reduction); the --bits-stored-range branch keeps the reference
+        # mse.py's first-frame-only behavior (src/mse.py:18-37)
+        orig = _load_any(args.original)
+        stego = _load_any(args.stego)
+        if orig.shape != stego.shape:
+            raise ValueError(f"Shape mismatch: {orig.shape} vs {stego.shape}")
+        rep = pipeline.analyze_pair(orig, stego, device=args.device)
+        ssim_range = max(float(orig.max()), float(stego.max()))
+    if args.windowed_ssim:
+        from .ops.metrics import ssim_windowed
+
+        if orig.ndim != 2:
+            raise ValueError(
+                "--windowed-ssim is 2-D only; analyze frames individually"
+            )
+        rep["ssim_windowed"] = float(ssim_windowed(orig, stego, ssim_range,
+                                                   device=args.device))
+        print(f"SSIM (windowed)      : {rep['ssim_windowed']:.6f}")
+    print(f"MSE                  : {rep['mse']:.6f}")
+    print(f"PSNR                 : {rep['psnr']:.2f} dB")
+    print(f"SSIM (global)        : {rep['ssim']:.6f}")
+    print(f"mean abs diff        : {rep['mean_abs_diff']:.4f}")
+    print(f"max abs diff         : {rep['max_abs_diff']:.0f}")
+    print(f"pixels changed       : {int(rep['changed_pixels'])}"
+          f" ({rep['changed_percent']:.3f}%)")
+    from .analyze import _verdicts
+
+    quality, structure = _verdicts(rep)
+    print(f"verdict              : {quality}; {structure}")
+    if args.report:
+        write_json_report(args.report, {"command": "analyze", **rep})
+    return 0
+
+
+def cmd_analyze_batch(args: argparse.Namespace) -> int:
+    import os
+
+    from .analyze import QualityAnalyzer
+
+    if len(args.pairs) % 2:
+        print("error: pairs must alternate original stego paths", file=sys.stderr)
+        return 2
+    analyzer = QualityAnalyzer(windowed_ssim=args.windowed_ssim,
+                               device=args.device)
+    triples = [
+        (args.pairs[i], args.pairs[i + 1],
+         os.path.splitext(os.path.basename(args.pairs[i]))[0])
+        for i in range(0, len(args.pairs), 2)
+    ]
+    results = analyzer.analyze_pairs(triples)
+    print(f"{'NAME':<20} {'MSE':<12} {'PSNR':<10} {'SSIM':<10} {'CHANGED%':<9}")
+    print("-" * 64)
+    for r in results:
+        m = r.metrics
+        psnr = f"{m['psnr']:.2f}" if m["psnr"] != float("inf") else "inf"
+        print(f"{r.name:<20} {m['mse']:<12.6f} {psnr:<10} "
+              f"{m['ssim']:<10.6f} {m['changed_percent']:<9.3f}")
+    if results:
+        s = analyzer.summary()
+        print(f"\nmean MSE {s['mse_mean']:.6f}  "
+              f"mean PSNR {s.get('psnr_mean', float('inf')):.2f} dB  "
+              f"mean SSIM {s['ssim_mean']:.6f}  ({int(s['count'])} pairs)")
+    if args.report:
+        analyzer.report(args.report)
+    return 0 if results else 1
+
+
+def cmd_demo(args: argparse.Namespace) -> int:
+    """The reference demo flow (beta=0.4, hybrid embed with 16px search
+    blocks, the same example message) followed by an immediate decode and
+    verification, which the reference's own demo never passed (defect B1)."""
+    import os
+
+    from . import pipeline
+    from .config import EncodeConfig
+
+    os.makedirs(args.output_dir, exist_ok=True)
+    message = "Mensagem de teste para esteganografia!"
+    cfg = EncodeConfig(beta=0.4, strategy="hybrid", search_block_size=16,
+                       codec=args.codec)
+    res = pipeline.encode_dicom(args.input, message, cfg, device=args.device)
+    out_bin = os.path.join(args.output_dir, "example.stgc")
+    with open(out_bin, "wb") as f:
+        f.write(res.container)
+    print(f"encoded {args.input} -> {out_bin} "
+          f"(s={res.s}, {len(res.container)} bytes)")
+
+    dec = pipeline.decode_file(out_bin, device=args.device)
+    ok_msg = dec.message == message
+    orig, _ = dicom.load_image(args.input)
+    ok_img = dec.original is not None and bool(np.array_equal(dec.original, orig))
+    print(f"decoded message      : {dec.message!r}")
+    print(f"message round-trip   : {'OK' if ok_msg else 'FAILED'}")
+    print(f"original restored    : {'OK' if ok_img else 'FAILED'}")
+    dicom.save_image(dec.stego, os.path.join(args.output_dir, "decoded_stego.dcm"))
+    return 0 if (ok_msg and ok_img) else 1
+
+
+def _load_volume(paths: List[str]) -> np.ndarray:
+    if len(paths) == 1 and paths[0].lower().endswith(".npy"):
+        vol = np.load(paths[0])
+        if vol.ndim != 3:
+            raise ValueError(f"expected a 3-D volume, got shape {vol.shape}")
+        return vol
+    slices = [_load_any(p) for p in paths]
+    if len(slices) == 1 and slices[0].ndim == 3:
+        return slices[0]          # one multiframe DICOM IS the volume
+    for p, s in zip(paths, slices):
+        if s.ndim != 2:
+            raise ValueError(
+                f"{p} is a {s.ndim}-D image; mix of multiframe and "
+                f"single-frame inputs is not supported"
+            )
+    shapes = {s.shape for s in slices}
+    if len(shapes) != 1:
+        raise ValueError(f"slice shapes differ: {sorted(shapes)}")
+    return np.stack(slices)
+
+
+def cmd_encode_volume(args: argparse.Namespace) -> int:
+    from .config import EncodeConfig
+    from .parallel import volume as volume_par
+
+    if args.message is not None:
+        payload: object = args.message
+    else:
+        with open(args.payload_file, "rb") as f:
+            payload = f.read()
+    vol = _load_volume(args.inputs)
+    cfg = EncodeConfig(beta=args.beta, codec=args.codec, seed=args.seed,
+                       strategy=args.strategy)
+    result = volume_par.encode_volume(vol, payload, cfg, device=args.device)
+    blob = volume_par.pack_volume(vol, result, cfg, device=args.device)
+    with open(args.output, "wb") as f:
+        f.write(blob)
+    print(f"volume               : {vol.shape[0]} x {vol.shape[1]}x{vol.shape[2]}")
+    if result.threshold is not None:
+        print(f"PEE threshold T      : {result.threshold}")
+    else:
+        print(f"global cut point s   : {result.s}")
+    print(f"payload bits         : {int(result.slice_bits.sum())}")
+    print(f"container bytes      : {len(blob)}")
+    if result.metrics:
+        print(f"PSNR (volume)        : {result.metrics['psnr']:.2f} dB")
+    if args.report:
+        write_json_report(args.report, {
+            "command": "encode-volume", "output": args.output,
+            "slices": int(vol.shape[0]), "s": result.s,
+            "strategy": args.strategy, "pee_threshold": result.threshold,
+            "payload_bits": int(result.slice_bits.sum()),
+            "container_bytes": len(blob), "metrics": result.metrics,
+        })
+    return 0
+
+
+def cmd_decode_volume(args: argparse.Namespace) -> int:
+    from .parallel import volume as volume_par
+    from .utils import bits as bit_utils
+
+    with open(args.input, "rb") as f:
+        data = f.read()
+    payload_bits, stego, original = volume_par.unpack_volume(
+        data, device=args.device)
+    payload = bit_utils.bits_to_bytes(payload_bits)
+    with open(f"{args.output_prefix}_payload.bin", "wb") as f:
+        f.write(payload)
+    np.save(f"{args.output_prefix}_stego.npy", stego)
+    print(f"payload bits         : {payload_bits.size}")
+    print(f"payload written to   : {args.output_prefix}_payload.bin")
+    print(f"stego volume         : {args.output_prefix}_stego.npy {stego.shape}")
+    if original is not None:
+        np.save(f"{args.output_prefix}_original.npy", original)
+        print(f"restored original    : {args.output_prefix}_original.npy")
+    if args.dicom:
+        dicom.save_image(stego, f"{args.output_prefix}_stego.dcm")
+        print(f"stego DICOM          : {args.output_prefix}_stego.dcm")
+        if original is not None:
+            dicom.save_image(original, f"{args.output_prefix}_original.dcm")
+            print(f"original DICOM       : {args.output_prefix}_original.dcm")
+    return 0
+
+
 def cmd_encode_batch(args: argparse.Namespace) -> int:
     from .config import EncodeConfig
     from .parallel.runner import BatchRunner
@@ -401,6 +734,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     handler = {
         "encode": cmd_encode,
         "decode": cmd_decode,
+        "analyze": cmd_analyze,
+        "analyze-batch": cmd_analyze_batch,
+        "capacity": cmd_capacity,
+        "demo": cmd_demo,
+        "encode-volume": cmd_encode_volume,
+        "decode-volume": cmd_decode_volume,
         "encode-batch": cmd_encode_batch,
         "decode-batch": cmd_decode_batch,
     }[args.command]

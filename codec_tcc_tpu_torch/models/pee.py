@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
+from ..device import upload
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
@@ -93,7 +94,7 @@ def encode_pee_array(
     bits_stored: Optional[int] = None,
     device,
 ):
-    from ..pipeline import EncodeResult, _as_payload_bits, _upload
+    from ..pipeline import EncodeResult, _as_payload_bits
 
     image = np.asarray(image)
     if image.ndim != 2 or image.dtype not in (np.uint8, np.uint16):
@@ -105,7 +106,7 @@ def encode_pee_array(
 
     msg_bits = _as_payload_bits(payload)
     total_bits = int(msg_bits.size)
-    image_dev = _upload(image, device)[None]
+    image_dev = upload(image, device)[None]
     msg_dev = message_buffer([msg_bits], device)
     want_dev = torch.tensor([total_bits], dtype=torch.int32, device=device)
 
@@ -251,7 +252,7 @@ def parse_pee_container_parts(cont: container_io.Container):
 def decode_pee_container(
     cont: container_io.Container, *, restore_original: bool = True, device
 ):
-    from ..pipeline import DecodeResult, _upload
+    from ..pipeline import DecodeResult
 
     meta = cont.meta
     (t, passes, nproc0, nproc1, bits0, bits1), overflow = (
@@ -275,7 +276,7 @@ def decode_pee_container(
             device=device,
         )
         img, b1, n1, b0, n0 = pee_kernels.extract_both_passes(
-            _upload(stego, device)[None], _upload(overflow, device)[None],
+            upload(stego, device)[None], upload(overflow, device)[None],
             nproc[0], nproc[1], t, out_len,
         )
         n0, n1 = (int(v) for v in torch.cat([n0, n1]).cpu())

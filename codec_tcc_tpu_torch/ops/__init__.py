@@ -16,5 +16,7 @@ Modules:
                            chains
 * :mod:`.pee_kernels`    — CUDA kernels K3/K4, their wrappers and counts
 * :mod:`.kernel_library` — builds and binds the kernels' one library
-* :mod:`.metrics`        — fused quality reductions
+* :mod:`.metrics`        — fused quality reductions, the float64 host
+                           report, windowed SSIM
+* :mod:`.bitplanes`      — bit-plane split / merge
 """

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
+from ..device import to_device, upload
 from ..errors import CapacityError
 from ..ops import decompose as decompose_ops
 from ..ops import embed as embed_ops
@@ -56,16 +57,6 @@ __all__ = [
 ]
 
 
-def _on(arr, dev: torch.device) -> torch.Tensor:
-    """A batch as a tensor on ``dev``: tensors move there, numpy arrays
-    upload."""
-    from ..pipeline import _upload
-
-    if isinstance(arr, torch.Tensor):
-        return arr.to(dev)
-    return _upload(np.asarray(arr), dev)
-
-
 def _synchronize(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.current_stream(dev).synchronize()
@@ -77,7 +68,7 @@ def batched_histograms(images, nbins: int, *, device="cuda") -> np.ndarray:
     ``device`` first); returned as numpy int64."""
     from .batch_pee import _resolve
 
-    imgs = images if isinstance(images, torch.Tensor) else _on(
+    imgs = images if isinstance(images, torch.Tensor) else to_device(
         images, _resolve(device, None))
     return torch.stack([
         hist_ops.value_histogram(im, nbins) for im in imgs
@@ -289,9 +280,9 @@ def encode_batch(
     from .batch_pee import _resolve
 
     dev = _resolve(device, mesh)
-    imgs = _on(images, dev)
+    imgs = to_device(images, dev)
     stego, _ = raster_kernels.raster_embed_batch(
-        imgs, _on(_msg_prefix(plan), dev), plan.starts, plan.lengths,
+        imgs, to_device(_msg_prefix(plan), dev), plan.starts, plan.lengths,
         plan.offsets, plan.s, emit_maps=False,
     )
     return stego
@@ -311,7 +302,7 @@ def extract_aligned_batch(
     from .batch_pee import _resolve
 
     dev = _resolve(device, mesh)
-    st = _on(stego, dev)
+    st = to_device(stego, dev)
     b = st.shape[0]
     n = int(np.prod(st.shape[1:]))
     nbits = plan.nbits
@@ -345,7 +336,7 @@ def extract_batch(
     out_len = out_len or plan.lpad
     pad_len = _next_pow2(max(out_len, 1))
     bits = raster_kernels.raster_extract_batch(
-        _on(stego, dev), plan.starts, plan.lengths, plan.offsets, plan.s,
+        to_device(stego, dev), plan.starts, plan.lengths, plan.offsets, plan.s,
         pad_len,
     )
     return bits.cpu().numpy()[:, :out_len]
@@ -366,7 +357,7 @@ def _batch_quality_reports(images, stego, dev: torch.device) -> list:
     (numpy inputs are uploaded there)."""
     from ..ops import metrics as metric_ops
 
-    stats = metric_ops.pair_stats(_on(images, dev), _on(stego, dev))
+    stats = metric_ops.pair_stats(to_device(images, dev), to_device(stego, dev))
     stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
     return [
         metric_ops.quality_report({k: v[i] for k, v in stats_np.items()})
@@ -403,12 +394,12 @@ def hybrid_base_offsets(images, h: int, w: int, search_block: int, *,
     """Per-image variance-chosen hybrid start offsets: the plane-0 tile
     popcounts of the whole batch in one pass on the device that holds it (a
     numpy batch is uploaded to ``device`` first), then the exact host
-    ranking. Shared by the batch planner and, later, the volume encoder:
+    ranking. Shared by the batch planner and the volume encoder:
     both write the offset into container metadata."""
     from ..ops import blocks as block_ops
     from .batch_pee import _resolve
 
-    imgs = images if isinstance(images, torch.Tensor) else _on(
+    imgs = images if isinstance(images, torch.Tensor) else to_device(
         images, _resolve(device, None))
     counts = block_ops.block_bit_counts_all(
         imgs, 1, search_block)[:, 0].cpu().numpy()
@@ -443,7 +434,7 @@ def encode_batch_containers(
     routes the raster strategies as the single-image pipeline does
     (``EncodeConfig.resolve_host_route``): the host route places the
     payloads with numpy windows and uploads nothing."""
-    from ..pipeline import _check_ported, _upload
+    from ..pipeline import _check_ported
     from ..profiling import stage
     from .batch_pee import _resolve
 
@@ -483,7 +474,7 @@ def encode_batch_containers(
         # one host->device transfer feeds the block scans, the embed and
         # the metric moments
         with stage("batch_upload"):
-            imgs_dev = _upload(images, dev)
+            imgs_dev = upload(images, dev)
     with stage("batch_plan"):
         # device-free planning, as in the JAX package: host bincount
         # histograms and the numpy hybrid scan of the host-resident batch
@@ -537,7 +528,7 @@ def encode_batch_containers(
     with stage("batch_upload_wait"):
         _synchronize(dev)
     with stage("batch_embed"):
-        msgs_dev = _upload(_msg_prefix(plan), dev)
+        msgs_dev = upload(_msg_prefix(plan), dev)
         if config.strategy == "block_adaptive":
             # variance-ranked placement: per-image tile bases (one popcount
             # pass + exact host ranking), then the block embed per image

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
+from ..device import resolve_device
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
@@ -77,14 +78,12 @@ def _rows(t: torch.Tensor, idxs) -> torch.Tensor:
 
 
 def _resolve(device, mesh) -> torch.device:
-    from ..pipeline import _resolve_device
-
     if mesh is not None:
         raise NotImplementedError(
             "multi-device (mesh) batches are not yet ported to "
             "codec_tcc_tpu_torch (ROADMAP.md, queue 1: multi-device)"
         )
-    return _resolve_device(device)
+    return resolve_device(device)
 
 
 def probe_capacity_batch(

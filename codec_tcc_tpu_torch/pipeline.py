@@ -1,5 +1,8 @@
 # Port of codec_tcc_tpu/pipeline.py (encode/decode of the raster and block
-# strategies, and the host embed route).
+# strategies, the host embed route, capacity planning and analyze).
+# load_input is the same code; analyze_pair the same code but for the
+# device it passes; capacity_report runs its histograms and PEE probe on
+# the device.
 """End-to-end encode / decode pipelines (host orchestration shell).
 
 The raster path of the JAX package, in torch: the image is uploaded once;
@@ -31,12 +34,13 @@ kernels' plain torch versions, and only when a caller passes ``"cpu"``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .config import EncodeConfig
+from .device import DeviceLike, resolve_device, upload
 from .errors import CapacityError
 from .io import container as container_io
 from .io import dicom
@@ -57,9 +61,6 @@ from .utils.logging import get_logger
 
 logger = get_logger("pipeline")
 
-DeviceLike = Union[torch.device, str]
-
-
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not yet ported to codec_tcc_tpu_torch "
@@ -74,29 +75,6 @@ def _check_ported(codec: str, version: int) -> None:
         )
     if codec.lower() in codec_names() and codec.lower() != "deflate":
         raise _not_ported(f"codec {codec!r}", "other codecs with v1 containers")
-
-
-def _resolve_device(device: DeviceLike) -> torch.device:
-    """The device a caller asked for. Never picks one itself: ``"cuda"``
-    without a usable GPU raises instead of running on the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False; pass device='cpu' to run the plain torch versions"
-            )
-    elif dev.type != "cpu":
-        raise ValueError(f"device must be cuda or cpu, not {dev}")
-    return dev
-
-
-def _upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """numpy -> tensor on ``dev``; copies first when the array is read-only
-    (``np.frombuffer`` results), which ``torch.from_numpy`` must not wrap."""
-    if not (arr.flags.writeable and arr.flags.c_contiguous):
-        arr = np.array(arr, order="C", copy=True)
-    return torch.from_numpy(arr).to(dev)
 
 
 def _next_pow2(n: int) -> int:
@@ -183,7 +161,7 @@ def _block_bases(
 def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
     """K1: stego + packed XOR maps in one launch, then the moments."""
     stego_dev, packed_dev = raster_kernels.raster_embed(
-        image_dev, _upload(msg_bits, image_dev.device), pp.starts,
+        image_dev, upload(msg_bits, image_dev.device), pp.starts,
         pp.lengths, pp.offsets, s, emit_maps=emit_maps,
     )
     stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
@@ -199,7 +177,7 @@ def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
     with stage("block_rank"):
         bases = _block_bases(image_dev, nbits, s, block, h, w)
     stego_dev = embed_ops.embed_block_adaptive(
-        image_dev, _upload(msg_bits, image_dev.device), bases, pp.lengths,
+        image_dev, upload(msg_bits, image_dev.device), bases, pp.lengths,
         pp.offsets, s, nbits, block,
     )
     stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
@@ -223,7 +201,7 @@ def _embed_host(image, msg_bits, pp, s, with_stats, dev):
     )
     stats = None
     if with_stats:
-        stats = metric_ops.pair_stats(_upload(image, dev), _upload(stego, dev))
+        stats = metric_ops.pair_stats(upload(image, dev), upload(stego, dev))
     return stego, packed, stats
 
 
@@ -242,7 +220,7 @@ def encode_array(
 ) -> EncodeResult:
     """Embed ``payload`` into ``image`` and build an STGC container."""
     config = config.validate()
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     _check_ported(config.codec, config.container_version)
     if config.strategy == "pee":
         # before the host-route check: as in the JAX package, PEE always
@@ -277,7 +255,7 @@ def encode_array(
     # host route never uploads it; its histogram runs on the host, as the
     # JAX package's does for a numpy image.
     host_route = config.device_policy == "host" or config.resolve_host_route(n)
-    image_t = _upload(image, torch.device("cpu") if host_route else dev)
+    image_t = upload(image, torch.device("cpu") if host_route else dev)
 
     # 1. decomposition: one histogram + exact host cut-point math
     with stage("decompose"):
@@ -478,7 +456,7 @@ def decode_container(
     restore_original: bool = True,
     device: DeviceLike = "cuda",
 ) -> DecodeResult:
-    dev = _resolve_device(device)
+    dev = resolve_device(device)
     cont = container_io.parse(data) if isinstance(data, (bytes, bytearray)) else data
     meta = cont.meta
     _check_ported(meta.codec, meta.version)
@@ -530,7 +508,7 @@ def decode_container(
         # K2 reads only the payload's pixels and writes them in message
         # order: the only download is the payload itself
         bits = raster_kernels.raster_extract(
-            _upload(stego, dev), starts, lengths, offsets, meta.s, out_len
+            upload(stego, dev), starts, lengths, offsets, meta.s, out_len
         ).cpu().numpy()[: meta.payload_bits]
 
     original = None
@@ -549,3 +527,122 @@ def decode_file(
         return decode_container(
             f.read(), restore_original=restore_original, device=device
         )
+
+
+# ---------------------------------------------------------------------------
+# capacity planning
+# ---------------------------------------------------------------------------
+
+
+def load_input(path: str) -> Tuple[np.ndarray, Optional[int]]:
+    """Image array + BitsStored (``None`` for non-DICOM): one shared input
+    prologue for the CLI ``capacity`` subcommand, so every entry point
+    answers identically for the same file."""
+    if path.lower().endswith(".dcm"):
+        arr, ds = dicom.load_image(path)
+        return arr, ds.bits_stored
+    from .cli import _load_any
+
+    return _load_any(path), None
+
+
+def capacity_report(
+    arr: np.ndarray,
+    *,
+    bits_stored: Optional[int] = None,
+    beta: float = 0.4,
+    seed: int = 42,
+    nbits: Optional[int] = None,
+    use_bits_stored: bool = True,
+    pee_threshold: int = 2,
+    device: DeviceLike = "cuda",
+) -> Dict:
+    """Usable payload capacity per strategy, without encoding anything.
+
+    Reports the boundary the encoders accept: the quadratic segment
+    distribution's usable bits for the LSB strategies (NOT the reference's
+    ``s*H*W`` claim, codec.py:294, which oversubscribes plane 0; included
+    as ``reference_rule_bits`` for contrast) and the saturated two-pass
+    probe for PEE (K3, pass-1 capacity measured on the pass-0 result). 3-D
+    inputs use :func:`parallel.volume.encode_volume`'s semantics: one GLOBAL
+    cut point, per-slice chunks. The histograms and the probe run on
+    ``device``."""
+    from .models import get_embedder
+
+    dev = resolve_device(device)
+    arr = np.asarray(arr)
+    dtype_bits = arr.dtype.itemsize * 8
+    if nbits is None:
+        eff_nbits = (
+            bits_stored if (bits_stored and use_bits_stored) else dtype_bits
+        )
+    else:
+        eff_nbits = nbits
+    eff_nbits = min(eff_nbits, dtype_bits)
+    t = max(1, pee_threshold)
+
+    out: Dict = {
+        "shape": list(arr.shape),
+        "dtype": str(arr.dtype),
+        "bits_stored": bits_stored,
+        "beta": beta,
+        "nbits": eff_nbits,
+        "pee_threshold": t,
+    }
+    if arr.ndim == 3:
+        from .parallel.batch_pee import probe_capacity_batch
+        from .parallel.volume import volume_cut_point
+
+        d, h, w = arr.shape
+        s, _ = volume_cut_point(arr, beta, device=dev)
+        out["cut_point_s"] = int(s)
+        out["frames"] = d
+        out["lsb_bits"] = int(
+            segment_ops.usable_capacity_bits(s, h * w, seed)
+        ) * d
+        # the volume PEE encoder embeds with the full-dtype max_val (STGV
+        # volumes carry no BitsStored), so the report probes with the same
+        # bound to be the boundary the encoder accepts
+        max_val = (1 << dtype_bits) - 1
+        out["pee_bits"] = int(np.sum(
+            probe_capacity_batch(arr, t, max_val, device=dev)))
+        out["reference_rule_bits"] = int(s) * h * w * d
+    else:
+        dec = decompose_ops.decompose(upload(arr, dev), beta=beta,
+                                      nbits=eff_nbits)
+        out["cut_point_s"] = int(dec.s)
+        out["lsb_bits"] = int(
+            segment_ops.usable_capacity_bits(dec.s, arr.size, seed)
+        )
+        pee = get_embedder(
+            "pee", beta=beta, seed=seed, nbits=nbits,
+            use_bits_stored=use_bits_stored, pee_threshold=t, device=dev,
+        )
+        out["pee_bits"] = int(pee.capacity_bits(arr, bits_stored=bits_stored))
+        out["reference_rule_bits"] = int(dec.s) * arr.size
+    return out
+
+
+# ---------------------------------------------------------------------------
+# analyze
+# ---------------------------------------------------------------------------
+
+
+def analyze_pair(
+    original,
+    stego,
+    *,
+    range_a: Optional[float] = None,
+    range_b: Optional[float] = None,
+    max_value: Optional[float] = None,
+    device: DeviceLike = "cuda",
+) -> Dict[str, float]:
+    """Quality metrics for an image pair: delegates to
+    :func:`codec_tcc_tpu_torch.ops.metrics.analyze_pair` (data-max range
+    policy by default; pass BitsStored-derived ranges for the reference's
+    file branch, or ``max_value`` to override only the final PSNR/SSIM
+    range), with the moments on ``device``."""
+    return metric_ops.analyze_pair(
+        original, stego, range_a=range_a, range_b=range_b, max_value=max_value,
+        device=device,
+    )

@@ -651,3 +651,45 @@ def test_gpu_batch_containers_equal_cpu_batch(cuda, strategy):
     for d, p, img in zip(decs, pays, imgs):
         assert d.message == p
         np.testing.assert_array_equal(d.original, img)
+
+
+@pytest.mark.parametrize("strategy,dtype", [
+    ("hybrid", np.uint16), ("multi_plane", np.uint8),
+    ("block_adaptive", np.uint16), ("pee", np.uint16)])
+def test_gpu_volume_equals_cpu_volume(cuda, strategy, dtype):
+    """A 4-slice volume through ``encode_volume`` + ``pack_volume`` on the
+    card writes the CPU path's STGV file (a raster volume with one batch K1
+    launch); ``extract_volume`` reads the payload back with one batch K2
+    launch; ``unpack_volume`` gives the payload and the volume back (the
+    raster slices on the host, no launch; PEE slices through K4)."""
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import volume as pv
+
+    rng = np.random.default_rng(6)
+    hi = 4096 if dtype == np.uint16 else 256
+    shape = (4, 96, 80) if dtype == np.uint16 else (4, 37, 53)
+    y, x = np.mgrid[0:shape[1], 0:shape[2]]
+    vol = np.clip(hi * (0.3 + 0.004 * x) + rng.normal(0, 2, shape),
+                  0, hi - 1).astype(dtype)
+    payload = "volume on the card " * 40
+    cfg = port.EncodeConfig(strategy=strategy)
+    cpu = pv.pack_volume(vol, pv.encode_volume(vol, payload, cfg,
+                                               device="cpu"),
+                         cfg, device="cpu")
+    rk.reset_launch_counts()
+    res = pv.encode_volume(vol, payload, cfg, device=cuda)
+    raster = strategy in ("hybrid", "multi_plane")
+    assert rk.LAUNCHES["raster_embed_batch"] == int(raster)
+    assert pv.pack_volume(vol, res, cfg, device=cuda) == cpu
+    if raster:
+        rk.reset_launch_counts()
+        bits = pv.extract_volume(res.stego, res.plan, device=cuda)
+        assert rk.LAUNCHES["raster_extract_batch"] == 1
+        assert bytes(np.packbits(bits)) == payload.encode()
+    rk.reset_launch_counts()
+    pk.reset_launch_counts()
+    bits, _, original = pv.unpack_volume(cpu, device=cuda)
+    assert rk.LAUNCHES["raster_extract_batch"] == 0
+    assert (pk.LAUNCHES["pee_extract"] > 0) == (strategy == "pee")
+    assert bytes(np.packbits(bits)) == payload.encode()
+    np.testing.assert_array_equal(original, vol)

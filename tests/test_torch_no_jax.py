@@ -1,8 +1,10 @@
 """The port runs where jax does not exist: in a fresh interpreter that
 cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
 the CPU (raster, block_adaptive, the host embed route and PEE, single
-image and batch, the container batch path, the runner and the CLI), and
-nothing of the JAX package gets loaded."""
+image and batch, the container batch path, the runner, volumes, capacity,
+analyze, the embedder models and the CLI), and nothing of the JAX package
+gets loaded. Neither the port's sources nor ``chip_smoke.py`` import
+jax or the JAX package."""
 
 import os
 import subprocess
@@ -50,6 +52,28 @@ for cfg in (port.EncodeConfig(), port.EncodeConfig(strategy="pee")):
     assert [d.message for d in decs] == ["b1", "b22"]
     assert np.array_equal(decs[1].original, img[::-1])
 assert runner.BatchRunner and cli.cmd_encode_batch and cli.cmd_decode_batch
+from codec_tcc_tpu_torch.parallel import volume
+vol = np.stack([img, img[::-1], img[:, ::-1]])
+for cfg in (port.EncodeConfig(strategy="multi_plane"), pee):
+    res = volume.encode_volume(vol, "a volume", cfg, device="cpu")
+    blob = volume.pack_volume(vol, res, cfg, device="cpu")
+    bits, _, original = volume.unpack_volume(blob, device="cpu")
+    assert bytes(np.packbits(bits)) == b"a volume"
+    assert np.array_equal(original, vol)
+    if res.plan is not None:
+        bits = volume.extract_volume(res.stego, res.plan, device="cpu")
+        assert bytes(np.packbits(bits)) == b"a volume"
+from codec_tcc_tpu_torch import pipeline
+for arr in (img, vol):
+    rep = pipeline.capacity_report(arr, bits_stored=12, device="cpu")
+    assert rep["lsb_bits"] > 0 and rep["pee_bits"] > 0
+rep = port.analyze_pair(img, img ^ 1, device="cpu")
+assert rep["changed_pixels"] == img.size
+qa = port.QualityAnalyzer(windowed_ssim=True, device="cpu")
+qa.analyze_pair(img, img ^ 1)
+assert qa.summary()["count"] == 1.0
+assert port.get_embedder("pee", device="cpu").capacity_bits(img) > 0
+assert cli.cmd_encode_volume and cli.cmd_analyze and cli.cmd_capacity
 loaded = sorted(m for m in sys.modules
                 if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
                 or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))
@@ -70,21 +94,24 @@ def test_port_imports_and_runs_without_jax():
     assert proc.stdout.strip().endswith("OK")
 
 
-def test_port_sources_never_import_jax():
-    pkg = os.path.join(REPO, "codec_tcc_tpu_torch")
-    offenders = []
-    for root, _, files in os.walk(pkg):
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(os.path.join(REPO, "codec_tcc_tpu_torch")):
         for name in files:
-            if not name.endswith(".py"):
-                continue
-            path = os.path.join(root, name)
-            with open(path, encoding="utf-8") as f:
-                for i, line in enumerate(f, 1):
-                    code = line.strip()
-                    if code.startswith(("import jax", "from jax",
-                                        "import codec_tcc_tpu ",
-                                        "import codec_tcc_tpu.",
-                                        "from codec_tcc_tpu ",
-                                        "from codec_tcc_tpu.")):
-                        offenders.append(f"{path}:{i}: {code}")
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+
+
+def test_port_sources_never_import_jax():
+    offenders = []
+    for path in _port_sources():
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                code = line.strip()
+                if code.startswith(("import jax", "from jax",
+                                    "import codec_tcc_tpu ",
+                                    "import codec_tcc_tpu.",
+                                    "from codec_tcc_tpu ",
+                                    "from codec_tcc_tpu.")):
+                    offenders.append(f"{path}:{i}: {code}")
     assert offenders == []

@@ -19,6 +19,16 @@ them they take every branch of the PEE path: one pass and two, threshold
 escalation after a shortfall, a saturated pass 0, u8 overflow pixels and
 geometries with odd widths and ``H*W % 8 != 0``.
 
+The ``vol_*`` cases (:data:`VOLUME_CASES`) are STGV volumes through
+``parallel.volume``: the 64x512x512 uint16 volume of BASELINE.json
+config[3] under ``hybrid`` and ``multi_plane`` with the 304-bit text and
+with half the volume's LSB capacity (``capacity_report``'s ``lsb_bits``),
+PEE on 8x512x512 uint16 with 1 Mbit, ``block_adaptive`` on 8x512x512
+uint16, and a 5x500x501 uint8 volume (``H*W % 8 != 0``: raw maps). The
+fixture also holds ``capacity_report`` on ``mr512_u16`` and on the
+64-slice volume, and ``analyze_pair`` on the 512x512 encode of
+``mr512_u16_full`` (:data:`ANALYZE_CASES`).
+
 The ``blk_*`` cases run strategy ``block_adaptive`` (block 8, or 12 on
 ``blk_odd640x480_u16_b12``): uniform tilings, edge tiles on one axis and on
 both, raw maps (``H*W % 8 != 0``) and 2048x2048 at capacity. The ``host_*``
@@ -97,6 +107,109 @@ CASES = (
 BY_NAME = {c.name: c for c in CASES}
 
 
+@dataclass(frozen=True)
+class VolumeCase:
+    name: str
+    depth: int
+    height: int
+    width: int
+    dtype: str           # "uint8" / "uint16"
+    bits_stored: int
+    payload: str         # "text", "half" (half the LSB capacity) or "bits:<n>"
+    strategy: str
+    seed: int
+
+    def config(self, config_cls):
+        return config_cls(strategy=self.strategy)
+
+
+VOLUME_CASES = (
+    VolumeCase("vol64_u16_hybrid_text", 64, 512, 512, "uint16", 12, "text",
+               "hybrid", 41),
+    VolumeCase("vol64_u16_hybrid_half", 64, 512, 512, "uint16", 12, "half",
+               "hybrid", 41),
+    VolumeCase("vol64_u16_multi_text", 64, 512, 512, "uint16", 12, "text",
+               "multi_plane", 41),
+    VolumeCase("vol64_u16_multi_half", 64, 512, 512, "uint16", 12, "half",
+               "multi_plane", 41),
+    VolumeCase("vol8_u16_pee_1m", 8, 512, 512, "uint16", 12, "bits:1000000",
+               "pee", 42),
+    VolumeCase("vol8_u16_block_half", 8, 512, 512, "uint16", 12, "half",
+               "block_adaptive", 43),
+    VolumeCase("vol5_odd500x501_u8_half", 5, 500, 501, "uint8", 8, "half",
+               "hybrid", 44),
+)
+VOLUMES_BY_NAME = {c.name: c for c in VOLUME_CASES}
+
+# capacity_report inputs: a parity case's image (2-D) or a volume case's
+# volume (3-D), with the BitsStored the 2-D report is given
+CAPACITY_CASES = (("cap_mr512_u16", "mr512_u16"),
+                  ("cap_vol64_u16", "vol64_u16_hybrid_text"))
+# analyze_pair inputs: a parity case's image and its stego from
+# encode_array with the case's payload; "data" takes the ranges from the
+# data maxima (equal here: the fused moments), "12_16" passes the ranges of
+# a BitsStored 12 original and a BitsStored 16 stego (the range-normalised
+# float64 host branch)
+ANALYZE_CASES = (("ana_mr512_u16_full_data", "mr512_u16_full", "data"),
+                 ("ana_mr512_u16_full_12_16", "mr512_u16_full", "12_16"))
+ANALYZE_RANGES = {"data": {},
+                  "12_16": {"range_a": 4095.0, "range_b": 65535.0}}
+# volumes whose quality report (``VolumeResult.metrics``) the fixture holds
+# under ``metrics_<name>``: the text payloads, which leave the volume's
+# maximum unchanged, so the report is the equal-range branch of float32
+# moments (the normalised branch cancels in float32 and is not compared)
+VOLUME_METRICS_CASES = ("vol64_u16_hybrid_text", "vol64_u16_multi_text")
+# the CLI ``analyze --windowed-ssim --report`` of the pair that
+# :func:`cli_analyze_pair` writes
+CLI_ANALYZE_CASE = "cli_analyze_mr512_u16_xor1"
+
+
+def cli_analyze_pair(save_image, directory: str) -> Tuple[str, str]:
+    """Write ``o.dcm`` (the ``mr512_u16`` image) and ``s.dcm`` (the same
+    with every low bit flipped) as 12-bit DICOMs into ``directory`` with
+    the given package's ``io.dicom.save_image``; return their paths."""
+    img = image(BY_NAME["mr512_u16"])
+    paths = (os.path.join(directory, "o.dcm"), os.path.join(directory, "s.dcm"))
+    save_image(img, paths[0], bits_stored=12)
+    save_image(img ^ np.uint16(1), paths[1], bits_stored=12)
+    return paths
+
+
+def volume(case: VolumeCase) -> np.ndarray:
+    """``(depth, H, W)`` volume: per slice the phantom of :func:`image`
+    with its own noise seed and the inner structures moving with the slice
+    index, clipped to BitsStored."""
+    d, h, w = case.depth, case.height, case.width
+    maxval = (1 << case.bits_stored) - 1
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    y = (y - h / 2) / (h / 2)
+    x = (x - w / 2) / (w / 2)
+    body = ((x / 0.85) ** 2 + (y / 0.75) ** 2 < 1.0) * 0.45
+    ramp = 0.05 + body + 0.1 * (x + 1.0)
+    out = np.empty((d, h, w), dtype=case.dtype)
+    for k in range(d):
+        z = k / max(d - 1, 1) - 0.5
+        organ = ((x + 0.3) ** 2 / 0.04 + (y - 0.3 * z) ** 2 / 0.09 < 1.0) * 0.25
+        bone = ((x - 0.35) ** 2 + (y + 0.2 + 0.2 * z) ** 2 < 0.01) * 0.35
+        rng = np.random.default_rng(case.seed * 1000 + k)
+        noisy = (ramp + organ + bone) * maxval + rng.normal(
+            0.0, 0.02 * maxval, (h, w))
+        out[k] = np.clip(np.rint(noisy), 0, maxval)
+    return out
+
+
+def volume_payload_bits(case: VolumeCase, lsb_bits: int) -> np.ndarray:
+    """The volume case's payload as uint8 0/1 bits. ``lsb_bits`` — the
+    volume's ``capacity_report`` LSB capacity — sizes the ``half`` cases
+    and is ignored otherwise."""
+    if case.payload == "text":
+        return np.unpackbits(np.frombuffer(TEXT_PAYLOAD.encode(), np.uint8))
+    nbits = (lsb_bits // 2 if case.payload == "half"
+             else int(case.payload.split(":", 1)[1]))
+    rng = np.random.default_rng(case.seed + 2000)
+    return rng.integers(0, 2, nbits, dtype=np.uint8)
+
+
 def image(case: Case) -> np.ndarray:
     """Smooth phantom (an elliptic body with two inner structures and a
     gentle gradient) plus seeded Gaussian noise, clipped to BitsStored."""
@@ -130,11 +243,26 @@ def payload_bits(case: Case, capacity_bits: int) -> np.ndarray:
 
 def pee_attempt_groups(t_start, t_final) -> int:
     """Equal-T groups the PEE encoders' escalation loop embeds, each with
-    one K3 launch per pass: an image that starts at ``t_start`` is in round
-    ``k`` at ``T = t_start + k`` until it fits at ``t_final``, and the
-    images of one round that share a T form one group."""
-    return len({(k, int(s) + k) for s, f in zip(t_start, t_final)
-                for k in range(int(f) - int(s) + 1)})
+    one K3 launch per pass, replayed from each image's first and final T.
+    A round visits the thresholds its pending images hold at its start, in
+    ascending order; an image that falls short at T moves to T + 1 at once,
+    so it joins the round's group at T + 1 if there is one (and is then
+    pending twice in the next round, as in both packages' loop)."""
+    t_img = [int(t) for t in t_start]
+    final = [int(t) for t in t_final]
+    pending = list(range(len(t_img)))
+    groups = 0
+    while pending:
+        next_pending = []
+        for t in sorted({t_img[i] for i in pending}):
+            idxs = [i for i in pending if t_img[i] == t]
+            groups += 1
+            for i in idxs:
+                if t < final[i]:
+                    t_img[i] = t + 1
+                    next_pending.append(i)
+        pending = next_pending
+    return groups
 
 
 def sha256(data) -> str:
@@ -146,3 +274,9 @@ def sha256(data) -> str:
 def load_parity() -> Dict[str, dict]:
     with open(PARITY_JSON, encoding="utf-8") as f:
         return json.load(f)["cases"]
+
+
+def load_parity_volumes() -> Dict[str, dict]:
+    """The volume, capacity and analyze entries of the fixture."""
+    with open(PARITY_JSON, encoding="utf-8") as f:
+        return json.load(f)["volumes"]
