@@ -4,12 +4,13 @@
     python3 chip_smoke.py
 
 Drives the port's encode/decode paths (raster, PEE, block_adaptive, the
-host embed route, the container batch path and the STGV volume path, with
-capacity and analyze) through its hand-written
-CUDA kernels (K1 ``raster_embed`` and its batch form
+host embed route, the container batch path, the STGV volume path, with
+capacity and analyze, and one image split by rows across a mesh) through
+its hand-written CUDA kernels (K1 ``raster_embed`` and its batch form
 ``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
-K3 ``pee_embed``, K4 ``pee_extract``) and checks them, phase by phase; any
-failure exits non-zero:
+K3 ``pee_embed``, K4 ``pee_extract`` and their shard mode
+``pee_embed_shard``/``pee_extract_shard``) and checks them, phase by
+phase; any failure exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
@@ -48,15 +49,23 @@ failure exits non-zero:
    each on 8 x 2048x2048 uint16 (8,192 tiles) repeated 20 times with
    identical outputs; then the device block extract (torch ops, no
    kernel) against ``extract_block_host`` on the stegos of the five
-   ``blk_*`` cases, with the case's cut point and one lower;
+   ``blk_*`` cases, with the case's cut point and one lower; then K3/K4 in
+   shard mode against their plain band versions on the 2048x2048 uint16
+   image of the 3 Mbit PEE case at its T, over 4 bands (pass 0 saturated
+   and at half its capacity, pass 1 on pass 0's stego): every band's
+   outputs exact, the used count and boundary exact, the bands stitched
+   together equal to the whole-image K3/K4;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE, five block_adaptive, three on the host embed route) through
    ``encode_array(device="cuda")``: the container's sha256 (and for PEE the
    ext tuple) must equal the JAX package's, and
    ``decode_container(device="cuda")`` must give the payload and the
    original back exactly; then ``encode_pee_batch``/``decode_pee_batch`` on
-   the four 512x512 uint16 case images as one batch of mixed T; then the
-   container batch path: ``encode_batch_containers`` at B = 32 x 512x512
+   the four 512x512 uint16 case images as one batch of mixed T; the F1
+   batch (``torch_port_cases.f1_batch``: an escalation group of three
+   entries that holds an image twice) equal to the JAX package's
+   containers and decoding to its payloads; then the container batch
+   path: ``encode_batch_containers`` at B = 32 x 512x512
    and B = 8 x 2048x2048 uint16 (device route: one K1 launch per batch),
    B = 32 on the host route and a block_adaptive batch of four, every
    container equal to the single-image ``encode_array`` container and, for
@@ -76,6 +85,16 @@ failure exits non-zero:
    decodes; ``capacity_report`` on ``mr512_u16`` and on the 64-slice volume
    equals the JAX package's dict; ``analyze_pair`` (device moments, and the
    float64 branch) equals the fixture's within rtol 1e-4 / 1e-12;
+3t. one image across a mesh of the card repeated K times
+   (``parallel.make_mesh(devices=["cuda:0"] * K)``):
+   ``encode_array_tiled_pee``/``decode_container_tiled_pee`` on the
+   2048x2048 3 Mbit PEE case for K = 1, 2, 4 (the container equal to the
+   single-device one and to the JAX package's tiled one, the fixture's
+   ``tiled`` section) and on a 4096x3328 uint16 mammography frame with 6
+   Mbit over 4 bands (equal to the single-device container, both passes
+   used); ``encode_array_tiled``/``decode_container_tiled`` at 4096x3328
+   for hybrid and block_adaptive over 4 bands (equal to ``encode_array``);
+   every decode exact;
 4. the committed golden raster, block_adaptive and PEE containers decode
    on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
@@ -98,7 +117,10 @@ failure exits non-zero:
    batch K1 per raster volume encode, one batch K2 per ``extract_volume``,
    none for a raster or block ``unpack_volume``, K3 twice per equal-T
    attempt group of the PEE volume, K4 twice per decode group), the
-   capacity probes (K3 twice each) and analyze (none); every count must be
+   capacity probes (K3 twice each), analyze (none), the F1 batch (as the
+   PEE batch) and the tiled paths (shard K3 once per band per pass per
+   attempt, replayed from the start and final T, shard K4 once per band
+   per inverse pass; no kernel for the tiled raster path); every count must be
    exactly what the path should launch, so every kernel runs on the path
    that needs it;
 7. times, printed and not asserted: per call of each kernel and of its
@@ -123,7 +145,11 @@ failure exits non-zero:
    ``pack_volume``, ``unpack_volume`` and ``extract_volume`` at the
    64x512x512 uint16 hybrid volume with half its LSB capacity (median of
    3, stage means), and batch K1/K2 at that volume's plan (per call,
-   device, queued with L2 flushed, bound).
+   device, queued with L2 flushed, bound); the tiled PEE encode and decode
+   walls at 2048x2048 for K = 1, 2, 4 beside the single-device ones, and
+   K3/K4 in shard mode band by band at K = 4 on the case's four passes
+   (per call, device, plain, the band's bound) with the band's eligible
+   count (torch ops).
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
 ``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
@@ -1854,6 +1880,344 @@ def time_volume_kernels(vol, bits, res) -> None:
               f"({k1_bytes if name == 'K1' else k2_bytes} B)", flush=True)
 
 
+def phase2_pee_shard(dev, parity, max_err) -> str:
+    """K3/K4 in shard mode against their plain band versions on the card:
+    the 2048x2048 uint16 image of the 3 Mbit PEE case at its T, split into
+    4 bands, pass 0 at the whole payload (saturated) and at half its
+    capacity (the boundary inside a band), pass 1 on the saturated pass's
+    stego at the rest of the payload; each inverted by K4. Exact: every
+    band's stego, overflow, count and nproc (K3) and restored band, bits
+    and nbits (K4); the used count and the pass boundary; the four bands
+    stitched together against the whole-image K3/K4. Updates ``max_err``;
+    returns the text for phase 2."""
+    import torch
+    import torch_port_cases as cases
+    import torch_tile_cases as tiles
+    from codec_tcc_tpu_torch.models.pee import message_buffer
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    case = cases.BY_NAME[cases.TILED_PEE]
+    k, max_val = cases.TILED_BIG_K, (1 << case.bits_stored) - 1
+    t = parity[case.name]["pee_ext"][0]
+    img = torch.from_numpy(cases.image(case)).to(dev)[None]
+    bits = cases.payload_bits(case, 0)
+    total = bits.size
+    msg = message_buffer([bits], dev)
+    out_len = 1 << max(3, (total - 1).bit_length())
+
+    def i32(v):
+        return torch.tensor([int(v)], dtype=torch.int32, device=dev)
+
+    cap0 = int(pk.pee_embed(img, msg, i32(0), i32(0), 0, t, max_val)[4][0])
+    s0, _, u0, _, _ = pk.pee_embed(img, msg, i32(0), i32(total), 0, t,
+                                   max_val)
+    used0 = int(u0[0])
+    runs = ((img, 0, total, 0), (img, 0, cap0 // 2, 0),
+            (s0, used0, total - used0, 1))
+    for src, base, want, par in runs:
+        what = f"2048x2048 T={t} parity={par} want={want} over {k} bands"
+        got, (stego, over, used, nproc) = tiles.embed(
+            pk.pee_embed, src, msg, base, want, par, t, max_val, k)
+        ref, _ = tiles.embed(pk.pee_embed_plain, src, msg, base, want, par,
+                             t, max_val, k)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+        max_err["pee_embed_shard"] = max(max_err["pee_embed_shard"], err)
+        check(err == 0, f"K3 shard mode != plain at {what}")
+        whole = pk.pee_embed(src, msg, i32(base), i32(want), par, t, max_val)
+        check(max_abs_diff((stego, over), whole[:2]) == 0
+              and (used, nproc) == (int(whole[2][0]), int(whole[3][0]))
+              and sum(int(g[2][0]) for g in got) == int(whole[4][0]),
+              f"K3 shard bands stitched != whole-image K3 at {what}")
+        got, (restored, bits_k, n_bits) = tiles.extract(
+            pk.pee_extract, stego, over, nproc, par, t, out_len, k)
+        ref, _ = tiles.extract(pk.pee_extract_plain, stego, over, nproc, par,
+                               t, out_len, k)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
+        max_err["pee_extract_shard"] = max(max_err["pee_extract_shard"], err)
+        check(err == 0, f"K4 shard mode != plain at {what}")
+        w_r, w_bits, w_n = pk.pee_extract(stego, over, i32(nproc), par, t,
+                                          out_len)
+        check(torch.equal(restored, w_r) and torch.equal(restored, src)
+              and torch.equal(bits_k, w_bits[0].cpu())
+              and n_bits == int(w_n[0]) == used,
+              f"K4 shard bands stitched != whole-image K4 at {what}")
+    return (f"K3/K4 shard mode == plain at 2048x2048 u16 T={t} over {k} "
+            f"bands (pass 0 saturated and at {cap0 // 2}, pass 1 at "
+            f"{total - used0}), stitched == whole image")
+
+
+def phase3_f1(port, tparity, counted, dev):
+    """F1: the PEE batch whose escalation embeds a group of three entries
+    that holds an image twice (``torch_port_cases.f1_batch``): containers
+    equal to the JAX package's (the fixture's ``tiled`` section), each
+    decoding to its payload. Returns (text, the launches of the path)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.models.pee import max_value
+    from codec_tcc_tpu_torch.parallel import batch_pee
+
+    imgs, pays = cases.f1_batch()
+    cfg = port.EncodeConfig(strategy="pee", pee_threshold=cases.F1_THRESHOLD)
+    want = tparity["f1_pee_batch"]
+
+    def f1_path():
+        res = batch_pee.encode_pee_batch(imgs, pays, cfg, device=dev)
+        return res, batch_pee.decode_pee_batch(res.containers, device=dev)
+
+    res, decs = counted("pee_f1", f1_path)
+    check([cases.sha256(c) for c in res.containers]
+          == want["container_sha256"],
+          "F1 batch: containers differ from the JAX package's")
+    for i, dec in enumerate(decs):
+        check(np.array_equal(dec.payload_bits, pays[i]),
+              f"F1 batch: payload {i} differs")
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(imgs), [p.size for p in pays],
+        max_value(int(imgs.max()), 16, 16), cases.F1_THRESHOLD)
+    groups = cases.pee_attempt_group_lists(t_start, res.thresholds)
+    check(tuple(cases.F1_GROUP) in [(t, i) for t, i in groups],
+          f"F1 batch: no duplicate group in {groups}")
+    expected = {"pee_embed": 2 * len(groups),
+                "pee_extract": 2 * len(set(res.thresholds.tolist()))}
+    return (f"F1 batch (groups {groups}) equal to the JAX package's",
+            expected)
+
+
+def phase3_tiled(port, parity, tparity, counted, dev):
+    """One image across a mesh of the card repeated K times
+    (``make_mesh(devices=["cuda:0"] * K)``): ``encode_array_tiled_pee`` /
+    ``decode_container_tiled_pee`` on the 2048x2048 3 Mbit PEE case for
+    K in 1, 2, 4 (the container equal to the single-device one in the
+    fixture and to the JAX package's tiled one for that K) and on the
+    4096x3328 mammography frame with 6 Mbit over 4 bands (equal to the
+    port's single-device container; both passes used), then
+    ``encode_array_tiled`` / ``decode_container_tiled`` at 4096x3328 for
+    hybrid and block_adaptive over 4 bands (equal to ``encode_array``);
+    every decode exact. Returns (text, the launches of each path, the
+    encode/decode walls by K)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.io.container import parse_pee_ext
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile, tile_pee
+
+    def mesh_of(k):
+        return make_mesh(devices=[dev] * k, axes=("tile",))
+
+    pee_cfg = port.EncodeConfig(strategy="pee")
+    case = cases.BY_NAME[cases.TILED_PEE]
+    big_pee, *big_raster = cases.TILED_BIG
+    inputs = {c.name: (cases.image(c), cases.payload_bits(c, 0))
+              for c in (case, *cases.TILED_BIG)}
+    # the single-device containers of the 4096x3328 frames, before the
+    # counted paths (they launch the whole-image kernels)
+    singles = {}
+    for c in cases.TILED_BIG:
+        img, bits = inputs[c.name]
+        singles[c.name] = port.encode_array(
+            img, bits, c.config(port.EncodeConfig),
+            bits_stored=c.bits_stored, device=dev).container
+    runs = [(case, k) for k in cases.TILED_KS] + [(big_pee, cases.TILED_BIG_K)]
+    expected = {"pee_embed_shard": 0, "pee_extract_shard": 0}
+    walls = {}
+
+    def pee_path():
+        out = []
+        for c, k in runs:
+            img, bits = inputs[c.name]
+            mesh = mesh_of(k)
+            t0 = time.perf_counter()
+            res = tile_pee.encode_array_tiled_pee(img, bits, pee_cfg, mesh,
+                                                  bits_stored=c.bits_stored)
+            t1 = time.perf_counter()
+            dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
+            t2 = time.perf_counter()
+            out.append((c, k, img, bits, res, dec, t1 - t0, t2 - t1))
+        return out
+
+    for c, k, img, bits, res, dec, enc_s, dec_s in counted("tiled_pee",
+                                                           pee_path):
+        what = f"tiled PEE {c.name} over {k} bands"
+        sha = cases.sha256(res.container)
+        if c.name == case.name:
+            check(sha == parity[c.name]["container_sha256"]
+                  == tparity[f"{c.name}_k{k}"]["container_sha256"],
+                  f"{what}: container differs from the single-device and "
+                  f"the JAX package's tiled one")
+        else:
+            check(res.container == singles[c.name],
+                  f"{what}: container differs from the single-device one")
+        check(np.array_equal(dec.payload_bits, bits)
+              and np.array_equal(dec.original, img),
+              f"{what}: decode differs")
+        t_final, passes = parse_pee_ext(res.meta.ext)[:2]
+        check(passes == 2, f"{what}: one pass only")
+        t_start = int(pee_start_thresholds(img[None], [bits.size],
+                                           c.bits_stored, pee_cfg, dev)[0])
+        # K launches per pass: both passes of every attempt that fell
+        # short, then the final attempt's; K per inverse pass
+        expected["pee_embed_shard"] += k * (2 * (t_final - t_start) + passes)
+        expected["pee_extract_shard"] += k * passes
+        walls[(c.name, k)] = (enc_s, dec_s)
+        print(f"  {what}: T={t_final} from {t_start}, container "
+              f"{len(res.container)} B equal, decode exact; walls (first "
+              f"run) encode {enc_s * 1e3:.2f} ms, decode {dec_s * 1e3:.2f} "
+              f"ms", flush=True)
+
+    def raster_path():
+        out = []
+        for c in big_raster:
+            img, bits = inputs[c.name]
+            mesh = mesh_of(cases.TILED_BIG_K)
+            res = tile.encode_array_tiled(img, bits, c.config(
+                port.EncodeConfig), mesh, bits_stored=c.bits_stored)
+            out.append((c, img, bits, res,
+                        tile.decode_container_tiled(res.container, mesh)))
+        return out
+
+    for c, img, bits, res, dec in counted("tiled_raster", raster_path):
+        check(res.container == singles[c.name],
+              f"tiled {c.name}: container differs from encode_array's")
+        check(np.array_equal(dec.payload_bits, bits)
+              and np.array_equal(dec.original, img),
+              f"tiled {c.name}: decode differs")
+    text = (f"tiled PEE 2048x2048 over K={list(cases.TILED_KS)} equal to the "
+            f"single-device and JAX tiled containers, 4096x3328 6 Mbit over "
+            f"{cases.TILED_BIG_K} bands and tiled hybrid/block_adaptive at "
+            f"4096x3328 equal to the single-device containers; all decodes "
+            f"exact")
+    return text, {"tiled_pee": expected, "tiled_raster": {}}, (inputs, walls)
+
+
+def time_tiled(parity, tiled_inputs, dev) -> dict:
+    """The tiled PEE path at 2048x2048 u16, 3 Mbit: encode and decode host
+    walls for K = 1, 2, 4 (median of 3 after the path's first run) beside
+    the single-device ``encode_array``/``decode_container``; then K3/K4 in
+    shard mode, band by band at K = 4 on the case's real passes (per call,
+    device time, the plain band version, the bound of the band's bytes)
+    and the band's eligible count (the torch-op sweep that gives the rank
+    prefix). Returns the band times of band 1 for the kernels line."""
+    import torch
+    import torch_port_cases as cases
+    import torch_tile_cases as tiles
+    import codec_tcc_tpu_torch as port
+    from codec_tcc_tpu_torch.models.pee import message_buffer
+    from codec_tcc_tpu_torch.ops import pee as pee_ops
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    case = cases.BY_NAME[cases.TILED_PEE]
+    img, bits = tiled_inputs[case.name]
+    cfg = port.EncodeConfig(strategy="pee")
+    blob = port.encode_array(img, bits, cfg, bits_stored=12,
+                             device=dev).container
+    calls = {"single-device": (
+        lambda: port.encode_array(img, bits, cfg, bits_stored=12,
+                                  device=dev),
+        lambda: port.decode_container(blob, device=dev))}
+    for k in cases.TILED_KS:
+        mesh = make_mesh(devices=[dev] * k, axes=("tile",))
+        calls[f"K={k}"] = (
+            lambda mesh=mesh: tile_pee.encode_array_tiled_pee(
+                img, bits, cfg, mesh, bits_stored=12),
+            lambda mesh=mesh: tile_pee.decode_container_tiled_pee(blob,
+                                                                  mesh))
+    for what, (enc, dec) in calls.items():
+        walls = []
+        for fn in (enc, dec):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+            walls.append(statistics.median(times))
+        print(f"  tiled PEE 2048x2048 u16 3 Mbit {what}: encode "
+              f"{walls[0]:.2f} ms, decode {walls[1]:.2f} ms host wall "
+              f"(median of 3)", flush=True)
+
+    t = parity[case.name]["pee_ext"][0]
+    k = cases.TILED_BIG_K
+    max_val = (1 << case.bits_stored) - 1
+    img_d = torch.from_numpy(img).to(dev)[None]
+    msg = message_buffer([bits], dev)
+
+    def i32(v):
+        return torch.tensor([int(v)], dtype=torch.int32, device=dev)
+
+    s0, o0, u0, n0, _ = pk.pee_embed(img_d, msg, i32(0), i32(bits.size), 0,
+                                     t, max_val)
+    used0 = int(u0[0])
+    s1, o1, u1, n1, _ = pk.pee_embed(s0, msg, u0, i32(bits.size) - u0, 1, t,
+                                     max_val)
+    over = o0 | o1
+    out_len = 1 << max(3, (bits.size - 1).bit_length())
+    r1 = pk.pee_extract(s1, over, n1, 1, t, out_len)[0]
+    h, w = img.shape
+    lh = -(-h // k)
+    passes = {
+        "k3_pass0": ("embed", img_d, 0, 0, bits.size),
+        "k3_pass1": ("embed", s0, 1, used0, bits.size - used0),
+        "k4_pass1": ("extract", s1, 1, int(n1[0]), None),
+        "k4_pass0": ("extract", r1, 0, int(n0[0]), None),
+    }
+    band_times = {}
+    for key, (kind, src, par, arg, want) in passes.items():
+        rank_base = 0
+        for b, (a, e) in enumerate(tiles.bands(h, k)):
+            top, bot = tiles.halo(src, a, e)
+            band = src[:, a:e].contiguous()
+            n = band.numel()
+            if kind == "embed":
+                shard = (top, bot, i32(a), i32(rank_base), h)
+                args = (band, msg, i32(arg), i32(want), par, t, max_val)
+                kern = (lambda args=args, shard=shard:
+                        pk.pee_embed(*args, shard=shard))
+                plain = (lambda args=args, shard=shard:
+                         pk.pee_embed_plain(*args, shard=shard))
+                out = kern()
+                count = int(pee_ops.band_eligible_count(
+                    band, top, bot, i32(a), par, t, max_val, h)[0])
+                # embedded bits of the band: its eligible pixels below want
+                emb = max(0, min(count, want - rank_base))
+                rank_base += count
+                # band read, stego and overflow written, halo rows, bits
+                nbytes = 2 * n + 2 * n + n + 4 * w + emb
+                sweep = (lambda band=band, top=top, bot=bot, a=a, par=par:
+                         pee_ops.band_eligible_count(band, top, bot, i32(a),
+                                                     par, t, max_val, h))
+            else:
+                shard = (top, bot, i32(a), h)
+                ov = over[:, a:e].contiguous()
+                args = (band, ov, i32(arg), par, t, out_len)
+                kern = (lambda args=args, shard=shard:
+                        pk.pee_extract(*args, shard=shard))
+                plain = (lambda args=args, shard=shard:
+                         pk.pee_extract_plain(*args, shard=shard))
+                nb = int(kern()[2][0])
+                # stego and overflow read, restored written, halo, bits
+                nbytes = 2 * n + n + 2 * n + 4 * w + nb
+                sweep = None
+            row = {"ms": cuda_median_ms(kern),
+                   "plain_ms": cuda_median_ms(plain),
+                   "dev_ms": device_ms(kern),
+                   "bound": bound(nbytes, K3_K4_OPS_PER_PIXEL * n)}
+            sweep_txt = ""
+            if sweep is not None:
+                sweep_txt = (f", the band's eligible count (torch ops) "
+                             f"device {fmt_ms(device_ms(sweep))}")
+            print(f"  shard {key} band {b} rows {a}-{e} of 2048x2048 "
+                  f"u16 T={t}: per call {row['ms']:.4f} ms (plain "
+                  f"{row['plain_ms']:.4f} ms), device {fmt_ms(row['dev_ms'])},"
+                  f" bound {row['bound'][0]:.4f} ms ({nbytes} B)"
+                  f"{sweep_txt}", flush=True)
+            if b == 1:
+                band_times[key] = row
+    return band_times
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1892,16 +2256,19 @@ def main() -> int:
     batch_err, batch_k_txt = phase2_batch(dev)
     max_err.update(batch_err)
     max_err.update(phase2_pee(dev))
+    max_err.update(pee_embed_shard=0, pee_extract_shard=0)
+    parity = cases.load_parity()
+    shard_txt = phase2_pee_shard(dev, parity, max_err)
     stress_txt = phase2_pee_stress(dev)
     block_txt = phase2_block(port, dev)
-    phase(2, f"K1-K4 and batch K1/K2 == plain on the card (max abs err "
-             f"{max_err}); {k1_txt}; {k2_txt}; {batch_k_txt}; {stress_txt}; "
-             f"{block_txt}")
+    phase(2, f"K1-K4, batch K1/K2 and shard K3/K4 == plain on the card (max "
+             f"abs err {max_err}); {k1_txt}; {k2_txt}; {batch_k_txt}; "
+             f"{shard_txt}; {stress_txt}; {block_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is
     # read just after it (phase 6 checks them).
-    parity = cases.load_parity()
+    tparity = cases.load_parity_tiled()
     paths, expected = {}, {}
     kernel_names = tuple(rk.LAUNCHES) + tuple(pk.LAUNCHES)
 
@@ -1976,13 +2343,15 @@ def main() -> int:
     expected["host"] = launches(raster_extract=n_path["host"])
     batch_txt, pee_batch = phase3_batch(port, results, parity, counted, dev)
     expected["pee_batch"] = launches(**pee_batch)
+    f1_txt, f1_expected = phase3_f1(port, tparity, counted, dev)
+    expected["pee_f1"] = launches(**f1_expected)
     raster_batch_txt, batch_expected, device_batches = phase3_raster_batch(
         port, parity, counted, launches)
     expected.update(batch_expected)
     phase(3, f"{len(cases.CASES)} parity cases ({n_path}) byte-identical to "
              f"the JAX package, decoded and restored exactly; PEE batch of "
              f"four 512x512 ({batch_txt}) equal to single-image encodes; "
-             f"{raster_batch_txt}")
+             f"{f1_txt}; {raster_batch_txt}")
 
     # -- phase 3v: volumes, capacity and analyze -----------------------------
     vparity = cases.load_parity_volumes()
@@ -1990,6 +2359,13 @@ def main() -> int:
         port, vparity, counted, launches, dev, max_err=max_err)
     expected.update(volume_expected)
     phase("3v", volume_txt)
+
+    # -- phase 3t: one image across a mesh (the tile axis) -------------------
+    tiled_txt, tiled_expected, tiled_inputs = phase3_tiled(
+        port, parity, tparity, counted, dev)
+    for path, nonzero in tiled_expected.items():
+        expected[path] = launches(**nonzero)
+    phase("3t", tiled_txt)
 
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
@@ -2045,6 +2421,7 @@ def main() -> int:
     batch = time_batch_kernels(device_batches, dev)
     time_batch_walls(port, device_batches)
     time_volume_walls(volume_walls)
+    shard = time_tiled(parity, tiled_inputs[0], dev)
     cfg = port.EncodeConfig()
 
     def cycle_of(name, config):
@@ -2085,6 +2462,12 @@ def main() -> int:
         ("raster_extract_batch", "raster_extract.cu", "pallas_embed.py:386",
          batch[2048]["k2"], batch[2048]["k2_plain"],
          batch[2048]["k2_bound"]),
+        ("pee_embed_shard", "pee_embed.cu", "pallas_pee.py:481",
+         shard["k3_pass0"]["ms"], shard["k3_pass0"]["plain_ms"],
+         shard["k3_pass0"]["bound"]),
+        ("pee_extract_shard", "pee_extract.cu", "pallas_pee.py:670",
+         shard["k4_pass1"]["ms"], shard["k4_pass1"]["plain_ms"],
+         shard["k4_pass1"]["bound"]),
     )
     kernels = [
         {"name": name, "route": "cuda",

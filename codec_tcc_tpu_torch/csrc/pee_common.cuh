@@ -10,6 +10,12 @@
 // `_geometry`: the in-set pixels of a pass are the interior pixels of one
 // checkerboard colour, and their count before any raster position is a
 // function of (y, x) alone, so no scan is needed for it.
+//
+// Shard mode (BAND = true; pallas_pee.py `pos_base`/`rank_base`): the
+// kernels run on a band of lh rows of an image h rows tall, whose first row
+// is global row row0. The geometry takes the global row, the neighbours of
+// the band's first and last rows come from the rows `top` and `bot` (the
+// next bands' edge rows), and a run stops at the band's end.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -32,7 +38,7 @@ __device__ __forceinline__ bool pee_in_set(int y, int x, int h, int w,
 }
 
 // The number of in-set pixels before raster position (y, x), 0 <= x < w,
-// any y >= 0 (ops/pee.py `_set_rank` counts the same set). Interior rows
+// any y >= 0 (ops/pee.py `_band_geometry` counts the same set). Interior rows
 // alternate between (w - 1) / 2 and (w - 2) / 2 in-set pixels; inside an
 // interior row they are the odd or the even columns in [1, w - 2].
 __device__ __forceinline__ int pee_set_count_before(int y, int x, int h,
@@ -193,6 +199,24 @@ __device__ __forceinline__ void pee_load_scalar(const T* __restrict__ base,
     }
 }
 
+// Elements [start, start + RUN) of a band of n elements in rows of w, with
+// the row above it at indices -w .. -1 (`top`) and the row below it at
+// n .. n + w - 1 (`bot`); the ones further out read as 0.
+template <typename T, int RUN>
+__device__ __forceinline__ void pee_load_band_scalar(
+    const T* __restrict__ base, const T* __restrict__ top,
+    const T* __restrict__ bot, int start, int n, int w, T (&v)[RUN]) {
+#pragma unroll
+    for (int k = 0; k < RUN; ++k) {
+        const int i = start + k;
+        v[k] = i < -w       ? T(0)
+               : i < 0      ? top[i + w]
+               : i < n      ? base[i]
+               : i < n + w  ? bot[i - n]
+                            : T(0);
+    }
+}
+
 // Elements [start, start + RUN) of `v` into `base` (start >= 0), the ones at
 // or past n dropped.
 template <typename T, int RUN>
@@ -273,15 +297,18 @@ __device__ __forceinline__ unsigned pee_load_nonzero16(
 // Inside one interior row they are every other pixel from k0 = (x0 + y0 +
 // parity) & 1, and `mode` becomes k0 where the caller's loads allow it to
 // take only those (`vec`); elsewhere, and for a run that crosses a row end,
-// `mode` is 2: pixel by pixel.
-template <int RUN>
+// `mode` is 2: pixel by pixel. BAND: p0 and n are the band's, y0 comes back
+// global (row0 + the local row) and a run stops at the band's end.
+template <int RUN, bool BAND = false>
 __device__ __forceinline__ unsigned pee_run_in_set(int p0, int h, int w,
                                                    int parity, bool vec,
                                                    int& mode, int& y0,
-                                                   int& x0) {
+                                                   int& x0, int row0 = 0,
+                                                   int n = 0) {
     static_assert(RUN <= 16, "masks of 32 bits, with room for 2u << k");
     y0 = p0 / w;
     x0 = p0 - y0 * w;
+    if (BAND) y0 += row0;
     mode = 2;
     unsigned in_set = 0;
     if (x0 + RUN <= w) {
@@ -297,7 +324,9 @@ __device__ __forceinline__ unsigned pee_run_in_set(int p0, int h, int w,
         int y = y0, x = x0;
 #pragma unroll
         for (int k = 0; k < RUN; ++k) {   // false past n (y >= h)
-            if (pee_in_set(y, x, h, w, parity)) in_set |= 1u << k;
+            if (pee_in_set(y, x, h, w, parity) && (!BAND || p0 + k < n)) {
+                in_set |= 1u << k;
+            }
             if (++x == w) {
                 x = 0;
                 ++y;

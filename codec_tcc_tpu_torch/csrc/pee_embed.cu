@@ -62,6 +62,23 @@
 // message loads that need the rank; the body alone (loads, classify,
 // scan, apply, stores) takes about twice the time of a plain copy of the
 // same bytes.
+//
+// Shard mode (BAND, pallas_pee.py `pos_base`/`rank_base` :481-489, :536,
+// reached through embed_pass_batch(shard=...) :876-942; its plain version
+// is ops/pee.py `embed_pass_band`): the launch takes one band of lh rows
+// per image, with the rows above and below it (`top`, `bot`), its first
+// global row `row0` and the eligible count of the rows above it
+// (`rank_base`); `h` is the image's height and `want` the whole pass's. The
+// geometry runs on global rows, and the tiles' ranks, from the look-back
+// over the band's own tiles, are offset by rank_base. The band's first and
+// last rows take their neighbours from top/bot by scalar loads (a pointer
+// into each row; no padded copy of the band). Outputs: the band's stego and
+// overflow, its own eligible count (in cap; every tile counts, so it is
+// exact) and nproc = the largest set rank the band processes: the
+// want-th eligible pixel's, or the band's last in-set pixel's when the
+// whole band is processed (want > rank_base + its count), else 0. No
+// saturation fixup: the caller combines the bands (used = min(want, cap),
+// nproc = H*W when want > cap).
 #include "pee_common.cuh"
 
 // Classifies pixels k = K0, K0 + STEP, ... of a run, from the run `c`, the
@@ -120,7 +137,8 @@ __device__ __forceinline__ void pee_embed_apply(
     }
 }
 
-template <typename T>
+// BAND: h is the image's height, lh the band's rows (see the header).
+template <typename T, bool BAND>
 __global__ void __launch_bounds__(PEE_THREADS)
 pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
                  long long msg_len, const int* __restrict__ msg_base,
@@ -129,7 +147,10 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
                  uint8_t* __restrict__ over, int* __restrict__ used,
                  int* __restrict__ nproc, int* __restrict__ cap,
                  unsigned* __restrict__ ticket,
-                 unsigned long long* __restrict__ status) {
+                 unsigned long long* __restrict__ status,
+                 const T* __restrict__ top, const T* __restrict__ bot,
+                 const int* __restrict__ row0p,
+                 const int* __restrict__ rank_base, int lh) {
     constexpr int RUN = PEE_RUN;
     static_assert(RUN == 16, "the run's masks and overflow bytes are 16 wide");
     __shared__ int s_tile, s_prefix;
@@ -137,11 +158,12 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
     const int g = pee_take_ticket(ticket, &s_tile);
     const int b = g / tiles;
     const int tile = g - b * tiles;
-    const int n = h * w;
+    const int n = (BAND ? lh : h) * w;
     const long long img_off = (long long)b * n;
     const T* im = img + img_off;
     const int p0 = tile * PEE_TILE_PX + threadIdx.x * RUN;
     const bool live = p0 < n;
+    const int row0 = BAND ? row0p[b] : 0;
 
     // 1. the run, its rows above and below and its row neighbours, all
     // loads issued before any is used
@@ -159,8 +181,15 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
         left = p0 > 0 ? im[p0 - 1] : 0;
         right = p0 + RUN < n ? im[p0 + RUN] : 0;
         pee_load_scalar(im, p0, n, c);
-        pee_load_scalar(im, p0 - w, n, up);
-        pee_load_scalar(im, p0 + w, n, dn);
+        if (BAND) {   // the band's first and last rows: top and bot
+            pee_load_band_scalar(im, top + (long long)b * w,
+                                 bot + (long long)b * w, p0 - w, n, w, up);
+            pee_load_band_scalar(im, top + (long long)b * w,
+                                 bot + (long long)b * w, p0 + w, n, w, dn);
+        } else {
+            pee_load_scalar(im, p0 - w, n, up);
+            pee_load_scalar(im, p0 + w, n, dn);
+        }
     }
 
     // 2. the in-set pixels of the run. Inside one interior row they are
@@ -170,7 +199,8 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
     int mode = 2;
     if (live) {
         int y0, x0;
-        in_set = pee_run_in_set<RUN>(p0, h, w, parity, vec, mode, y0, x0);
+        in_set = pee_run_in_set<RUN, BAND>(p0, h, w, parity, vec, mode, y0,
+                                           x0, row0, n);
     }
 
     // 3. classify: x | alt << 16 per pixel, expandable and overflow bits
@@ -203,13 +233,24 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
         if (threadIdx.x == 0) s_prefix = (int)excl;
     }
     __syncthreads();
-    const int prefix = s_prefix;
+    const int rbase = BAND ? rank_base[b] : 0;
+    const int prefix = rbase + s_prefix;
     const int wv = want[b];
     if (tile == tiles - 1 && threadIdx.x == 0) {
         const int total = prefix + agg;
-        cap[b] = total;
-        used[b] = min(wv, total);
-        if (wv > total) nproc[b] = n;   // saturated: the whole set is processed
+        if (BAND) {
+            cap[b] = total - rbase;   // the band's own count
+            // the whole band is processed: its last in-set pixel
+            const int end = pee_set_count_before(row0 + lh, 0, h, w, parity);
+            if (wv > total &&
+                end > pee_set_count_before(row0, 0, h, w, parity)) {
+                nproc[b] = end;
+            }
+        } else {
+            cap[b] = total;
+            used[b] = min(wv, total);
+            if (wv > total) nproc[b] = n;   // saturated: the whole set
+        }
     }
     if (!live) return;
 
@@ -227,7 +268,7 @@ pee_embed_kernel(const T* __restrict__ img, const uint8_t* __restrict__ msg,
         proc = in_set & ((2u << kw) - 1u);
         const int pos = p0 + kw;
         const int y = pos / w;
-        nproc[b] = pee_set_rank(y, pos - y * w, h, w, parity);
+        nproc[b] = pee_set_rank(row0 + y, pos - y * w, h, w, parity);
     }
     // the processed eligible pixels embed the run's message bits, which are
     // consecutive: load them all first, one byte each
@@ -271,34 +312,44 @@ static long long pee_embed_status_offset(int batch) {
     return (3LL * batch + 2) & ~1LL;   // 3B + 1 rounded up to even
 }
 
-template <typename T>
+// BAND: h is the image's height and lh the band's rows; top, bot, row0 and
+// rank_base as in the header. Whole images: lh = h and the rest null.
+template <typename T, bool BAND>
 static int launch_pee_embed(const void* img, const void* msg,
                             long long msg_len, const int* msg_base,
                             const int* want, int batch, int h, int w,
                             int parity, int t, int max_val, void* stego,
-                            void* over, int* scratch, void* stream) {
-    // int pixel indices: n + w plus a tile stays below 2**31
+                            void* over, int* scratch, void* stream,
+                            const void* top = nullptr,
+                            const void* bot = nullptr,
+                            const int* row0 = nullptr,
+                            const int* rank_base = nullptr, int lh = 0) {
+    if (!BAND) lh = h;
+    // int pixel indices: n + w plus a tile stays below 2**31, and so do the
+    // image's set ranks (below h * w)
     // max_val < 2**16: a processed pixel's alt is packed in 16 bits
-    if (batch < 1 || h < 1 || w < 1 || msg_len < 1 ||
+    if (batch < 1 || h < 1 || w < 1 || lh < 1 || lh > h || msg_len < 1 ||
         (parity != 0 && parity != 1) || t < 1 || max_val < 0 ||
         max_val > 0xffff ||
         ((long long)h + 1) * w > 0x7fffffffLL - PEE_TILE_PX ||
-        batch * pee_tiles(h, w) > 0x7fffffffLL) {
+        batch * pee_tiles(lh, w) > 0x7fffffffLL ||
+        (BAND && (!top || !bot || !row0 || !rank_base))) {
         return (int)cudaErrorInvalidValue;
     }
-    const long long tiles = pee_tiles(h, w);
+    const long long tiles = pee_tiles(lh, w);
     const long long st_off = pee_embed_status_offset(batch);
     cudaStream_t s = (cudaStream_t)stream;
     int err = (int)cudaMemsetAsync(
         scratch, 0, (size_t)(st_off + 2 * batch * tiles) * sizeof(int), s);
     if (err) return err;
-    pee_embed_kernel<T>
+    pee_embed_kernel<T, BAND>
         <<<(unsigned)(batch * tiles), PEE_THREADS, 0, s>>>(
             (const T*)img, (const uint8_t*)msg, msg_len, msg_base, want, h, w,
             parity, t, max_val, (int)tiles, (T*)stego, (uint8_t*)over,
             scratch, scratch + batch, scratch + 2 * batch,
             (unsigned*)(scratch + 3 * batch),
-            (unsigned long long*)(scratch + st_off));
+            (unsigned long long*)(scratch + st_off), (const T*)top,
+            (const T*)bot, row0, rank_base, lh);
     return (int)cudaGetLastError();
 }
 
@@ -318,18 +369,48 @@ int pee_embed_u8(const void* img, const void* msg, long long msg_len,
                  const int* msg_base, const int* want, int batch, int h, int w,
                  int parity, int t, int max_val, void* stego, void* over,
                  int* scratch, void* stream) {
-    return launch_pee_embed<uint8_t>(img, msg, msg_len, msg_base, want, batch,
-                                     h, w, parity, t, max_val, stego, over,
-                                     scratch, stream);
+    return launch_pee_embed<uint8_t, false>(img, msg, msg_len, msg_base,
+                                            want, batch, h, w, parity, t,
+                                            max_val, stego, over, scratch,
+                                            stream);
 }
 
 int pee_embed_u16(const void* img, const void* msg, long long msg_len,
                   const int* msg_base, const int* want, int batch, int h,
                   int w, int parity, int t, int max_val, void* stego,
                   void* over, int* scratch, void* stream) {
-    return launch_pee_embed<uint16_t>(img, msg, msg_len, msg_base, want,
-                                      batch, h, w, parity, t, max_val, stego,
-                                      over, scratch, stream);
+    return launch_pee_embed<uint16_t, false>(img, msg, msg_len, msg_base,
+                                             want, batch, h, w, parity, t,
+                                             max_val, stego, over, scratch,
+                                             stream);
+}
+
+// Shard mode: one band of lh rows per image of an image h rows tall. The
+// scratch is pee_embed_scratch_ints(batch, lh, w) int32s; the band's count
+// lands where cap does, nproc where it does, used stays 0.
+int pee_embed_band_u8(const void* img, const void* msg, long long msg_len,
+                      const int* msg_base, const int* want, const void* top,
+                      const void* bot, const int* row0, const int* rank_base,
+                      int batch, int lh, int h, int w, int parity, int t,
+                      int max_val, void* stego, void* over, int* scratch,
+                      void* stream) {
+    return launch_pee_embed<uint8_t, true>(img, msg, msg_len, msg_base, want,
+                                           batch, h, w, parity, t, max_val,
+                                           stego, over, scratch, stream, top,
+                                           bot, row0, rank_base, lh);
+}
+
+int pee_embed_band_u16(const void* img, const void* msg, long long msg_len,
+                       const int* msg_base, const int* want, const void* top,
+                       const void* bot, const int* row0, const int* rank_base,
+                       int batch, int lh, int h, int w, int parity, int t,
+                       int max_val, void* stego, void* over, int* scratch,
+                       void* stream) {
+    return launch_pee_embed<uint16_t, true>(img, msg, msg_len, msg_base,
+                                            want, batch, h, w, parity, t,
+                                            max_val, stego, over, scratch,
+                                            stream, top, bot, row0,
+                                            rank_base, lh);
 }
 
 }  // extern "C"

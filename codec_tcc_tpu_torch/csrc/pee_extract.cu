@@ -54,6 +54,16 @@
 // the ticket's atomic, and a body that takes about 1.8 times a plain copy
 // of the same bytes: at 4 blocks per SM a 2048x2048 image is two waves of
 // tiles that each pay the load latency in full.
+//
+// Shard mode (BAND, pallas_pee.py `pos_base` :670, :691, reached through
+// extract_pass_batch(shard=...) :949; its plain version is ops/pee.py
+// `extract_pass_band`): one band of lh rows per image, with the rows above
+// and below it (`top`, `bot`) and its first global row `row0`; `h` is the
+// image's height and nproc the pass's global boundary. The geometry, the
+// copy test of a tile and the last active tile run on global rows; the
+// band's bits go to its bit row in band rank order from 0, and nbits is the
+// band's count: the caller places a band's bits after the counts of the
+// bands above it.
 #include "pee_common.cuh"
 
 // Restores pixels k = K0, K0 + STEP, ... of a run with bit k of `proc` set
@@ -89,7 +99,8 @@ __device__ __forceinline__ void pee_extract_restore(
 // At least 4 blocks per SM: 64 registers, no spills in the uint16 kernel
 // (uncapped it takes 71 and 3 blocks per SM, about 2 us slower at
 // 2048x2048; PERF.md).
-template <typename T>
+// BAND: h is the image's height, lh the band's rows (see the header).
+template <typename T, bool BAND>
 __global__ void __launch_bounds__(PEE_THREADS, 4)
 pee_extract_kernel(const T* __restrict__ stego,
                    const uint8_t* __restrict__ over,
@@ -97,7 +108,9 @@ pee_extract_kernel(const T* __restrict__ stego,
                    int t, int tiles, long long out_len,
                    T* __restrict__ restored, uint8_t* __restrict__ bits,
                    int* __restrict__ nbits, unsigned* __restrict__ ticket,
-                   unsigned long long* __restrict__ status) {
+                   unsigned long long* __restrict__ status,
+                   const T* __restrict__ top, const T* __restrict__ bot,
+                   const int* __restrict__ row0p, int lh) {
     constexpr int RUN = PEE_RUN;
     static_assert(RUN == 16, "the run's masks and overflow bytes are 16 wide");
     __shared__ int s_tile, s_prefix;
@@ -106,7 +119,7 @@ pee_extract_kernel(const T* __restrict__ stego,
     const int g = pee_take_ticket(ticket, &s_tile);
     const int b = g / tiles;
     const int tile = g - b * tiles;
-    const int n = h * w;
+    const int n = (BAND ? lh : h) * w;
     const long long img_off = (long long)b * n;
     const T* im = stego + img_off;
     T* out_im = restored + img_off;
@@ -114,11 +127,13 @@ pee_extract_kernel(const T* __restrict__ stego,
     const int p0 = tile0 + threadIdx.x * RUN;
     const bool live = p0 < n;
     const int np = nproc[b];
+    const int row0 = BAND ? row0p[b] : 0;
 
     // 1. a tile whose first in-set pixel lies past nproc is a pure copy
     {
         const int ty = tile0 / w;
-        if (pee_set_count_before(ty, tile0 - ty * w, h, w, parity) >= np) {
+        if (pee_set_count_before(row0 + ty, tile0 - ty * w, h, w, parity) >=
+            np) {
             if (!live) return;
             T c[RUN];
             if (p0 + RUN <= n && ((uintptr_t)(im + p0) & 15) == 0) {
@@ -148,8 +163,15 @@ pee_extract_kernel(const T* __restrict__ stego,
         left = p0 > 0 ? im[p0 - 1] : 0;
         right = p0 + RUN < n ? im[p0 + RUN] : 0;
         pee_load_scalar(im, p0, n, c);
-        pee_load_scalar(im, p0 - w, n, up);
-        pee_load_scalar(im, p0 + w, n, dn);
+        if (BAND) {   // the band's first and last rows: top and bot
+            pee_load_band_scalar(im, top + (long long)b * w,
+                                 bot + (long long)b * w, p0 - w, n, w, up);
+            pee_load_band_scalar(im, top + (long long)b * w,
+                                 bot + (long long)b * w, p0 + w, n, w, dn);
+        } else {
+            pee_load_scalar(im, p0 - w, n, up);
+            pee_load_scalar(im, p0 + w, n, dn);
+        }
     }
     if (live) ovm = pee_load_nonzero16(over + img_off, p0, n);
 
@@ -160,7 +182,8 @@ pee_extract_kernel(const T* __restrict__ stego,
     int mode = 2;
     if (live) {
         int y0, x0;
-        in_set = pee_run_in_set<RUN>(p0, h, w, parity, vec, mode, y0, x0);
+        in_set = pee_run_in_set<RUN, BAND>(p0, h, w, parity, vec, mode, y0,
+                                           x0, row0, n);
         const long long room =
             (long long)np - pee_set_count_before(y0, x0, h, w, parity);
         proc = in_set;
@@ -238,7 +261,8 @@ pee_extract_kernel(const T* __restrict__ stego,
         const int next0 = tile0 + PEE_TILE_PX;
         const int ny = next0 / w;
         if (tile == tiles - 1 ||
-            pee_set_count_before(ny, next0 - ny * w, h, w, parity) >= np) {
+            pee_set_count_before(row0 + ny, next0 - ny * w, h, w, parity) >=
+                np) {
             nbits[b] = prefix + agg;
         }
     }
@@ -257,31 +281,41 @@ extern "C" long long pee_extract_scratch_bytes(int batch, int h, int w) {
     return pee_extract_status_offset(batch) + 8LL * batch * pee_tiles(h, w);
 }
 
-template <typename T>
+// BAND: h is the image's height and lh the band's rows; top, bot and row0
+// as in the header. Whole images: lh = h and the rest null.
+template <typename T, bool BAND>
 static int launch_pee_extract(const void* stego, const void* over,
                               const int* nproc, int batch, int h, int w,
                               int parity, int t, long long out_len,
-                              void* restored, void* buf, void* stream) {
-    // int pixel indices: n + w plus a tile stays below 2**31
-    if (batch < 1 || h < 1 || w < 1 || out_len < 1 ||
+                              void* restored, void* buf, void* stream,
+                              const void* top = nullptr,
+                              const void* bot = nullptr,
+                              const int* row0 = nullptr, int lh = 0) {
+    if (!BAND) lh = h;
+    // int pixel indices: n + w plus a tile stays below 2**31, and so do the
+    // image's set ranks (below h * w)
+    if (batch < 1 || h < 1 || w < 1 || lh < 1 || lh > h || out_len < 1 ||
         (parity != 0 && parity != 1) || t < 1 ||
         ((long long)h + 1) * w > 0x7fffffffLL - PEE_TILE_PX ||
-        batch * pee_tiles(h, w) > 0x7fffffffLL) {
+        batch * pee_tiles(lh, w) > 0x7fffffffLL ||
+        (BAND && (!top || !bot || !row0))) {
         return (int)cudaErrorInvalidValue;
     }
-    const long long tiles = pee_tiles(h, w);
-    const long long scratch = pee_extract_scratch_bytes(batch, h, w);
+    const long long tiles = pee_tiles(lh, w);
+    const long long scratch = pee_extract_scratch_bytes(batch, lh, w);
     uint8_t* base = (uint8_t*)buf;
     cudaStream_t s = (cudaStream_t)stream;
     // zeroes nbits, the ticket, the status words and the bit rows at once
     int err = (int)cudaMemsetAsync(buf, 0,
                                    (size_t)(scratch + batch * out_len), s);
     if (err) return err;
-    pee_extract_kernel<T><<<(unsigned)(batch * tiles), PEE_THREADS, 0, s>>>(
-        (const T*)stego, (const uint8_t*)over, nproc, h, w, parity, t,
-        (int)tiles, out_len, (T*)restored, base + scratch, (int*)base,
-        (unsigned*)(base + 4LL * batch),
-        (unsigned long long*)(base + pee_extract_status_offset(batch)));
+    pee_extract_kernel<T, BAND>
+        <<<(unsigned)(batch * tiles), PEE_THREADS, 0, s>>>(
+            (const T*)stego, (const uint8_t*)over, nproc, h, w, parity, t,
+            (int)tiles, out_len, (T*)restored, base + scratch, (int*)base,
+            (unsigned*)(base + 4LL * batch),
+            (unsigned long long*)(base + pee_extract_status_offset(batch)),
+            (const T*)top, (const T*)bot, row0, lh);
     return (int)cudaGetLastError();
 }
 
@@ -291,18 +325,41 @@ int pee_extract_u8(const void* stego, const void* over, const int* nproc,
                    int batch, int h, int w, int parity, int t,
                    long long out_len, void* restored, void* buf,
                    void* stream) {
-    return launch_pee_extract<uint8_t>(stego, over, nproc, batch, h, w,
-                                       parity, t, out_len, restored, buf,
-                                       stream);
+    return launch_pee_extract<uint8_t, false>(stego, over, nproc, batch, h,
+                                              w, parity, t, out_len,
+                                              restored, buf, stream);
 }
 
 int pee_extract_u16(const void* stego, const void* over, const int* nproc,
                     int batch, int h, int w, int parity, int t,
                     long long out_len, void* restored, void* buf,
                     void* stream) {
-    return launch_pee_extract<uint16_t>(stego, over, nproc, batch, h, w,
-                                        parity, t, out_len, restored, buf,
-                                        stream);
+    return launch_pee_extract<uint16_t, false>(stego, over, nproc, batch, h,
+                                               w, parity, t, out_len,
+                                               restored, buf, stream);
+}
+
+// Shard mode: one band of lh rows per image of an image h rows tall; the
+// buffer is pee_extract_scratch_bytes(batch, lh, w) + batch * out_len bytes.
+int pee_extract_band_u8(const void* stego, const void* over, const int* nproc,
+                        const void* top, const void* bot, const int* row0,
+                        int batch, int lh, int h, int w, int parity, int t,
+                        long long out_len, void* restored, void* buf,
+                        void* stream) {
+    return launch_pee_extract<uint8_t, true>(stego, over, nproc, batch, h, w,
+                                             parity, t, out_len, restored,
+                                             buf, stream, top, bot, row0, lh);
+}
+
+int pee_extract_band_u16(const void* stego, const void* over,
+                         const int* nproc, const void* top, const void* bot,
+                         const int* row0, int batch, int lh, int h, int w,
+                         int parity, int t, long long out_len, void* restored,
+                         void* buf, void* stream) {
+    return launch_pee_extract<uint16_t, true>(stego, over, nproc, batch, h,
+                                              w, parity, t, out_len,
+                                              restored, buf, stream, top, bot,
+                                              row0, lh);
 }
 
 }  // extern "C"

@@ -118,6 +118,13 @@ def library() -> ctypes.CDLL:
         # buf (scratch with nbits at its front, then the bit rows), stream
         "pee_extract": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, ptr,
                         ptr, ptr],
+        # their shard mode: K3's arguments with top, bottom, row0 and
+        # rank_base after want, and batch, lh, h, w for batch, h, w
+        "pee_embed_band": [ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, i32,
+                           i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr],
+        # K4's with top, bottom and row0 after nproc, and batch, lh, h, w
+        "pee_extract_band": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                             i32, i32, i32, i64, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():
         for dt in ("u8", "u16"):

@@ -10,6 +10,13 @@
 :func:`embed_both_passes` and :func:`extract_both_passes` chain two calls of
 a wrapper, pass 1's base and budget taken from pass 0's device results.
 
+Both wrappers take ``shard=``: the kernel's shard mode, one band of rows of
+a larger image per batch entry (the counterpart of the Pallas kernels'
+``pos_base``/``rank_base``, reached there through
+``embed_pass_batch(shard=...)``/``extract_pass_batch(shard=...)``). Its
+plain versions are :func:`.pee.embed_pass_band` and
+:func:`.pee.extract_pass_band`; :mod:`..parallel.tile_pee` is its caller.
+
 Both kernels take a batch: images ``(B, H, W)`` of any geometry with
 per-image ``(B,)`` int32 tensors on the same device, so a pass's base and
 budget can be the previous pass's device results. A wrapper given CUDA tensors
@@ -22,7 +29,8 @@ into one library (:mod:`.kernel_library`).
 calls do not count. A call of either wrapper is one memset and ONE kernel
 launch: the tiles' global ranks come from a decoupled look-back
 (``csrc/pee_common.cuh``). K3's memset zeroes its scratch, K4's its scratch
-and the bit rows, which share one allocation.
+and the bit rows, which share one allocation. Shard-mode launches count
+under ``pee_embed_shard`` and ``pee_extract_shard``.
 """
 
 from __future__ import annotations
@@ -45,7 +53,8 @@ __all__ = [
     "reset_launch_counts",
 ]
 
-LAUNCHES = {"pee_embed": 0, "pee_extract": 0}
+LAUNCHES = {"pee_embed": 0, "pee_extract": 0, "pee_embed_shard": 0,
+            "pee_extract_shard": 0}
 
 
 def reset_launch_counts() -> None:
@@ -80,14 +89,39 @@ def _check_pass(parity: int, t: int) -> None:
         raise ValueError(f"threshold t must be >= 1, got {t}")
 
 
+def _check_band(band: torch.Tensor, top, bottom, height: int,
+                **scalars) -> None:
+    """A shard-mode band: ``top``/``bottom`` ``(B, W)`` rows of its dtype on
+    its device, ``(B,)`` int32 scalars, and a height that holds it."""
+    b, lh, w = band.shape
+    for name, row in (("top", top), ("bottom", bottom)):
+        if row.dtype != band.dtype or row.shape != (b, w) \
+                or row.device != band.device:
+            raise ValueError(
+                f"{name} must be a (B, W) = ({b}, {w}) {band.dtype} tensor "
+                f"on {band.device}, got {row.dtype} {tuple(row.shape)} on "
+                f"{row.device}")
+    _check_scalars(b, band.device, **scalars)
+    if not lh <= height or height * w >= 1 << 31:
+        raise ValueError(f"height {height} must hold the band's {lh} rows "
+                         f"and keep {height} x {w} below 2**31 pixels")
+
+
 # ---------------------------------------------------------------------------
 # K3: one PEE embed pass
 # ---------------------------------------------------------------------------
 
 
 def pee_embed_plain(imgs, msg, msg_base, want, parity: int, t: int,
-                    max_val: int) -> Tuple[torch.Tensor, ...]:
-    """Plain torch version of K3: :func:`.pee.embed_pass`."""
+                    max_val: int, *, shard=None) -> Tuple[torch.Tensor, ...]:
+    """Plain torch version of K3: :func:`.pee.embed_pass`, or with
+    ``shard=(top, bottom, row0, rank_base, height)``
+    :func:`.pee.embed_pass_band`."""
+    if shard is not None:
+        top, bottom, row0, rank_base, height = shard
+        return pee_ops.embed_pass_band(imgs, top, bottom, row0, rank_base,
+                                       msg, msg_base, want, parity, t,
+                                       max_val, height)
     return pee_ops.embed_pass(imgs, msg, msg_base, want, parity, t, max_val)
 
 
@@ -99,11 +133,23 @@ def pee_embed(
     parity: int,
     t: int,
     max_val: int,
+    *,
+    shard=None,
 ) -> Tuple[torch.Tensor, ...]:
     """K3: one PEE pass. Returns ``(stego, overflow u8, used, nproc, cap)``
     with ``used = min(want, cap)`` and ``nproc = H*W`` where ``want > cap``
     (see :func:`.pee.embed_pass`). Message indices are clamped to
-    ``[0, L)``."""
+    ``[0, L)``.
+
+    ``shard=(top, bottom, row0, rank_base, height)`` runs the shard mode:
+    ``imgs`` is then one band of rows per image of an image ``height`` rows
+    tall, ``top``/``bottom`` ``(B, W)`` the rows above and below it (its own
+    edge rows at the image's border), ``row0`` and ``rank_base`` ``(B,)``
+    int32 its first global row and the eligible count of the rows above
+    it, and ``want`` the whole pass's budget. Returns ``(stego, overflow
+    u8, count, nproc)``, the band's eligible count and largest processed
+    set rank (see :func:`.pee.embed_pass_band`); the caller combines the
+    bands."""
     _check_images(imgs, "imgs")
     _check_pass(parity, t)
     b, h, w = imgs.shape
@@ -118,8 +164,13 @@ def pee_embed(
     if not 0 <= max_val < 1 << 16:
         raise ValueError(f"max_val {max_val} outside [0, 65535]: the "
                          f"kernels' pixel arithmetic holds 16 bits")
+    if shard is not None:
+        top, bottom, row0, rank_base, height = shard
+        _check_band(imgs, top, bottom, height, row0=row0,
+                    rank_base=rank_base)
     if imgs.device.type == "cpu":
-        return pee_embed_plain(imgs, msg, msg_base, want, parity, t, max_val)
+        return pee_embed_plain(imgs, msg, msg_base, want, parity, t, max_val,
+                               shard=shard)
     if imgs.device.type != "cuda":
         raise ValueError(f"pee_embed runs on cuda or cpu, not {imgs.device}")
     imgs = imgs.contiguous()
@@ -134,16 +185,33 @@ def pee_embed(
     # kernel zeroes it all with one memset before its one launch
     scratch = torch.empty(lib.pee_embed_scratch_ints(b, h, w),
                           dtype=torch.int32, device=dev)
-    fn = lib.pee_embed_u8 if imgs.dtype == torch.uint8 else lib.pee_embed_u16
+    u16 = imgs.dtype == torch.uint16
+    if shard is None:
+        fn = lib.pee_embed_u16 if u16 else lib.pee_embed_u8
+        err = fn(
+            imgs.data_ptr(), msg.data_ptr(), msg.shape[1],
+            msg_base.data_ptr(), want.data_ptr(), b, h, w, parity, t,
+            max_val, stego.data_ptr(), over.data_ptr(), scratch.data_ptr(),
+            stream_ptr(imgs),
+        )
+        check(lib, err, "pee_embed")
+        LAUNCHES["pee_embed"] += 1
+        used, nproc, cap = scratch[:3 * b].view(3, b)
+        return stego, over, used, nproc, cap
+    top, bottom = top.contiguous(), bottom.contiguous()
+    row0, rank_base = row0.contiguous(), rank_base.contiguous()
+    fn = lib.pee_embed_band_u16 if u16 else lib.pee_embed_band_u8
     err = fn(
         imgs.data_ptr(), msg.data_ptr(), msg.shape[1], msg_base.data_ptr(),
-        want.data_ptr(), b, h, w, parity, t, max_val, stego.data_ptr(),
-        over.data_ptr(), scratch.data_ptr(), stream_ptr(imgs),
+        want.data_ptr(), top.data_ptr(), bottom.data_ptr(), row0.data_ptr(),
+        rank_base.data_ptr(), b, h, height, w, parity, t, max_val,
+        stego.data_ptr(), over.data_ptr(), scratch.data_ptr(),
+        stream_ptr(imgs),
     )
-    check(lib, err, "pee_embed")
-    LAUNCHES["pee_embed"] += 1
-    used, nproc, cap = scratch[:3 * b].view(3, b)
-    return stego, over, used, nproc, cap
+    check(lib, err, "pee_embed (shard mode)")
+    LAUNCHES["pee_embed_shard"] += 1
+    _, nproc, count = scratch[:3 * b].view(3, b)
+    return stego, over, count, nproc
 
 
 # ---------------------------------------------------------------------------
@@ -152,8 +220,13 @@ def pee_embed(
 
 
 def pee_extract_plain(stego, overflow, nproc, parity: int, t: int,
-                      out_len: int) -> Tuple[torch.Tensor, ...]:
-    """Plain torch version of K4: :func:`.pee.extract_pass`."""
+                      out_len: int, *, shard=None) -> Tuple[torch.Tensor, ...]:
+    """Plain torch version of K4: :func:`.pee.extract_pass`, or with
+    ``shard=(top, bottom, row0, height)`` :func:`.pee.extract_pass_band`."""
+    if shard is not None:
+        top, bottom, row0, height = shard
+        return pee_ops.extract_pass_band(stego, top, bottom, row0, overflow,
+                                         nproc, parity, t, out_len, height)
     return pee_ops.extract_pass(stego, overflow, nproc, parity, t, out_len)
 
 
@@ -164,10 +237,17 @@ def pee_extract(
     parity: int,
     t: int,
     out_len: int,
+    *,
+    shard=None,
 ) -> Tuple[torch.Tensor, ...]:
     """K4: invert one PEE pass. Returns ``(restored, bits (B, out_len)
     uint8, nbits (B,) int32)``; bits of ranks at or past ``out_len`` are
-    dropped (see :func:`.pee.extract_pass`)."""
+    dropped (see :func:`.pee.extract_pass`).
+
+    ``shard=(top, bottom, row0, height)`` runs the shard mode on one band
+    of rows per image (as in :func:`pee_embed`), ``nproc`` the pass's
+    global boundary: the bits are the band's, in band rank order from 0,
+    and ``nbits`` their count (see :func:`.pee.extract_pass_band`)."""
     _check_images(stego, "stego")
     _check_pass(parity, t)
     b, h, w = stego.shape
@@ -180,8 +260,12 @@ def pee_extract(
             f"{tuple(stego.shape)} on {stego.device}, got {overflow.dtype} "
             f"{tuple(overflow.shape)}")
     _check_scalars(b, stego.device, nproc=nproc)
+    if shard is not None:
+        top, bottom, row0, height = shard
+        _check_band(stego, top, bottom, height, row0=row0)
     if stego.device.type == "cpu":
-        return pee_extract_plain(stego, overflow, nproc, parity, t, out_len)
+        return pee_extract_plain(stego, overflow, nproc, parity, t, out_len,
+                                 shard=shard)
     if stego.device.type != "cuda":
         raise ValueError(f"pee_extract runs on cuda or cpu, not {stego.device}")
     stego = stego.contiguous()
@@ -196,14 +280,28 @@ def pee_extract(
     nscratch = lib.pee_extract_scratch_bytes(b, h, w)
     buf = torch.empty(nscratch + b * out_len, dtype=torch.uint8,
                       device=stego.device)
-    fn = (lib.pee_extract_u8 if stego.dtype == torch.uint8
-          else lib.pee_extract_u16)
-    err = fn(
-        stego.data_ptr(), over.data_ptr(), nproc.data_ptr(), b, h, w, parity,
-        t, out_len, restored.data_ptr(), buf.data_ptr(), stream_ptr(stego),
-    )
-    check(lib, err, "pee_extract")
-    LAUNCHES["pee_extract"] += 1
+    u16 = stego.dtype == torch.uint16
+    if shard is None:
+        fn = lib.pee_extract_u16 if u16 else lib.pee_extract_u8
+        err = fn(
+            stego.data_ptr(), over.data_ptr(), nproc.data_ptr(), b, h, w,
+            parity, t, out_len, restored.data_ptr(), buf.data_ptr(),
+            stream_ptr(stego),
+        )
+        check(lib, err, "pee_extract")
+        LAUNCHES["pee_extract"] += 1
+    else:
+        top, bottom, row0 = (top.contiguous(), bottom.contiguous(),
+                             row0.contiguous())
+        fn = lib.pee_extract_band_u16 if u16 else lib.pee_extract_band_u8
+        err = fn(
+            stego.data_ptr(), over.data_ptr(), nproc.data_ptr(),
+            top.data_ptr(), bottom.data_ptr(), row0.data_ptr(), b, h, height,
+            w, parity, t, out_len, restored.data_ptr(), buf.data_ptr(),
+            stream_ptr(stego),
+        )
+        check(lib, err, "pee_extract (shard mode)")
+        LAUNCHES["pee_extract_shard"] += 1
     nbits = buf[:4 * b].view(torch.int32)
     return restored, buf[nscratch:].view(b, out_len), nbits
 

@@ -80,8 +80,10 @@ def _rows(t: torch.Tensor, idxs) -> torch.Tensor:
 def _resolve(device, mesh) -> torch.device:
     if mesh is not None:
         raise NotImplementedError(
-            "multi-device (mesh) batches are not yet ported to "
-            "codec_tcc_tpu_torch (ROADMAP.md, queue 1: multi-device)"
+            "multi-device (mesh) batches over the 'dp' axis are not yet "
+            "ported to codec_tcc_tpu_torch (ROADMAP.md, queue 1: "
+            "multi-device); one image across a mesh's 'tile' axis is "
+            "parallel.tile / parallel.tile_pee"
         )
     return resolve_device(device)
 
@@ -180,11 +182,14 @@ def encode_pee_batch(
             next_pending: List[int] = []
             for t in sorted({int(t_img[i]) for i in pending}):
                 idxs = [i for i in pending if int(t_img[i]) == t]
-                if len(idxs) == b:
-                    sub_imgs, sub_msgs = imgs_dev, msgs_dev
-                else:
-                    sub_imgs, sub_msgs = _rows(imgs_dev, idxs), _rows(
-                        msgs_dev, idxs)
+                # a group of b entries may hold an image twice (one that
+                # fell short at T and at T + 1 in one round), so the
+                # message rows are always gathered by idxs; the whole-batch
+                # image shortcut is the JAX package's, kept for its bytes
+                # (ROADMAP queue 3, F1-ref)
+                sub_imgs = imgs_dev if len(idxs) == b else _rows(imgs_dev,
+                                                                 idxs)
+                sub_msgs = _rows(msgs_dev, idxs)
                 g_stego, g_over, g_u0, g_n0, g_u1, g_n1 = _run_passes(
                     sub_imgs, sub_msgs, want[idxs], t, max_val,
                 )

@@ -19,6 +19,11 @@ size and sha256; the volume quality reports of ``VOLUME_METRICS_CASES``
 ``cli_analyze_pair``; then the ``capacity_report`` dicts and the
 ``analyze_pair`` reports of ``tests/torch_port_cases.py``.
 
+Under ``tiled`` it records the JAX package's tiled PEE container of the
+2048x2048 case over 1, 2 and 4 bands (``parallel.tile_pee``, XLA route, on
+a mesh of host devices) and the containers of the F1 batch
+(``torch_port_cases.f1_batch``).
+
 Regenerate from the repository root with:
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -34,6 +39,13 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.dirname(HERE))
 sys.path.insert(0, HERE)
+
+# the tiled entries run on a mesh of 8 host devices, as the JAX tests do
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS",
+                                                                 ""):
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                               " --xla_force_host_platform_device_count=8")
 
 import torch_port_cases as cases  # noqa: E402
 
@@ -153,6 +165,38 @@ def cli_analyze_entry() -> dict:
             return {"report": json.load(f)}
 
 
+def tiled_entries() -> dict:
+    """The JAX package's tiled PEE container of ``TILED_PEE`` over each K of
+    ``TILED_KS`` (``encode_array_tiled_pee``, XLA route, on the first K
+    host devices) and the containers of the F1 batch
+    (``parallel.batch_pee.encode_pee_batch``)."""
+    from codec_tcc_tpu import EncodeConfig
+    from codec_tcc_tpu.parallel import batch_pee, mesh, tile_pee
+
+    out = {}
+    case = cases.BY_NAME[cases.TILED_PEE]
+    img = cases.image(case)
+    bits = cases.payload_bits(case, 0)
+    for k in cases.TILED_KS:
+        res = tile_pee.encode_array_tiled_pee(
+            img, bits, case.config(EncodeConfig),
+            mesh.make_mesh(k, ("tile",)), bits_stored=case.bits_stored,
+            backend="xla")
+        out[f"{case.name}_k{k}"] = {
+            "container_len": len(res.container),
+            "container_sha256": cases.sha256(res.container),
+        }
+    imgs, pays = cases.f1_batch()
+    res = batch_pee.encode_pee_batch(
+        imgs, pays, EncodeConfig(strategy="pee",
+                                 pee_threshold=cases.F1_THRESHOLD))
+    out["f1_pee_batch"] = {
+        "container_sha256": [cases.sha256(c) for c in res.containers],
+        "thresholds": [int(t) for t in res.thresholds],
+    }
+    return out
+
+
 def main() -> int:
     metrics: dict = {}
     volumes = {
@@ -174,12 +218,13 @@ def main() -> int:
                      "pipeline.capacity_report, pipeline.analyze_pair",
         "cases": {c.name: jax_entry(c) for c in cases.CASES},
         "volumes": volumes,
+        "tiled": tiled_entries(),
     }
     if os.path.exists(cases.PARITY_JSON):
         # a new case must not move an entry already committed
         with open(cases.PARITY_JSON, encoding="utf-8") as f:
             committed = json.load(f)
-        for section in ("cases", "volumes"):
+        for section in ("cases", "volumes", "tiled"):
             for name, entry in committed.get(section, {}).items():
                 assert out[section].get(name) == entry, (
                     f"{name}: the regenerated entry differs from the "
@@ -187,8 +232,8 @@ def main() -> int:
     with open(cases.PARITY_JSON, "w", encoding="utf-8") as f:
         json.dump(out, f, indent=1, sort_keys=True)
         f.write("\n")
-    print(json.dumps({k: out[k] for k in ("cases", "volumes")}, indent=1,
-                     sort_keys=True))
+    print(json.dumps({k: out[k] for k in ("cases", "volumes", "tiled")},
+                     indent=1, sort_keys=True))
     return 0
 
 

@@ -1,6 +1,7 @@
-"""The port's CUDA kernels on a GPU: K1-K4 and the batch forms of K1/K2
-against their plain versions; the raster, PEE, block_adaptive and
-container batch encode paths against the CPU path; the device block
+"""The port's CUDA kernels on a GPU: K1-K4, the batch forms of K1/K2 and
+the shard mode of K3/K4 against their plain versions; the raster, PEE,
+block_adaptive, container batch and tiled (one image across a mesh of the
+card repeated) encode paths against the CPU path; the device block
 extract against its host twin; the host embed route with no K1. Marked ``cuda``: they skip where no GPU is present and run on the GPU
 machine with
 
@@ -384,13 +385,15 @@ def test_gpu_pee_encode_equals_cpu_encode(cuda):
     cfg = port.EncodeConfig(strategy="pee")
     pk.reset_launch_counts()
     res_g = port.encode_array(img, bits, cfg, bits_stored=12, device=cuda)
-    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 0}
+    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 0,
+                           "pee_embed_shard": 0, "pee_extract_shard": 0}
     res_c = port.encode_array(img, bits, cfg, bits_stored=12, device="cpu")
     assert res_g.container == res_c.container
     dec = port.decode_container(res_g.container, device=cuda)
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
-    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 2}
+    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 2,
+                           "pee_embed_shard": 0, "pee_extract_shard": 0}
 
 
 def test_gpu_pee_batch_equals_cpu_batch(cuda):
@@ -414,7 +417,8 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
         torch.from_numpy(imgs), [100, 900, 400, 304],
         max_value(int(imgs.max()), 16, 12), cfg.pee_threshold)
     groups = cases.pee_attempt_groups(t_start, res_g.thresholds)
-    assert pk.LAUNCHES == {"pee_embed": 2 * groups, "pee_extract": 0}
+    assert pk.LAUNCHES == {"pee_embed": 2 * groups, "pee_extract": 0,
+                           "pee_embed_shard": 0, "pee_extract_shard": 0}
     res_c = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
                                        device="cpu")
     assert len(set(res_g.thresholds.tolist())) > 1
@@ -424,7 +428,8 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
         np.testing.assert_array_equal(dec.original, img)
     assert pk.LAUNCHES == {
         "pee_embed": 2 * groups,
-        "pee_extract": 2 * len(set(res_g.thresholds.tolist()))}
+        "pee_extract": 2 * len(set(res_g.thresholds.tolist())),
+        "pee_embed_shard": 0, "pee_extract_shard": 0}
 
 
 def test_gpu_block_encode_equals_cpu_encode(cuda):
@@ -693,3 +698,118 @@ def test_gpu_volume_equals_cpu_volume(cuda, strategy, dtype):
     assert (pk.LAUNCHES["pee_extract"] > 0) == (strategy == "pee")
     assert bytes(np.packbits(bits)) == payload.encode()
     np.testing.assert_array_equal(original, vol)
+
+
+def _shard_carrier(rng, h, w, dtype, max_val):
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (max_val // 3 + (yy * 7 + xx * 3) % (max_val // 3)
+           + rng.integers(-30, 31, (h, w)))
+    return img.clip(0, max_val).astype(dtype)
+
+
+@pytest.mark.parametrize("h,w,dtype,max_val", [
+    (64, 48, np.uint8, 255), (37, 53, np.uint16, 4095),
+    (257, 130, np.uint16, 4095), (300, 4096, np.uint8, 255)])
+@pytest.mark.parametrize("k", [2, 3, 7])
+def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
+    """K3/K4 in shard mode against their plain band versions, band by band,
+    exact (stego, overflow, count, nproc; restored, bits, nbits), at wants
+    of 0, 1, half the capacity, the capacity and past it, both parities;
+    the bands stitched together equal the whole-image K3/K4."""
+    import torch_tile_cases as tiles
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+
+    rng = np.random.default_rng(h * k)
+    img = torch.from_numpy(_shard_carrier(rng, h, w, dtype, max_val))[None]
+    img = img.to(cuda)
+    msg = torch.from_numpy(rng.integers(0, 2, (1, 1 << 17),
+                                        dtype=np.uint8)).to(cuda)
+    z = torch.zeros(1, dtype=torch.int32, device=cuda)
+    pk.reset_launch_counts()
+    for parity in (0, 1):
+        cap = int(pk.pee_embed_plain(img, msg, z, z, parity, 3, max_val)[4])
+        for want in (0, 1, cap // 2, cap, cap + 5):
+            got, (stego, over, used, nproc) = tiles.embed(
+                pk.pee_embed, img, msg, 3, want, parity, 3, max_val, k)
+            ref, _ = tiles.embed(pk.pee_embed_plain, img, msg, 3, want,
+                                 parity, 3, max_val, k)
+            for g, r in zip(got, ref):
+                for x, y in zip(g, r):
+                    assert torch.equal(x.cpu(), y.cpu())
+            whole = pk.pee_embed(img, msg, z + 3, z + want, parity, 3,
+                                 max_val)
+            assert torch.equal(stego.cpu(), whole[0].cpu())
+            assert torch.equal(over.cpu(), whole[1].cpu())
+            assert (used, nproc) == (int(whole[2][0]), int(whole[3][0]))
+
+            out_len = max(8, 1 << max(used - 1, 0).bit_length())
+            got, (restored, bits, n_bits) = tiles.extract(
+                pk.pee_extract, stego, over, nproc, parity, 3, out_len, k)
+            ref, _ = tiles.extract(pk.pee_extract_plain, stego, over, nproc,
+                                   parity, 3, out_len, k)
+            for g, r in zip(got, ref):
+                for x, y in zip(g, r):
+                    assert torch.equal(x.cpu(), y.cpu())
+            w_r, w_bits, w_n = pk.pee_extract(
+                stego, over, z + nproc, parity, 3, out_len)
+            assert torch.equal(restored.cpu(), w_r.cpu())
+            assert torch.equal(restored.cpu(), img.cpu())
+            assert torch.equal(bits, w_bits[0].cpu())
+            assert n_bits == int(w_n[0]) == used
+    n_bands = len(tiles.bands(h, k))
+    assert pk.LAUNCHES["pee_embed_shard"] == 2 * 5 * n_bands
+    assert pk.LAUNCHES["pee_extract_shard"] == 2 * 5 * n_bands
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_gpu_tiled_pee_equals_single_device(cuda, k):
+    """``encode_array_tiled_pee`` on ``cuda:0`` repeated K times: the
+    single-device container (on the card and on the CPU), one K3 shard
+    launch per band per pass, one K4 per band per inverse pass, and an
+    exact decode."""
+    from codec_tcc_tpu_torch.io.container import parse_pee_ext
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    rng = np.random.default_rng(k)
+    yy, xx = np.mgrid[0:300, 0:256]
+    img = (500 + 200 * np.sin(yy / 23.0) * np.cos(xx / 31.0)
+           + rng.integers(-1, 2, (300, 256))).clip(0, 900).astype(np.uint16)
+    bits = rng.integers(0, 2, 12_000, dtype=np.uint8)
+    cfg = port.EncodeConfig(strategy="pee")
+    mesh = make_mesh(devices=[cuda] * k, axes=("tile",))
+    pk.reset_launch_counts()
+    res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh)
+    embeds = pk.LAUNCHES["pee_embed_shard"]
+    assert pk.LAUNCHES["pee_embed"] == 0
+    single = port.encode_array(img, bits, cfg, device=cuda)
+    assert res.container == single.container == port.encode_array(
+        img, bits, cfg, device="cpu").container
+    passes = parse_pee_ext(res.meta.ext)[1]
+    assert embeds % k == 0 and embeds >= k * passes
+    pk.reset_launch_counts()
+    dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
+    assert pk.LAUNCHES["pee_extract_shard"] == k * passes
+    np.testing.assert_array_equal(dec.payload_bits, bits)
+    np.testing.assert_array_equal(dec.original, img)
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "block_adaptive"])
+def test_gpu_tiled_raster_equals_single_device(cuda, strategy):
+    """``encode_array_tiled`` over 4 bands on the card: the CPU
+    single-device container, decoded exactly, with no kernel launched."""
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile
+
+    img = np.random.default_rng(5).integers(0, 4096, (509, 512)).astype(
+        np.uint16)
+    payload = np.random.default_rng(6).bytes(20_000)
+    cfg = port.EncodeConfig(strategy=strategy)
+    mesh = make_mesh(devices=[cuda] * 4, axes=("tile",))
+    rk.reset_launch_counts()
+    res = tile.encode_array_tiled(img, payload, cfg, mesh, bits_stored=12)
+    assert res.container == port.encode_array(
+        img, payload, cfg, bits_stored=12, device="cpu").container
+    dec = tile.decode_container_tiled(res.container, mesh)
+    assert set(rk.LAUNCHES.values()) == {0}
+    assert dec.payload == payload
+    np.testing.assert_array_equal(dec.original, img)

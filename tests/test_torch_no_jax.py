@@ -2,7 +2,8 @@
 cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
 the CPU (raster, block_adaptive, the host embed route and PEE, single
 image and batch, the container batch path, the runner, volumes, capacity,
-analyze, the embedder models and the CLI), and nothing of the JAX package
+analyze, the embedder models, the CLI and one image tiled across a mesh
+of CPU devices, raster and PEE), and nothing of the JAX package
 gets loaded. Neither the port's sources nor ``chip_smoke.py`` import
 jax or the JAX package."""
 
@@ -74,6 +75,16 @@ qa.analyze_pair(img, img ^ 1)
 assert qa.summary()["count"] == 1.0
 assert port.get_embedder("pee", device="cpu").capacity_bits(img) > 0
 assert cli.cmd_encode_volume and cli.cmd_analyze and cli.cmd_capacity
+from codec_tcc_tpu_torch.parallel import mesh, tile, tile_pee
+cpu3 = mesh.make_mesh(devices=["cpu"] * 3, axes=("tile",))
+res = tile_pee.encode_array_tiled_pee(img, "tiled pee", pee, cpu3,
+                                      bits_stored=12)
+dec = tile_pee.decode_container_tiled_pee(res.container, cpu3)
+assert dec.message == "tiled pee" and np.array_equal(dec.original, img)
+res = tile.encode_array_tiled(img, "tiled", port.EncodeConfig(), cpu3,
+                              bits_stored=12)
+dec = tile.decode_container_tiled(res.container, cpu3)
+assert dec.message == "tiled" and np.array_equal(dec.original, img)
 loaded = sorted(m for m in sys.modules
                 if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
                 or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))

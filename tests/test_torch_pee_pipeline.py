@@ -285,3 +285,35 @@ def test_pee_parity_fixture_regenerates(name):
         assert list(parse_pee_ext(res.meta.ext)) == want["pee_ext"]
         assert len(res.container) == want["container_len"]
         assert cases.sha256(res.container) == want["container_sha256"]
+
+
+def test_pee_batch_group_with_a_duplicate_matches_jax():
+    """F1: a round's group of B entries can hold an image twice (one that
+    fell short at T and at T + 1 in one round). The port gathers the
+    message rows by the group's indices, as the JAX package does, so the
+    containers are the JAX package's bytes; both packages' whole-batch
+    image shortcut then embeds image k with the message of ``idxs[k]``
+    (F1-ref, the reference's behaviour, pinned here): every container
+    decodes to its own payload, and the one written from another image's
+    pixels restores that image."""
+    imgs, pays = cases.f1_batch()
+    cfg = dict(strategy="pee", pee_threshold=cases.F1_THRESHOLD)
+    res_p = port_batch.encode_pee_batch(imgs, pays, port.EncodeConfig(**cfg),
+                                        device="cpu")
+    res_j = jax_batch.encode_pee_batch(imgs, pays, jax_pkg.EncodeConfig(**cfg))
+    t_start = port_batch._start_thresholds(
+        torch.from_numpy(imgs), [p.size for p in pays],
+        port_model.max_value(int(imgs.max()), 16, 16), cases.F1_THRESHOLD)
+    groups = cases.pee_attempt_group_lists(t_start, res_p.thresholds)
+    t_dup, idxs = cases.F1_GROUP
+    assert (t_dup, idxs) in groups and len(idxs) == len(imgs)
+    assert res_p.containers == res_j.containers
+    decoded = port_batch.decode_pee_batch(res_p.containers, device="cpu")
+    for i, dec in enumerate(decoded):
+        np.testing.assert_array_equal(dec.payload_bits, pays[i])
+    # the last write of each image in the duplicate group: image idxs[k]
+    # keeps the stego of image k
+    source = {i: k for k, i in enumerate(idxs)}
+    for i, dec in enumerate(decoded):
+        np.testing.assert_array_equal(dec.original, imgs[source.get(i, i)])
+    assert source[0] == 1       # image 0 restores image 1 (F1-ref)

@@ -241,28 +241,81 @@ def payload_bits(case: Case, capacity_bits: int) -> np.ndarray:
     return rng.integers(0, 2, nbits, dtype=np.uint8)
 
 
-def pee_attempt_groups(t_start, t_final) -> int:
-    """Equal-T groups the PEE encoders' escalation loop embeds, each with
-    one K3 launch per pass, replayed from each image's first and final T.
-    A round visits the thresholds its pending images hold at its start, in
-    ascending order; an image that falls short at T moves to T + 1 at once,
-    so it joins the round's group at T + 1 if there is one (and is then
-    pending twice in the next round, as in both packages' loop)."""
+def pee_attempt_group_lists(t_start, t_final):
+    """The equal-T groups the PEE encoders' escalation loop embeds, each
+    with one K3 launch per pass, replayed from each image's first and final
+    T: ``[(T, idxs), ...]`` in the order the loop runs them. A round visits
+    the thresholds its pending images hold at its start, in ascending
+    order; an image that falls short at T moves to T + 1 at once, so it
+    joins the round's group at T + 1 if there is one (and is then pending
+    twice in the next round, as in both packages' loop: a group of B
+    entries can then hold an image twice)."""
     t_img = [int(t) for t in t_start]
     final = [int(t) for t in t_final]
     pending = list(range(len(t_img)))
-    groups = 0
+    groups = []
     while pending:
         next_pending = []
         for t in sorted({t_img[i] for i in pending}):
             idxs = [i for i in pending if t_img[i] == t]
-            groups += 1
+            groups.append((t, idxs))
             for i in idxs:
                 if t < final[i]:
                     t_img[i] = t + 1
                     next_pending.append(i)
         pending = next_pending
     return groups
+
+
+def pee_attempt_groups(t_start, t_final) -> int:
+    """The number of groups :func:`pee_attempt_group_lists` replays."""
+    return len(pee_attempt_group_lists(t_start, t_final))
+
+
+# The tiled path (parallel/tile.py, parallel/tile_pee.py): one image's rows
+# split over K bands of a mesh. TILED_PEE runs the 2048x2048 PEE case over
+# K in TILED_KS (the fixture's ``tiled`` section holds the JAX package's
+# tiled container for each K); the 4096x3328 uint16 cases are a
+# mammography frame, the largest common single-frame DICOM, over 4 bands:
+# PEE with a payload that needs both passes, and the raster strategies.
+TILED_PEE = "pee_cr2048_u16_3m"
+TILED_KS = (1, 2, 4)
+TILED_BIG = (
+    Case("pee_mammo4096x3328_u16_6m", 4096, 3328, "uint16", 12,
+         "bits:6000000", "pee", 41),
+    Case("mammo4096x3328_u16_hybrid", 4096, 3328, "uint16", 12,
+         "bits:2000000", "hybrid", 42),
+    Case("blk_mammo4096x3328_u16", 4096, 3328, "uint16", 12, "bits:2000000",
+         "block_adaptive", 43),
+)
+TILED_BIG_K = 4
+
+
+def load_parity_tiled() -> Dict[str, dict]:
+    """The fixture's ``tiled`` section: the JAX package's tiled containers
+    and the F1 batch's containers."""
+    with open(PARITY_JSON, encoding="utf-8") as f:
+        return json.load(f)["tiled"]
+
+
+# F1 (ROADMAP queue 3): a PEE batch whose escalation loop embeds a group of
+# B entries that holds an image twice. Image 2 falls short at T=10 and at
+# T=11 in one round, so the next round's group at T=12 is [2, 0, 2].
+F1_THRESHOLD = 4          # EncodeConfig.pee_threshold
+F1_GROUP = (12, [2, 0, 2])
+
+
+def f1_batch():
+    """``(images (3, 24, 38) uint16 at most 1023, payload bit arrays)`` of
+    the F1 case, seeded: a ramp plus noise, payloads of 180-397 bits."""
+    rng = np.random.default_rng(381)
+    rng.integers(0, 1024, (3, 24, 38))   # the search's first draw
+    base = int(rng.integers(200, 800))
+    yy, xx = np.mgrid[0:24, 0:38]
+    imgs = (base + 3 * yy + 2 * xx + rng.integers(-20, 21, (3, 24, 38)))
+    imgs = imgs.clip(0, 1023).astype(np.uint16)
+    sizes = rng.integers(150, 400, 3)
+    return imgs, [rng.integers(0, 2, int(n), dtype=np.uint8) for n in sizes]
 
 
 def sha256(data) -> str:

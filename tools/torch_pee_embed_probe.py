@@ -380,8 +380,8 @@ VARIANTS = {
               "        if (r < out_len) row[r] = (uint8_t)((bitm >> "
               "(__ffs(rest) - 1)) & 1u);\n    }\n")],
         "every tile takes the full path (no copy shortcut)":
-            [(r"if \(pee_set_count_before\(ty, tile0 - ty \* w, h, w, "
-              r"parity\) >= np\)", "if (false)")],
+            [(r"if \(pee_set_count_before\(row0 \+ ty, tile0 - ty \* w, "
+              r"h, w, parity\) >=\s+np\)", "if (false)")],
         "look-back without sleep": [_NO_SLEEP],
         "128 threads per tile": [_threads(128)],
         "512 threads per tile": [_threads(512)],
