@@ -5,7 +5,8 @@
 
 Drives the port's encode/decode paths (raster, PEE, block_adaptive, the
 host embed route, the container batch path, the STGV volume path, with
-capacity and analyze, one image split by rows across a mesh, the other
+capacity and analyze, one image split by rows across a mesh, a batch
+split over a mesh's ``dp`` axis and over two processes, the other
 transport codecs with STGC v1, and the serving daemon) through
 its hand-written CUDA kernels (K1 ``raster_embed`` and its batch form
 ``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
@@ -112,6 +113,25 @@ phase; any failure exits non-zero:
    used); ``encode_array_tiled``/``decode_container_tiled`` at 4096x3328
    for hybrid and block_adaptive over 4 bands (equal to ``encode_array``);
    every decode exact;
+3d. batches split over the ``dp`` axis of a mesh of the card repeated
+   (``make_mesh(devices=["cuda:0"] * K, axes=("dp",))`` for K = 1, 2, 4,
+   and a (2, 2) ``("dp", "tile")`` mesh, the counterpart of the JAX
+   package's ``dryrun_multichip``): ``encode_batch_containers`` and
+   ``extract_batch`` on phase 3's B = 32 x 512x512 and B = 8 x 2048x2048
+   uint16 batches, ``encode_volume`` + ``pack_volume`` and
+   ``extract_volume`` on the 64 x 512x512 volume at half its LSB
+   capacity, ``encode_pee_batch`` and ``decode_batch_containers`` on an
+   8 x 512x512 uint16 PEE batch of parity phantoms, and the F1 batch over
+   ``dp`` = 1 and 3 (over 2 it raises ``ValueError``, as in the JAX
+   package): containers and STGV equal to the unsharded run and to the
+   fixture's ``cases``, ``volumes`` and ``tiled`` hashes where the case is
+   there, payloads and originals exact;
+3m. two processes of ``tests/torch_multihost_worker.py`` on ``cuda:0``,
+   joined by ``gloo`` through ``parallel.mesh.initialize_distributed``,
+   each with a ``dp`` mesh of two shards and half of a global batch of
+   four; they load the library phase 1 built. Their cut point (histograms
+   summed across the processes) and stego and bit checksums equal the
+   same batch run unsharded in this process;
 4. the committed golden raster, block_adaptive and PEE containers decode
    on the card;
 5. ``python -m codec_tcc_tpu_torch encode`` / ``decode`` as subprocesses on
@@ -148,7 +168,13 @@ phase; any failure exits non-zero:
    capacity probes (K3 twice each), analyze (none), the F1 batch (as the
    PEE batch) and the tiled paths (shard K3 once per band per pass per
    attempt, replayed from the start and final T, shard K4 once per band
-   per inverse pass; no kernel for the tiled raster path), the codecs (as
+   per inverse pass; no kernel for the tiled raster path), the ``dp``
+   paths (batch K1, batch K2 and K3 once per non-empty shard: one batch
+   K1 per shard of a batch or volume encode, one batch K2 per shard of
+   ``extract_batch`` or ``extract_volume``, K3 twice per non-empty shard
+   of each PEE attempt group, K4 twice per threshold group of the decode
+   on the first ``dp`` device), each worker of phase 3m (batch K1 and K2
+   once per shard, counted in the worker), the codecs (as
    raster, PEE and block per case; one batch K1 for the jls volume) and
    each daemon request (as the entry point it calls); every count must be
    exactly what the path should launch, so every kernel runs on the path
@@ -175,7 +201,12 @@ phase; any failure exits non-zero:
    ``pack_volume``, ``unpack_volume`` and ``extract_volume`` at the
    64x512x512 uint16 hybrid volume with half its LSB capacity (median of
    3, stage means), and batch K1/K2 at that volume's plan (per call,
-   device, queued with L2 flushed, bound); the tiled PEE encode and decode
+   device, queued with L2 flushed, bound); the ``dp`` walls over K = 1, 2,
+   4 shards of the card, in turns: ``encode_batch_containers`` and
+   ``decode_batch_containers`` at B = 32 x 512x512 (median of 5),
+   ``encode_volume`` + ``pack_volume`` and ``extract_volume`` at the
+   64-slice volume (median of 3), and batch K1/K2 device time per shard;
+   the tiled PEE encode and decode
    walls at 2048x2048 for K = 1, 2, 4 beside the single-device ones, and
    K3/K4 in shard mode band by band at K = 4 on the case's four passes
    (per call, device, plain, the band's bound) with the band's eligible
@@ -2126,6 +2157,354 @@ def phase3_tiled(port, parity, tparity, counted, dev):
     return text, {"tiled_pee": expected, "tiled_raster": {}}, (inputs, walls)
 
 
+DP_MESHES = (("k1", ("dp",), (1,)), ("k2", ("dp",), (2,)),
+             ("k4", ("dp",), (4,)), ("2x2", ("dp", "tile"), (2, 2)))
+
+
+def dp_mesh(dev, axes, shape):
+    """A mesh of the card repeated: ``make_mesh(devices=[dev] * K)``."""
+    import numpy as np
+    from codec_tcc_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * int(np.prod(shape)), axes=axes,
+                     shape=shape)
+
+
+def dp_pee_inputs():
+    """The 8 x 512x512 uint16 PEE batch of phase 3d: the parity phantoms
+    (seeds 700-707) with the 304-bit text and 20-80 kbit payloads, so the
+    attempt groups have uneven sizes."""
+    import numpy as np
+    import torch_port_cases as cases
+
+    imgs = np.stack([cases.image(cases.Case(f"dp_pee{i}", 512, 512,
+                                            "uint16", 12, "text", "pee",
+                                            700 + i)) for i in range(8)])
+    rng = np.random.default_rng(707)
+    text = cases.payload_bits(cases.BY_NAME["mr512_u16"], 0)
+    pays = [text if i % 3 == 0 else
+            rng.integers(0, 2, 20_000 * (1 + i % 4), dtype=np.uint8)
+            for i in range(8)]
+    return imgs, pays
+
+
+def phase3_dp(port, parity, vparity, tparity, counted, launches,
+              device_batches, volume_walls, dev):
+    """The ``dp`` axis on the card: each full-width case over
+    ``make_mesh(devices=["cuda:0"] * K, axes=("dp",))`` for K = 1, 2, 4
+    and over a (2, 2) ``("dp", "tile")`` mesh (the counterpart of the JAX
+    package's ``dryrun_multichip``): the container batches of phase 3 (B =
+    32 x 512x512 and 8 x 2048x2048 uint16) through
+    ``encode_batch_containers`` (one batch K1 per shard) and
+    ``extract_batch`` (one batch K2 per shard), the 64 x 512x512 volume at
+    half its LSB capacity through ``encode_volume`` + ``pack_volume`` and
+    ``extract_volume``, an 8 x 512x512 PEE batch through
+    ``encode_pee_batch`` (K3 twice per non-empty shard of each attempt
+    group) and ``decode_batch_containers``, and the F1 batch over ``dp`` =
+    1 and 3 (over 2 it does not split and raises ``ValueError``, as in the
+    JAX package): containers and STGV equal to the unsharded run and to
+    the fixture where the case is there. Returns (text, the launches of
+    each path)."""
+    import numpy as np
+    import torch
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.models.pee import max_value
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.parallel import batch_pee
+    from codec_tcc_tpu_torch.parallel import volume as pv
+
+    expected = {}
+    cfg = port.EncodeConfig()
+    for side, names in ((512, ("mr512_u16", "mr512_u16_full")),
+                        (2048, ("cr2048_u16_full",))):
+        imgs, pays, unsharded = device_batches[side]
+        for tag, axes, shape in DP_MESHES:
+            mesh, dp = dp_mesh(dev, axes, shape), shape[0]
+            path = f"dp_batch_{side}_{tag}"
+            res = counted(path, lambda: tb.encode_batch_containers(
+                imgs, pays, cfg, mesh, bits_stored=12, device=dev))
+            expected[path] = launches(raster_embed_batch=dp)
+            check(res.containers == unsharded.containers,
+                  f"{path}: containers differ from the unsharded run's")
+            for name, blob in zip(names, res.containers):
+                check(cases.sha256(blob) == parity[name]["container_sha256"],
+                      f"{path}: the container of {name} differs from the "
+                      f"JAX package's")
+            path = f"dp_extract_{side}_{tag}"
+            bits = counted(path, lambda: tb.extract_batch(
+                res.stego, res.plan, mesh, device=dev))
+            expected[path] = launches(raster_extract_batch=dp)
+            for i, want in enumerate(pays):
+                check(np.array_equal(bits[i, :want.size], want),
+                      f"{path}: payload {i} differs")
+        print(f"  dp batch B={len(imgs)} {side}x{side} u16 over "
+              f"{[t for t, _, _ in DP_MESHES]}: containers equal to the "
+              f"unsharded run and the JAX package's for {list(names)}, "
+              f"extract exact", flush=True)
+
+    vol, vbits, vcfg, vres, vblob = volume_walls["vol64_u16_hybrid_half"]
+    vsha = vparity["vol64_u16_hybrid_half"]["stgv_sha256"]
+    for tag, axes, shape in DP_MESHES:
+        mesh, dp = dp_mesh(dev, axes, shape), shape[0]
+        path = f"dp_volume_{tag}_encode"
+        blob = counted(path, lambda: pv.pack_volume(
+            vol, pv.encode_volume(vol, vbits, vcfg, mesh, device=dev), vcfg,
+            device=dev))
+        expected[path] = launches(raster_embed_batch=dp)
+        check(blob == vblob and cases.sha256(blob) == vsha,
+              f"{path}: STGV differs from the unsharded run's and the JAX "
+              f"package's")
+        path = f"dp_volume_{tag}_extract"
+        got = counted(path, lambda: pv.extract_volume(vres.stego, vres.plan,
+                                                      mesh, device=dev))
+        expected[path] = launches(raster_extract_batch=dp)
+        check(np.array_equal(got, vbits), f"{path}: payload differs")
+    print(f"  dp volume 64x512x512 u16 hybrid, {vbits.size} bits: STGV equal "
+          f"to the unsharded run's and the JAX package's, extract exact",
+          flush=True)
+
+    pee_cfg = port.EncodeConfig(strategy="pee")
+    imgs, pays = dp_pee_inputs()
+    unsharded = batch_pee.encode_pee_batch(imgs, pays, pee_cfg,
+                                           bits_stored=12, device=dev)
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(imgs).to(dev), [p.size for p in pays],
+        max_value(int(imgs.max()), 16, 12), pee_cfg.pee_threshold)
+    groups = cases.pee_attempt_group_lists(t_start, unsharded.thresholds)
+    n_t = len(set(unsharded.thresholds.tolist()))
+    for tag, axes, shape in DP_MESHES:
+        mesh, dp = dp_mesh(dev, axes, shape), shape[0]
+        path = f"dp_pee_{tag}"
+
+        def pee_path():
+            res = batch_pee.encode_pee_batch(imgs, pays, pee_cfg, mesh,
+                                             bits_stored=12, device=dev)
+            return res, tb.decode_batch_containers(res.containers, mesh,
+                                                   device=dev)
+
+        res, decs = counted(path, pee_path)
+        shards = cases.pee_group_shards(groups, dp, mesh.size)
+        expected[path] = launches(
+            pee_embed=2 * sum(len(sizes) for sizes in shards),
+            pee_extract=2 * n_t)
+        check(res.containers == unsharded.containers,
+              f"{path}: containers differ from the unsharded run's")
+        for i, dec in enumerate(decs):
+            check(np.array_equal(dec.payload_bits, pays[i])
+                  and np.array_equal(dec.original, imgs[i]),
+                  f"{path}: decode {i} differs")
+    print(f"  dp PEE batch 8 x 512x512 u16 (groups "
+          f"{[len(i) for _, i in groups]}): containers equal to the "
+          f"unsharded run's, decodes exact", flush=True)
+
+    imgs, pays = cases.f1_batch()
+    f1_cfg = port.EncodeConfig(strategy="pee",
+                               pee_threshold=cases.F1_THRESHOLD)
+    want = tparity["f1_pee_batch"]["container_sha256"]
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(imgs).to(dev), [p.size for p in pays],
+        max_value(int(imgs.max()), 16, 16), cases.F1_THRESHOLD)
+    for dp in (1, 3):
+        mesh = dp_mesh(dev, ("dp",), (dp,))
+        path = f"dp_f1_{dp}"
+        res = counted(path, lambda: batch_pee.encode_pee_batch(
+            imgs, pays, f1_cfg, mesh, device=dev))
+        groups = cases.pee_attempt_group_lists(t_start, res.thresholds)
+        shards = cases.pee_group_shards(groups, dp, mesh.size)
+        expected[path] = launches(
+            pee_embed=2 * sum(len(sizes) for sizes in shards))
+        check([cases.sha256(c) for c in res.containers] == want,
+              f"{path}: containers differ from the JAX package's")
+    try:
+        batch_pee.encode_pee_batch(imgs, pays, f1_cfg,
+                                   dp_mesh(dev, ("dp",), (2,)), device=dev)
+        fail("F1 batch of 3 over dp = 2: no ValueError")
+    except ValueError:
+        pass
+    return (f"dp axis over {[t for t, _, _ in DP_MESHES]} of the card: "
+            f"batches, the volume, the PEE batch and the F1 batch equal to "
+            f"the unsharded run and the fixture"), expected
+
+
+def phase3_multihost(port, dev):
+    """Two processes of ``tests/torch_multihost_worker.py`` on ``cuda:0``,
+    joined by ``gloo`` through ``initialize_distributed``, each with a
+    ``dp`` mesh of two shards of the card and half of a global batch of
+    four 32x32 uint16 images; they load the kernel library phase 1 built.
+    Their cut point and checksums (summed across the processes) must agree
+    and equal the same batch run unsharded in this process; each process
+    launches batch K1 and batch K2 once per shard. Returns (text, the
+    launches of each worker)."""
+    import socket
+
+    import numpy as np
+    import torch
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.parallel import volume as pv
+
+    worker = os.path.join(HERE, "tests", "torch_multihost_worker.py")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        free = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (HERE, env.get("PYTHONPATH")) if p)
+    worker_dev = "cuda:0" if dev.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, worker, str(rank), "2", str(free), worker_dev],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            check(p.returncode == 0,
+                  f"multihost worker failed:\n{out}\n{err[-2000:]}")
+            verdicts = [ln for ln in out.splitlines()
+                        if ln.startswith("VERDICT")]
+            check(len(verdicts) == 1, f"multihost worker printed {out!r}")
+            outs.append(dict(kv.split("=") for kv in verdicts[0].split()[1:]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    workers_s = time.perf_counter() - t0
+
+    # the same global batch, unsharded, in this process
+    rng = np.random.default_rng(0)
+    imgs = rng.integers(0, 4096, size=(4, 32, 32)).astype(np.uint16)
+    payloads = [rng.integers(0, 2, size=150).astype(np.uint8)
+                for _ in range(4)]
+    hists = np.stack([np.bincount(im.reshape(-1), minlength=65536)
+                      for im in imgs])
+    cfg = port.EncodeConfig(beta=0.4)
+    plan = tb.plan_batch(imgs, payloads, cfg, histograms=hists,
+                         base_offsets=tb.hybrid_base_offsets_host(
+                             imgs, 32, 32, cfg.search_block_size))
+    s, _ = pv.volume_cut_point(imgs, 0.4, device=dev)
+    stego = tb.encode_batch(imgs, plan, device=dev)
+    aligned = tb.extract_aligned_batch(stego, plan, device=dev)
+    want = {"s": str(s), "chk_stego": str(int(stego.to(torch.int64).sum())),
+            "chk_bits": str(int(aligned.to(torch.int64).sum()))}
+    for f in outs:
+        check(f["nproc"] == "2" and f["devices"] == "4",
+              f"multihost: a worker saw {f}")
+        for key, v in want.items():
+            check(f[key] == v, f"multihost rank {f['proc']}: {key} "
+                               f"{f[key]} != the single process's {v}")
+    launched = {f"multihost_rank{f['proc']}":
+                {k: int(v) for k, v in (kv.split(":") for kv in
+                                        f["launches"].split(","))}
+                for f in outs}
+    return (f"two gloo processes on {dev}, dp mesh of 2 each: s={want['s']} "
+            f"and checksums equal to the single process's (both workers "
+            f"done in {workers_s:.1f} s)"), launched
+
+
+def time_dp(port, device_batches, volume_walls, smi, dev) -> None:
+    """The walls of the ``dp`` paths over K = 1, 2, 4 shards of the card,
+    the K in turns within each round: ``encode_batch_containers`` (the
+    default config) and ``decode_batch_containers`` at B = 32 x 512x512
+    uint16 with the 304-bit text (median of 5 after a warm-up round), and
+    ``encode_volume`` + ``pack_volume`` and ``extract_volume`` at the 64 x
+    512x512 volume with half its LSB capacity (median of 3); then batch
+    K1/K2 per shard at each K, queued behind a spin (CUDA events) and as
+    ``torch.profiler`` device time."""
+    import numpy as np
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.device import upload
+    from codec_tcc_tpu_torch.ops import raster_kernels as rk
+    from codec_tcc_tpu_torch.parallel import batch as tb
+    from codec_tcc_tpu_torch.parallel import volume as pv
+    from codec_tcc_tpu_torch.parallel.mesh import dp_shards
+    from codec_tcc_tpu_torch.pipeline import _next_pow2
+
+    ks = (1, 2, 4)
+    meshes = {k: dp_mesh(dev, ("dp",), (k,)) for k in ks}
+    imgs, _ = batch_inputs((), 32, 512, 512, seed=9000)
+    text = cases.payload_bits(cases.BY_NAME["mr512_u16"], 0)
+    pays = [text] * len(imgs)
+    cfg = port.EncodeConfig()
+    vol, vbits, vcfg, vres, vblob = volume_walls["vol64_u16_hybrid_half"]
+    blobs = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
+                                       device=dev).containers
+    calls = {
+        "batch encode": lambda m: tb.encode_batch_containers(
+            imgs, pays, cfg, m, bits_stored=12, device=dev),
+        "batch decode": lambda m: tb.decode_batch_containers(
+            blobs, m, device=dev),
+        "encode_volume + pack_volume": lambda m: pv.pack_volume(
+            vol, pv.encode_volume(vol, vbits, vcfg, m, device=dev), vcfg,
+            device=dev),
+        "extract_volume": lambda m: pv.extract_volume(
+            vres.stego, vres.plan, m, device=dev),
+    }
+    walls = {(what, k): [] for what in calls for k in ks}
+    for rep in range(6):
+        for what, fn in calls.items():
+            if what in ("encode_volume + pack_volume", "extract_volume") \
+                    and rep > 3:
+                continue
+            for k in ks:
+                t0 = time.perf_counter()
+                out = fn(meshes[k])
+                if rep:
+                    walls[(what, k)].append((time.perf_counter() - t0) * 1e3)
+                if what == "batch encode":
+                    check(out.containers == blobs,
+                          f"dp walls: K={k} containers differ")
+                elif what == "encode_volume + pack_volume":
+                    check(out == vblob, f"dp walls: K={k} STGV differs")
+    for what in calls:
+        meds = {k: statistics.median(walls[(what, k)]) for k in ks}
+        ratios = ", ".join(f"K={k} {meds[k]:.2f} ms ({meds[k] / meds[1]:.3f}x)"
+                           for k in ks)
+        print(f"  dp {what}: {ratios} host wall (median of "
+              f"{len(walls[(what, 1)])}) on {smi}", flush=True)
+
+    # the kernels alone: each shard's images, stego and message rows are on
+    # its device before the timed calls (the plan table's upload stays in
+    # the wrapper, as in time_batch_kernels)
+    imgs512, _, res = device_batches[512]
+    plan = res.plan
+    msgs = tb._msg_prefix(plan)
+    max_s = int(plan.s.max())
+    out_len = _next_pow2(int(plan.payload_bits.max()))
+    for k in ks:
+        times = {"k1": [], "k2": [], "dev_k1": [], "dev_k2": []}
+        for shard_dev, rows in dp_shards(len(imgs512), meshes[k]):
+            part = upload(imgs512[rows], shard_dev)
+            msgs_part = upload(np.ascontiguousarray(msgs[rows]), shard_dev)
+            st_part = upload(res.stego[rows], shard_dev)
+            args = (plan.starts[rows], plan.lengths[rows],
+                    plan.offsets[rows], plan.s[rows])
+            calls = {
+                "k1": lambda: rk.raster_embed_batch(
+                    part, msgs_part, *args, emit_maps=True, max_s=max_s),
+                "k2": lambda: rk.raster_extract_batch(st_part, *args,
+                                                      out_len),
+            }
+            for name, fn in calls.items():
+                # CUDA events with the launch queued behind a spin (the
+                # profiler's reading of one small launch is not always
+                # recorded), then the profiler's device time
+                times[name].append(queued_ms(fn, cold=False))
+                times[f"dev_{name}"].append(device_ms(fn))
+        total = {name: None if None in v else sum(v)
+                 for name, v in times.items()}
+        print(f"  dp K={k} B=32 512x512 u16, per shard, queued after a "
+              f"spin: batch K1 (maps over {max_s} planes) "
+              f"{[fmt_ms(v) for v in times['k1']]}, sum "
+              f"{fmt_ms(total['k1'])}; batch K2 (out_len {out_len}) "
+              f"{[fmt_ms(v) for v in times['k2']]}, sum "
+              f"{fmt_ms(total['k2'])}; profiler device: K1 "
+              f"{[fmt_ms(v) for v in times['dev_k1']]}, K2 "
+              f"{[fmt_ms(v) for v in times['dev_k2']]} on {smi}",
+              flush=True)
+
+
 def time_tiled(parity, tiled_inputs, dev) -> dict:
     """The tiled PEE path at 2048x2048 u16, 3 Mbit: encode and decode host
     walls for K = 1, 2, 4 (median of 3 after the path's first run) beside
@@ -2824,6 +3203,21 @@ def main() -> int:
         expected[path] = launches(**nonzero)
     phase("3t", tiled_txt)
 
+    # -- phase 3d: batches split over the dp axis of a mesh of the card ------
+    dp_txt, dp_expected = phase3_dp(
+        port, parity, vparity, tparity, counted, launches, device_batches,
+        volume_walls, dev)
+    expected.update(dp_expected)
+    phase("3d", dp_txt)
+
+    # -- phase 3m: two processes joined by gloo, a dp mesh each --------------
+    multihost_txt, multihost_launches = phase3_multihost(port, dev)
+    for path, counts in multihost_launches.items():
+        paths[path] = {**launches(), **counts}
+        expected[path] = launches(raster_embed_batch=2,
+                                  raster_extract_batch=2)
+    phase("3m", multihost_txt)
+
     # -- phase 4: golden containers ------------------------------------------
     data = os.path.join(HERE, "tests", "data")
     with open(os.path.join(data, "golden_payload.bin"), "rb") as f:
@@ -2884,6 +3278,7 @@ def main() -> int:
     batch = time_batch_kernels(device_batches, dev)
     time_batch_walls(port, device_batches)
     time_volume_walls(volume_walls)
+    time_dp(port, device_batches, volume_walls, smi, dev)
     shard = time_tiled(parity, tiled_inputs[0], dev)
     cfg = port.EncodeConfig()
 

@@ -19,4 +19,6 @@ Modules:
 * :mod:`.metrics`        — fused quality reductions, the float64 host
                            report, windowed SSIM
 * :mod:`.bitplanes`      — bit-plane split / merge
+* :mod:`.callback_codec` — transport codecs as fixed-size byte-buffer
+                           stages
 """

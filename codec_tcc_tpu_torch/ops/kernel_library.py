@@ -24,7 +24,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["BUILD_DIR", "SOURCES", "build_library", "check", "library",
-           "stream_ptr"]
+           "library_path", "stream_ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -52,20 +52,26 @@ def _nvcc() -> str:
     )
 
 
-def build_library() -> Path:
-    """Compile ``csrc/*.cu`` into one shared library (cached by a hash of
-    the sources and flags) and return its path. The sources compile in
-    parallel, one ``nvcc`` each, and one more ``nvcc`` links them."""
+def library_path() -> Path:
+    """Where :func:`build_library` puts the library of the current sources
+    and flags (it may not be built yet)."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         digest.update(name.encode())
         digest.update((CSRC / name).read_bytes())
-    out = BUILD_DIR / f"libcodec_kernels_{digest.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libcodec_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def build_library() -> Path:
+    """Compile ``csrc/*.cu`` into one shared library (cached by a hash of
+    the sources and flags) and return its path. The sources compile in
+    parallel, one ``nvcc`` each, and one more ``nvcc`` links them."""
+    out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
-    tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+    tag = f"{out.stem.rsplit('_', 1)[1]}.{os.getpid()}"
     objs = [str(BUILD_DIR / f"{Path(name).stem}.{tag}.o") for name in SOURCES]
     tmp = out.with_suffix(f".tmp{os.getpid()}.so")
     cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / name)]

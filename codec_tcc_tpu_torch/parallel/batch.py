@@ -9,7 +9,7 @@
 # encode_batch_containers and decode_batch_containers. The JAX package's
 # kernel tiers (_pick_pallas_backend, the packed and preplaced layouts) are
 # one kernel here: K1 raster_embed_batch and K2 raster_extract_batch, one
-# launch per batch. A `mesh` raises (ROADMAP.md, queue 1: multi-device).
+# launch per batch, or per `dp` shard of a mesh (mesh.dp_shards).
 """Batched raster encode/extract and the container-level batch pipeline.
 
 A batch of images is a ``(B, H, W)`` array of one geometry and dtype. Per-
@@ -28,7 +28,10 @@ spread over a thread pool. Containers are byte-identical to the single-image
 pipeline's and to the JAX package's.
 
 Every entry point takes ``device`` (default ``"cuda"``); the CPU runs the
-kernels' plain versions, and only when a caller passes ``"cpu"``.
+kernels' plain versions, and only when a caller passes ``"cpu"``. An entry
+point given a ``mesh`` splits its batch over the mesh's ``dp`` devices
+(:func:`.mesh.dp_shards`) and runs each shard's kernel on the shard's
+device; the bytes do not change.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import to_device, upload
+from ..device import resolve_device, to_device, upload
 from ..errors import CapacityError
 from ..ops import decompose as decompose_ops
 from ..ops import embed as embed_ops
@@ -48,6 +51,7 @@ from ..ops import histogram as hist_ops
 from ..ops import raster_kernels
 from ..ops import segments as segment_ops
 from ..utils import bits as bit_utils
+from .mesh import device_guard, dp_shards, lead_device
 
 __all__ = [
     "BatchPlan", "plan_batch", "encode_batch", "extract_batch",
@@ -66,10 +70,8 @@ def batched_histograms(images, nbins: int, *, device="cuda") -> np.ndarray:
     """(B, H, W) -> (B, nbins) exact histograms, one ``bincount`` per image
     on the device that holds the batch (a numpy batch is uploaded to
     ``device`` first); returned as numpy int64."""
-    from .batch_pee import _resolve
-
     imgs = images if isinstance(images, torch.Tensor) else to_device(
-        images, _resolve(device, None))
+        images, resolve_device(device))
     return torch.stack([
         hist_ops.value_histogram(im, nbins) for im in imgs
     ]).cpu().numpy()
@@ -263,6 +265,43 @@ def _msg_prefix(plan: "BatchPlan") -> np.ndarray:
     return plan.msgs[:, : min(p2, plan.msgs.shape[1])]
 
 
+def _gather(parts: List[torch.Tensor]) -> torch.Tensor:
+    """Per-shard results joined along the batch axis on the first shard's
+    device."""
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([p.to(parts[0].device) for p in parts])
+
+
+def _raster_embed_shard(imgs_dev, msgs: np.ndarray, plan: BatchPlan,
+                        rows: slice, **kwargs):
+    """K1 over one shard's images (on their device) with the shard's rows
+    of the plan and of the message prefix ``msgs``: ``(stego, maps or
+    None)`` as :func:`..ops.raster_kernels.raster_embed_batch` returns."""
+    dev = imgs_dev.device
+    with device_guard(dev):
+        return raster_kernels.raster_embed_batch(
+            imgs_dev, to_device(msgs[rows], dev), plan.starts[rows],
+            plan.lengths[rows], plan.offsets[rows], plan.s[rows], **kwargs,
+        )
+
+
+def _block_embed_shard(imgs_dev, msgs: np.ndarray, plan: BatchPlan,
+                       rows: slice, block: int) -> torch.Tensor:
+    """The block batch over one shard's images on their device:
+    variance-ranked tile bases (one popcount pass + exact host ranking),
+    then the block embed per image."""
+    dev = imgs_dev.device
+    h, w = imgs_dev.shape[1:]
+    with device_guard(dev):
+        bases = _batch_block_bases(imgs_dev, plan.nbits, plan.s[rows],
+                                   block, h, w)
+        return _block_embed_batch(
+            imgs_dev, to_device(msgs[rows], dev), bases, plan.lengths[rows],
+            plan.offsets[rows], plan.s[rows], plan.nbits, block,
+        )
+
+
 def encode_batch(
     images,
     plan: BatchPlan,
@@ -272,20 +311,20 @@ def encode_batch(
     device="cuda",
 ) -> torch.Tensor:
     """Batched raster embed: ``(B, H, W)`` stego on ``device`` (a tensor
-    input stays on its device's copy), one K1 launch for the batch.
+    input stays on its device's copy), one K1 launch for the batch; with a
+    ``mesh``, one per ``dp`` shard on the shard's device, the stego
+    gathered on the first ``dp`` device. A batch that does not split
+    evenly over ``dp`` raises ``ValueError``, as in the JAX package.
 
     ``backend`` is accepted as the JAX package accepts it; every tier there
     computes this one function, so every value runs K1 (its plain version
     on the CPU)."""
-    from .batch_pee import _resolve
-
-    dev = _resolve(device, mesh)
-    imgs = to_device(images, dev)
-    stego, _ = raster_kernels.raster_embed_batch(
-        imgs, to_device(_msg_prefix(plan), dev), plan.starts, plan.lengths,
-        plan.offsets, plan.s, emit_maps=False,
-    )
-    return stego
+    msgs = _msg_prefix(plan)
+    return _gather([
+        _raster_embed_shard(to_device(images[rows], dev), msgs, plan, rows,
+                            emit_maps=False)[0]
+        for dev, rows in dp_shards(int(images.shape[0]), mesh, device)
+    ])
 
 
 def extract_aligned_batch(
@@ -297,22 +336,25 @@ def extract_aligned_batch(
 ) -> torch.Tensor:
     """``(B, nbits, H*W)`` aligned plane rows: row ``p`` holds plane ``p``'s
     bits rotated back to message order and masked to its window and to
-    ``p < s``. One K2 launch, with each plane's window moved to message
+    ``p < s``. One K2 launch (one per ``dp`` shard of a ``mesh``, gathered
+    on the first ``dp`` device), with each plane's window moved to message
     offset ``p * H*W`` so that the planes' rows do not overlap."""
-    from .batch_pee import _resolve
-
-    dev = _resolve(device, mesh)
-    st = to_device(stego, dev)
-    b = st.shape[0]
-    n = int(np.prod(st.shape[1:]))
+    n = int(np.prod(stego.shape[1:]))
     nbits = plan.nbits
-    rows_off = np.broadcast_to(np.arange(nbits, dtype=np.int64) * n,
-                               (b, nbits))
     lens = np.clip(np.asarray(plan.lengths, np.int64), 0, n)
-    bits = raster_kernels.raster_extract_batch(
-        st, plan.starts, lens, rows_off, plan.s, nbits * n
-    )
-    return bits.reshape(b, nbits, n)
+    parts = []
+    for dev, rows in dp_shards(int(stego.shape[0]), mesh, device):
+        st = to_device(stego[rows], dev)
+        b = st.shape[0]
+        rows_off = np.broadcast_to(np.arange(nbits, dtype=np.int64) * n,
+                                   (b, nbits))
+        with device_guard(dev):
+            bits = raster_kernels.raster_extract_batch(
+                st, plan.starts[rows], lens[rows], rows_off, plan.s[rows],
+                nbits * n,
+            )
+        parts.append(bits.reshape(b, nbits, n))
+    return _gather(parts)
 
 
 def extract_batch(
@@ -324,22 +366,24 @@ def extract_batch(
     *,
     device="cuda",
 ) -> np.ndarray:
-    """``(B, out_len)`` message bits from one K2 launch: only the payload
-    itself comes back from the device. The length the kernel writes is
-    bucketed to the next power of two and sliced back on the host, as in
-    the JAX package. ``backend`` is accepted and computes the same
-    function (see :func:`encode_batch`)."""
+    """``(B, out_len)`` message bits from one K2 launch (one per ``dp``
+    shard of a ``mesh``): only the payload itself comes back from the
+    device. The length the kernel writes is bucketed to the next power of
+    two and sliced back on the host, as in the JAX package. ``backend`` is
+    accepted and computes the same function (see :func:`encode_batch`)."""
     from ..pipeline import _next_pow2
-    from .batch_pee import _resolve
 
-    dev = _resolve(device, mesh)
     out_len = out_len or plan.lpad
     pad_len = _next_pow2(max(out_len, 1))
-    bits = raster_kernels.raster_extract_batch(
-        to_device(stego, dev), plan.starts, plan.lengths, plan.offsets, plan.s,
-        pad_len,
-    )
-    return bits.cpu().numpy()[:, :out_len]
+    parts = []
+    for dev, rows in dp_shards(int(stego.shape[0]), mesh, device):
+        with device_guard(dev):
+            parts.append(raster_kernels.raster_extract_batch(
+                to_device(stego[rows], dev), plan.starts[rows],
+                plan.lengths[rows], plan.offsets[rows], plan.s[rows],
+                pad_len,
+            ))
+    return np.concatenate([p.cpu().numpy() for p in parts])[:, :out_len]
 
 
 # ---------------------------------------------------------------------------
@@ -352,13 +396,24 @@ def extract_batch(
 # ---------------------------------------------------------------------------
 
 
-def _batch_quality_reports(images, stego, dev: torch.device) -> list:
-    """Per-image quality reports from one batched moments pass on ``dev``
-    (numpy inputs are uploaded there)."""
+def _batch_quality_reports(images, stego, shards) -> list:
+    """Per-image quality reports from one batched moments pass per shard
+    (``(device, rows)`` of :func:`.mesh.dp_shards`) on the shard's device.
+    ``images`` and ``stego`` are whole batches (numpy inputs are uploaded)
+    or lists of the shards' tensors; each image's moments are its own, so
+    they join across shards on the host as they come."""
     from ..ops import metrics as metric_ops
 
-    stats = metric_ops.pair_stats(to_device(images, dev), to_device(stego, dev))
-    stats_np = {k: v.cpu().numpy() for k, v in stats.items()}
+    per_shard = []
+    for i, (dev, rows) in enumerate(shards):
+        img_i = images[i] if isinstance(images, list) else images[rows]
+        st_i = stego[i] if isinstance(stego, list) else stego[rows]
+        with device_guard(dev):
+            stats = metric_ops.pair_stats(to_device(img_i, dev),
+                                          to_device(st_i, dev))
+        per_shard.append({k: v.cpu().numpy() for k, v in stats.items()})
+    stats_np = {k: np.concatenate([st[k] for st in per_shard])
+                for k in per_shard[0]}
     return [
         metric_ops.quality_report({k: v[i] for k, v in stats_np.items()})
         for i in range(len(stats_np["sum_sqdiff"]))
@@ -397,10 +452,9 @@ def hybrid_base_offsets(images, h: int, w: int, search_block: int, *,
     ranking. Shared by the batch planner and the volume encoder:
     both write the offset into container metadata."""
     from ..ops import blocks as block_ops
-    from .batch_pee import _resolve
 
     imgs = images if isinstance(images, torch.Tensor) else to_device(
-        images, _resolve(device, None))
+        images, resolve_device(device))
     counts = block_ops.block_bit_counts_all(
         imgs, 1, search_block)[:, 0].cpu().numpy()
     return [
@@ -433,24 +487,32 @@ def encode_batch_containers(
     delegates to :func:`.batch_pee.encode_pee_batch`. ``device_policy``
     routes the raster strategies as the single-image pipeline does
     (``EncodeConfig.resolve_host_route``): the host route places the
-    payloads with numpy windows and uploads nothing."""
+    payloads with numpy windows and uploads nothing.
+
+    With a ``mesh`` the batch splits over its ``dp`` devices by the JAX
+    package's rules: the raster device route launches one K1 per shard and
+    raises ``ValueError`` for a batch that does not split evenly; the block
+    batch splits when it does and runs on the first ``dp`` device when it
+    does not; ``auto`` keeps the device route for a mesh of more than one
+    device."""
     from ..profiling import stage
-    from .batch_pee import _resolve
 
     config = config.validate()
-    dev = _resolve(device, mesh)
     if config.container_version != 2:
         raise ValueError("batch container encoding writes v2 containers only")
     if config.strategy == "pee":
         from .batch_pee import encode_pee_batch
 
         r = encode_pee_batch(
-            images, payloads, config, bits_stored=bits_stored, device=dev
+            images, payloads, config, mesh, bits_stored=bits_stored,
+            device=device,
         )
         metrics = None
         if config.compute_metrics:
             # the same per-image quality reports as the raster branch
-            metrics = _batch_quality_reports(images, r.stego, dev)
+            metrics = _batch_quality_reports(
+                images, r.stego,
+                dp_shards(len(images), mesh, device, uneven="single"))
         return BatchEncodeResult(
             stego=r.stego, containers=r.containers, plan=None, metrics=metrics,
         )
@@ -465,14 +527,25 @@ def encode_batch_containers(
     nbits = min(nbits, dtype_bits)
 
     # the route is the config's choice, shared with the single-image
-    # pipeline: "auto" keeps the device for block_adaptive and device metrics
-    host_route = config.resolve_host_route(n)
+    # pipeline: "auto" keeps the device for block_adaptive, device metrics
+    # and a mesh of more than one device
+    host_route = config.resolve_host_route(
+        n, 1 if mesh is None else mesh.size
+    )
+    # the JAX package's dp sharding: the raster embed refuses a batch that
+    # does not split evenly; the block batch and the host route's moments
+    # then run unsharded
+    shards = dp_shards(
+        b, mesh, device,
+        uneven="single" if host_route or config.strategy == "block_adaptive"
+        else "raise",
+    )
 
     if not host_route:
-        # one host->device transfer feeds the block scans, the embed and
-        # the metric moments
+        # one host->device transfer per shard feeds the block scans, the
+        # embed and the metric moments
         with stage("batch_upload"):
-            imgs_dev = upload(images, dev)
+            imgs_dev = [upload(images[rows], dev) for dev, rows in shards]
     with stage("batch_plan"):
         # device-free planning, as in the JAX package: host bincount
         # histograms and the numpy hybrid scan of the host-resident batch
@@ -516,49 +589,49 @@ def encode_batch_containers(
                 )
         metrics = None
         if config.compute_metrics:
-            metrics = _batch_quality_reports(images, stego, dev)
+            metrics = _batch_quality_reports(images, stego, shards)
         return _pack_batch_result(
             images, stego, packed, plan, config, nbits, bits_stored, h, w,
             metrics,
         )
 
-    packed_dev = None
+    packed_dev = [None] * len(shards)
+    stego_dev = []
     with stage("batch_upload_wait"):
-        _synchronize(dev)
+        for dev, _ in shards:
+            _synchronize(dev)
     with stage("batch_embed"):
-        msgs_dev = upload(_msg_prefix(plan), dev)
-        if config.strategy == "block_adaptive":
-            # variance-ranked placement: per-image tile bases (one popcount
-            # pass + exact host ranking), then the block embed per image
-            bases = _batch_block_bases(
-                imgs_dev, plan.nbits, plan.s, config.block_size, h, w
-            )
-            stego_dev = _block_embed_batch(
-                imgs_dev, msgs_dev, bases, plan.lengths, plan.offsets,
-                plan.s, plan.nbits, config.block_size,
-            )
-        else:
-            # K1: every stego and, where the geometry packs, its maps over
-            # max_s planes, in one launch
-            stego_dev, packed_dev = raster_kernels.raster_embed_batch(
-                imgs_dev, msgs_dev, plan.starts, plan.lengths, plan.offsets,
-                plan.s, emit_maps=n % 8 == 0, max_s=max_s,
-            )
-        _synchronize(dev)
+        msgs = _msg_prefix(plan)
+        for k, (_, rows) in enumerate(shards):
+            if config.strategy == "block_adaptive":
+                # variance-ranked placement per image of the shard
+                stego_dev.append(_block_embed_shard(
+                    imgs_dev[k], msgs, plan, rows, config.block_size))
+            else:
+                # K1: every stego of the shard and, where the geometry
+                # packs, its maps over the batch's max_s planes, in one
+                # launch
+                st_k, packed_dev[k] = _raster_embed_shard(
+                    imgs_dev[k], msgs, plan, rows, emit_maps=n % 8 == 0,
+                    max_s=max_s)
+                stego_dev.append(st_k)
+        for dev, _ in shards:
+            _synchronize(dev)
 
     metrics = None
     if config.compute_metrics:
-        metrics = _batch_quality_reports(imgs_dev, stego_dev, dev)
+        metrics = _batch_quality_reports(imgs_dev, stego_dev, shards)
     if n % 8 == 0:
         # download the bit-packed XOR maps of the first max(s) planes, not
         # the stego batch: they are the v2.1 container bitmap blobs, and
         # the stego is rebuilt on the host as orig ^ diff
         with stage("batch_download"):
-            packed = (
-                packed_dev if packed_dev is not None
-                else embed_ops.xor_maps_packed_batch(imgs_dev, stego_dev,
-                                                     max_s)
-            ).cpu().numpy()
+            packed = np.concatenate([
+                (pk if pk is not None
+                 else embed_ops.xor_maps_packed_batch(im, st, max_s)
+                 ).cpu().numpy()
+                for im, st, pk in zip(imgs_dev, stego_dev, packed_dev)
+            ])
         with stage("batch_unpack"):
             stego = np.empty_like(images)
             if config.strategy in ("multi_plane", "hybrid"):
@@ -582,7 +655,7 @@ def encode_batch_containers(
     else:
         packed = None
         with stage("batch_download"):
-            stego = stego_dev.cpu().numpy()
+            stego = np.concatenate([st.cpu().numpy() for st in stego_dev])
 
     return _pack_batch_result(
         images, stego, packed, plan, config, nbits, bits_stored, h, w,
@@ -676,12 +749,13 @@ def decode_batch_containers(
     groups (v1, bitmap-less block_adaptive) go through
     ``pipeline.decode_container`` per item, which raises what the
     single-image decoder raises. Returns ``pipeline.DecodeResult`` objects
-    in input order."""
+    in input order. With a ``mesh``, the device work runs on its first
+    ``dp`` device: the JAX package passes the PEE and per-item decoders no
+    mesh, and its raster groups run here on the host."""
     from ..io import container as container_io
     from ..pipeline import decode_container
-    from .batch_pee import _resolve
 
-    dev = _resolve(device, mesh)
+    dev = lead_device(mesh, device)
     if not containers:
         raise ValueError("Invalid file: empty container batch")
     conts = [
@@ -700,9 +774,10 @@ def decode_batch_containers(
         if m0.version == 2 and m0.strategy == "pee":
             from .batch_pee import decode_pee_batch
 
-            outs = decode_pee_batch(
-                sub, restore_original=restore_original, device=dev
-            )
+            with device_guard(dev):
+                outs = decode_pee_batch(
+                    sub, restore_original=restore_original, device=dev
+                )
         elif m0.version == 2 and m0.strategy in ("multi_plane", "hybrid"):
             outs = _decode_raster_group(sub, None, restore_original)
         elif (m0.version == 2 and m0.strategy == "block_adaptive"
@@ -711,11 +786,12 @@ def decode_batch_containers(
             # single-image decoder's descriptive error)
             outs = _decode_block_group(sub, restore_original)
         else:
-            outs = [
-                decode_container(c, restore_original=restore_original,
-                                 device=dev)
-                for c in sub
-            ]
+            with device_guard(dev):
+                outs = [
+                    decode_container(c, restore_original=restore_original,
+                                     device=dev)
+                    for c in sub
+                ]
         for i, r in zip(idxs, outs):
             results[i] = r
     return results

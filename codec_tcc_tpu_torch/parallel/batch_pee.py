@@ -1,8 +1,10 @@
-# Port of codec_tcc_tpu/parallel/batch_pee.py on one device: every group
-# runs through the kernels K3/K4 (the JAX package's Pallas route). The
-# `backend` argument is gone (the device decides), a `mesh` raises, and
-# groups are not padded to a power-of-two size: that padding only spared the
-# TPU compile cache, and no output depends on it.
+# Port of codec_tcc_tpu/parallel/batch_pee.py: every group runs through the
+# kernels K3/K4 (the JAX package's Pallas route). The `backend` argument is
+# gone (the device decides); a `mesh` splits the batch over its `dp` devices
+# (mesh.dp_shards) where the JAX package shards it. Groups are not padded to
+# a power-of-two size: that padding only spared the TPU compile cache, and
+# no output depends on it; a group splits as its padding would, the last
+# shards shorter or empty.
 """Batched PEE embedding with per-image thresholds.
 
 Threshold selection is histogram-driven: one batched histogram per pass
@@ -10,7 +12,10 @@ gives every image's exact pass-0 capacity and pass-1 estimate at every
 threshold, each image gets the smallest T whose combined capacity holds ITS
 payload, and images sharing a T run both passes as one K3 launch each over
 the subgroup. A pass-1 shortfall (the estimate's pass-interaction error)
-escalates only the affected images.
+escalates only the affected images. With a ``mesh``, the histograms run
+per ``dp`` shard and each attempt group splits over the ``dp`` devices
+where the JAX package shards it (its padded size a multiple of the mesh's
+size), one K3 launch per pass per non-empty shard.
 
 Each image gets its own self-contained STGC-v2 container (strategy 4,
 per-image T in the PEE ext), byte-identical to the JAX package's, so any
@@ -46,6 +51,7 @@ from ..ops import pee_kernels
 from ..profiling import stage
 from ..utils.logging import get_logger
 from ..utils.pool import host_workers
+from .mesh import device_guard, dp_shards
 
 logger = get_logger("parallel.batch_pee")
 
@@ -77,15 +83,23 @@ def _rows(t: torch.Tensor, idxs) -> torch.Tensor:
     return t[sel]
 
 
-def _resolve(device, mesh) -> torch.device:
-    if mesh is not None:
-        raise NotImplementedError(
-            "multi-device (mesh) batches over the 'dp' axis are not yet "
-            "ported to codec_tcc_tpu_torch (ROADMAP.md, queue 1: "
-            "multi-device); one image across a mesh's 'tile' axis is "
-            "parallel.tile / parallel.tile_pee"
-        )
-    return resolve_device(device)
+def _take_rows(parts, pos, dev: torch.device) -> torch.Tensor:
+    """Items ``pos`` (in that order, repeats allowed) of a batch held as
+    shards ``parts`` (``(rows, tensor)``), stacked on ``dev``."""
+    pieces, order = [], []
+    for rows, t in parts:
+        local = [(k, p - rows.start) for k, p in enumerate(pos)
+                 if rows.start <= p < rows.stop]
+        if not local:
+            continue
+        ks, idx = zip(*local)
+        whole = list(idx) == list(range(t.shape[0]))
+        pieces.append((t if whole else _rows(t, idx)).to(dev))
+        order.extend(ks)
+    out = pieces[0] if len(pieces) == 1 else torch.cat(pieces)
+    if order != sorted(order):
+        out = _rows(out, np.argsort(order).tolist())
+    return out
 
 
 def probe_capacity_batch(
@@ -96,7 +110,7 @@ def probe_capacity_batch(
     (pass-1 capacity measured on the actual pass-0 stego, so the pass
     interaction is counted): ``used = cap`` when ``want > cap``. The
     message is ``n/2`` zeros; message indices past it clamp."""
-    dev = _resolve(device, None)
+    dev = resolve_device(device)
     b, h, w = images.shape
     n = h * w
     big = torch.full((b,), 1 << 30, dtype=torch.int32, device=dev)
@@ -109,16 +123,21 @@ def probe_capacity_batch(
     return u0.cpu().numpy().astype(np.int64) + u1.cpu().numpy().astype(np.int64)
 
 
-def _start_thresholds(imgs: torch.Tensor, want, max_val: int,
-                      t_min: int) -> np.ndarray:
+def _start_thresholds(imgs, want, max_val: int, t_min: int) -> np.ndarray:
     """Per-image T of the first attempt, ``(B,)`` int32: the smallest T
     whose histogram capacity holds the payload, from one batched histogram
-    per pass. A shortfall then escalates T by one per round."""
+    per pass of the batch ``imgs`` on its device, or of each of its ``dp``
+    shards (a list of tensors). A shortfall then escalates T by one per
+    round."""
     with stage("pee_histogram"):
-        hist = torch.stack([
-            pee_ops.capacity_histogram(imgs, p, _MAX_T, max_val)
-            for p in (0, 1)
-        ]).cpu().numpy()
+        per_shard = []
+        for part in (imgs if isinstance(imgs, list) else [imgs]):
+            with device_guard(part.device):
+                per_shard.append(torch.stack([
+                    pee_ops.capacity_histogram(part, p, _MAX_T, max_val)
+                    for p in (0, 1)
+                ]))
+        hist = np.concatenate([h.cpu().numpy() for h in per_shard], axis=1)
     cap0 = pee_ops.capacities_by_threshold(hist[0])
     cap1 = pee_ops.capacities_by_threshold(hist[1])
     t_img = np.zeros(len(want), dtype=np.int32)
@@ -130,21 +149,51 @@ def _start_thresholds(imgs: torch.Tensor, want, max_val: int,
     return t_img
 
 
-def _run_passes(images, msgs, want: np.ndarray, t: int, max_val: int):
-    """Both PEE passes over one same-threshold subgroup on its device.
-    Returns numpy ``(stego, packed overflow (G, ceil(HW/8)) u8, used0,
-    nproc0, used1, nproc1)``; the overflow is bit-packed on the device, its
-    bytes the container blob's zlib input. Wants go in unclamped (the
-    passes clamp to capacity themselves)."""
-    want_d = torch.from_numpy(want.astype(np.int32)).to(images.device)
-    s1, over, u0, n0, u1, n1 = pee_kernels.embed_both_passes(
-        images, msgs, want_d, t, max_val
-    )
-    scalars = torch.stack([u0, n0, u1, n1]).cpu().numpy().astype(np.int64)
-    return (
-        s1.cpu().numpy(), embed_ops.pack_bits_batch(over).cpu().numpy(),
-        scalars[0], scalars[1], scalars[2], scalars[3],
-    )
+def _launch_passes(images, msgs, want: np.ndarray, t: int, max_val: int):
+    """Both PEE passes over one same-threshold subgroup (or its shard) on
+    its device, launched and not waited on: ``(stego, packed overflow (G,
+    ceil(HW/8)) u8, (4, G) used0/nproc0/used1/nproc1)`` on the device. The
+    overflow is bit-packed there, its bytes the container blob's zlib
+    input. Wants go in unclamped (the passes clamp to capacity
+    themselves)."""
+    with device_guard(images.device):
+        want_d = torch.from_numpy(want.astype(np.int32)).to(images.device)
+        s1, over, u0, n0, u1, n1 = pee_kernels.embed_both_passes(
+            images, msgs, want_d, t, max_val
+        )
+        return (s1, embed_ops.pack_bits_batch(over),
+                torch.stack([u0, n0, u1, n1]))
+
+
+def _run_passes(img_parts, msg_parts, idxs, b: int, want: np.ndarray,
+                t: int, mesh, max_val: int):
+    """Both PEE passes over the attempt group ``idxs`` of a batch of ``b``,
+    split over the ``dp`` devices where the JAX package shards it (the
+    group's power-of-two size a multiple of the mesh's size), every shard
+    launched before any is read back. Returns numpy ``(stego, packed
+    overflow, used0, nproc0, used1, nproc1)`` in ``idxs`` order."""
+    g = len(idxs)
+    g_pad = 1 << max(0, (g - 1).bit_length())
+    lead = img_parts[0][1].device
+    shards = (dp_shards(g, mesh, rows=g_pad)
+              if mesh is not None and g_pad % mesh.size == 0
+              else [(lead, slice(0, g))])
+    # a group of b entries may hold an image twice (one that fell short at
+    # T and at T + 1 in one round), so the message rows are always gathered
+    # by idxs; the whole-batch image shortcut is the JAX package's, kept for
+    # its bytes (ROADMAP queue 3, F1-ref)
+    img_pos = list(range(b)) if g == b else list(idxs)
+    runs = [
+        _launch_passes(_take_rows(img_parts, img_pos[rows], dev),
+                       _take_rows(msg_parts, list(idxs)[rows], dev),
+                       want[rows], t, max_val)
+        for dev, rows in shards if rows.stop > rows.start
+    ]
+    stego = np.concatenate([r[0].cpu().numpy() for r in runs])
+    over = np.concatenate([r[1].cpu().numpy() for r in runs])
+    scalars = np.concatenate([r[2].cpu().numpy() for r in runs],
+                             axis=1).astype(np.int64)
+    return stego, over, scalars[0], scalars[1], scalars[2], scalars[3]
 
 
 def encode_pee_batch(
@@ -158,18 +207,23 @@ def encode_pee_batch(
 ) -> BatchPeeResult:
     from ..pipeline import _as_payload_bits
 
-    dev = _resolve(device, mesh)
     b, h, w = images.shape
+    # the JAX package shards the histogram pass's batch over dp: a batch
+    # that does not split evenly raises there, and here
+    shards = dp_shards(b, mesh, device)
     dtype_bits = np.dtype(images.dtype).itemsize * 8
     eff_bits = bits_stored if (config.use_bits_stored and bits_stored) else dtype_bits
     max_val = max_value(int(images.max()), dtype_bits, eff_bits)
 
     bit_arrays = [_as_payload_bits(p) for p in payloads]
     want = np.array([x.size for x in bit_arrays], dtype=np.int64)
-    msgs_dev = message_buffer(bit_arrays, dev)
-    imgs_dev = torch.from_numpy(np.ascontiguousarray(images)).to(dev)
+    msgs = message_buffer(bit_arrays, "cpu")
+    img_parts = [(rows, torch.from_numpy(np.ascontiguousarray(images[rows]))
+                  .to(dev)) for dev, rows in shards]
+    msg_parts = [(rows, msgs[rows].to(dev)) for dev, rows in shards]
 
-    t_img = _start_thresholds(imgs_dev, want, max_val, config.pee_threshold)
+    t_img = _start_thresholds([t for _, t in img_parts], want, max_val,
+                              config.pee_threshold)
     stego = np.empty_like(images)
     overflow = np.zeros((b, (h * w + 7) // 8), dtype=np.uint8)  # bit-packed
     used0 = np.zeros(b, np.int64)
@@ -182,16 +236,9 @@ def encode_pee_batch(
             next_pending: List[int] = []
             for t in sorted({int(t_img[i]) for i in pending}):
                 idxs = [i for i in pending if int(t_img[i]) == t]
-                # a group of b entries may hold an image twice (one that
-                # fell short at T and at T + 1 in one round), so the
-                # message rows are always gathered by idxs; the whole-batch
-                # image shortcut is the JAX package's, kept for its bytes
-                # (ROADMAP queue 3, F1-ref)
-                sub_imgs = imgs_dev if len(idxs) == b else _rows(imgs_dev,
-                                                                 idxs)
-                sub_msgs = _rows(msgs_dev, idxs)
                 g_stego, g_over, g_u0, g_n0, g_u1, g_n1 = _run_passes(
-                    sub_imgs, sub_msgs, want[idxs], t, max_val,
+                    img_parts, msg_parts, idxs, b, want[idxs], t, mesh,
+                    max_val,
                 )
                 for k, i in enumerate(idxs):
                     if g_u0[k] + g_u1[k] >= want[i]:
@@ -233,8 +280,9 @@ def encode_pee_batch(
             containers = list(pool.map(pack_one, range(b)))
 
     logger.info(
-        "pee batch: B=%d T=%s total_bits=%d device=%s",
-        b, sorted(set(t_img.tolist())), int(want.sum()), dev,
+        "pee batch: B=%d T=%s total_bits=%d devices=%s",
+        b, sorted(set(t_img.tolist())), int(want.sum()),
+        [str(dev) for dev, _ in shards],
     )
     return BatchPeeResult(
         stego=stego, containers=containers, thresholds=t_img,
@@ -250,7 +298,7 @@ def decode_pee_batch(
     :func:`encode_pee_batch`. Containers are grouped by (geometry,
     BitsStored, dtype, codec, threshold); each group decodes with one K4
     launch per pass. Returns ``pipeline.DecodeResult`` in input order."""
-    dev = _resolve(device, None)
+    dev = resolve_device(device)
     conts = [
         c if isinstance(c, container_io.Container) else container_io.parse(c)
         for c in containers

@@ -46,7 +46,7 @@ from ..ops import histogram as hist_ops
 from ..ops import metrics as metric_ops
 from ..ops import segments as segment_ops
 from ..utils.logging import get_logger
-from .mesh import Mesh
+from .mesh import Mesh, device_guard
 
 logger = get_logger("parallel.tile")
 
@@ -272,11 +272,13 @@ def embed_tiled(
     the stego bands, each on its band's device; no band reads another."""
     bands = split_rows(image, mesh, axis)
     msgs = _on_devices(msg_pad, bands)
-    return [
-        _embed_block(band, msgs[band.device], tp.plane_id[k], tp.starts[k],
-                     tp.lens[k], tp.moffs[k]) if band.numel() else band
-        for k, band in enumerate(bands)
-    ]
+    out = list(bands)
+    for k, band in enumerate(bands):
+        if band.numel():
+            with device_guard(band.device):
+                out[k] = _embed_block(band, msgs[band.device], tp.plane_id[k],
+                                      tp.starts[k], tp.lens[k], tp.moffs[k])
+    return out
 
 
 def extract_tiled_aligned(stego, tp: TileParams, mesh: Mesh,
@@ -287,8 +289,9 @@ def extract_tiled_aligned(stego, tp: TileParams, mesh: Mesh,
     out = np.zeros((tp.n_shards, tp.nwin, tp.local_n), dtype=np.uint8)
     for k, band in enumerate(bands):
         if band.numel():
-            rows = _extract_block(band, tp.plane_id[k], tp.starts[k],
-                                  tp.lens[k]).cpu().numpy()
+            with device_guard(band.device):
+                rows = _extract_block(band, tp.plane_id[k], tp.starts[k],
+                                      tp.lens[k]).cpu().numpy()
             out[k, :, :rows.shape[1]] = rows
     return out
 
@@ -435,12 +438,14 @@ def encode_array_tiled(
         )
         msgs = _on_devices(msg_pad, bands)
         lh = shard_rows(h, n_shards)
-        stego_bands = [
-            _block_embed_band(band, msgs[band.device], bases, pp.lengths,
-                              pp.offsets, s, k * lh, kernel_bits,
-                              config.block_size) if band.numel() else band
-            for k, band in enumerate(bands)
-        ]
+        stego_bands = list(bands)
+        for k, band in enumerate(bands):
+            if band.numel():
+                with device_guard(band.device):
+                    stego_bands[k] = _block_embed_band(
+                        band, msgs[band.device], bases, pp.lengths,
+                        pp.offsets, s, k * lh, kernel_bits,
+                        config.block_size)
     else:
         tp = shard_windows(pp, n, n_shards, shard_rows(h, n_shards) * w)
         msg_pad = embed_ops.pad_message(

@@ -43,7 +43,7 @@ from ..ops import metrics as metric_ops
 from ..ops import pee as pee_ops
 from ..ops import pee_kernels
 from ..utils.logging import get_logger
-from .mesh import Mesh
+from .mesh import Mesh, device_guard
 from .tile import Bands, _on_devices, join_rows, shard_rows, split_rows
 
 logger = get_logger("parallel.tile_pee")
@@ -113,11 +113,12 @@ def embed_pass_tiled(
     nprocs = []
     for i, k in enumerate(row0):
         dev = bands[k].device
-        s_k, o_k, _, n_k = pee_kernels.pee_embed(
-            bands[k][None], msgs[dev], _scalar(msg_base, dev),
-            _scalar(want, dev), parity, t, max_val,
-            shard=(*halos[k], row0[k], prefix[i:i + 1].to(dev), h),
-        )
+        with device_guard(dev):
+            s_k, o_k, _, n_k = pee_kernels.pee_embed(
+                bands[k][None], msgs[dev], _scalar(msg_base, dev),
+                _scalar(want, dev), parity, t, max_val,
+                shard=(*halos[k], row0[k], prefix[i:i + 1].to(dev), h),
+            )
         stego[k], over[k] = s_k[0], o_k[0]
         nprocs.append(n_k.to(first))
     wnt = torch.tensor(int(want), dtype=torch.int32, device=first)
@@ -143,10 +144,11 @@ def extract_pass_tiled(
     restored = list(bands)
     runs = []
     for k, row0 in _row0s(bands, h).items():
-        r_k, bits_k, n_k = pee_kernels.pee_extract(
-            bands[k][None], overs[k][None], _scalar(n_proc, row0.device),
-            parity, t, out_len, shard=(*_halo_rows(bands, k), row0, h),
-        )
+        with device_guard(row0.device):
+            r_k, bits_k, n_k = pee_kernels.pee_extract(
+                bands[k][None], overs[k][None], _scalar(n_proc, row0.device),
+                parity, t, out_len, shard=(*_halo_rows(bands, k), row0, h),
+            )
         restored[k] = r_k[0]
         runs.append((bits_k[0], n_k))
     out = np.zeros(out_len, dtype=np.uint8)

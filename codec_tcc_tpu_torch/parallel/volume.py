@@ -1,9 +1,10 @@
-# Port of codec_tcc_tpu/parallel/volume.py on one device. The same code but
-# for the device it passes: unpack_volume and extract_volume. Torch:
+# Port of codec_tcc_tpu/parallel/volume.py. The same code but for the
+# device it passes: unpack_volume and extract_volume. Torch:
 # volume_cut_point, _aggregate_volume_metrics, encode_volume,
 # _encode_volume_pee (its capacity histograms are ops.pee.capacity_histogram
 # over the slices, both parities, on the device), _xor_maps_batch and
-# pack_volume. A `mesh` raises (ROADMAP.md, queue 1: multi-device).
+# pack_volume. A `mesh` splits the slices over its `dp` devices
+# (mesh.dp_shards) where the JAX package shards them.
 """Volume embed/extract: one payload across the slices of a volume.
 
 BASELINE.json config[3] is a 64x512x512 uint16 volume. The semantics:
@@ -18,6 +19,12 @@ BASELINE.json config[3] is a 64x512x512 uint16 volume. The semantics:
 * strategy ``pee`` splits by the slices' PEE capacity histograms and runs
   the batch PEE encoder (K3), each slice with its own threshold;
 * the quality report aggregates one batched moments pass.
+
+With a ``mesh``, the slices split over its ``dp`` devices as the JAX
+package's ``P("dp")`` splits them: the histograms, the block scans and the
+embed run per shard (one K1 launch per shard), and the host sums the
+histograms. A volume whose depth does not split evenly raises
+``ValueError``, as in the JAX package.
 
 :func:`pack_volume` writes an STGV file: a volume header plus one
 self-contained STGC-v2 container per slice, byte-identical to the JAX
@@ -38,7 +45,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import to_device
+from ..device import resolve_device, to_device
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..ops import decompose as decompose_ops
@@ -46,7 +53,7 @@ from ..ops import metrics as metric_ops
 from ..profiling import stage
 from ..utils import bits as bit_utils
 from . import batch as batch_par
-from .batch_pee import _resolve
+from .mesh import device_guard, dp_shards, lead_device
 
 __all__ = [
     "VolumeResult", "encode_volume", "extract_volume", "volume_cut_point",
@@ -69,18 +76,39 @@ def volume_cut_point(
     volume, beta: float, mesh=None, *, device="cuda"
 ) -> Tuple[int, np.ndarray]:
     """Global cut point from the sum of the per-slice histograms (one
-    ``bincount`` per slice on ``device``; a tensor volume stays on its
+    ``bincount`` per slice on ``device``, or on each slice's ``dp`` shard
+    of a ``mesh``, summed on the host; a tensor volume stays on its
     device), then the exact float64 replay."""
-    dev = _resolve(device, mesh)
-    d, h, w = volume.shape
-    itemsize = (volume.element_size() if isinstance(volume, torch.Tensor)
-                else np.dtype(volume.dtype).itemsize)
+    return _cut_point(_volume_shards(volume, mesh, device), beta)
+
+
+def _volume_shards(volume, mesh, device) -> list:
+    """The volume's ``dp`` shards, ``(rows, tensor on its device)``;
+    without a mesh, one of every slice (a tensor volume stays where it
+    is). A depth that does not split evenly over ``dp`` raises
+    ``ValueError``."""
+    d = int(volume.shape[0])
+    if mesh is None and isinstance(volume, torch.Tensor):
+        return [(slice(0, d), volume)]
+    return [(rows, to_device(volume[rows], dev))
+            for dev, rows in dp_shards(d, mesh, device)]
+
+
+def _cut_point(vol_parts, beta: float) -> Tuple[int, np.ndarray]:
+    """:func:`volume_cut_point` of a volume held as ``dp`` shards
+    (:func:`_volume_shards`): each shard's histograms on its device,
+    summed on the host (exact integers)."""
+    d = vol_parts[-1][0].stop
+    h, w = vol_parts[0][1].shape[1:]
+    itemsize = vol_parts[0][1].element_size()
     nbits = itemsize * 8
     max_val = 255 if itemsize == 1 else 65535
     with stage("volume_cut_point"):
-        vol = volume if isinstance(volume, torch.Tensor) else to_device(
-            volume, dev)
-        total = batch_par.batched_histograms(vol, max_val + 1).sum(axis=0)
+        total = 0
+        for _, part in vol_parts:
+            with device_guard(part.device):
+                total = total + batch_par.batched_histograms(
+                    part, max_val + 1).sum(axis=0)
         # decompose reads only the dtype and size once the histogram is
         # given: a zero-alloc host proxy stands in for the volume
         proxy = np.broadcast_to(
@@ -92,13 +120,21 @@ def volume_cut_point(
     return dec.s, total
 
 
-def _aggregate_volume_metrics(volume, stego, dev: torch.device) -> dict:
-    """One batched moments pass on ``dev``, summed (maxed for the max_*
+def _aggregate_volume_metrics(vol_parts, stego) -> dict:
+    """One batched moments pass per shard (:func:`_volume_shards`; the
+    stego as numpy or as the shards' tensors), the per-slice moments joined
+    on the first shard's device and summed there (maxed for the max_*
     keys) across slices: the volume-wide quality report. The float32 sums
     run in another order than the JAX package's, as in
     :func:`.batch._batch_quality_reports`."""
-    stats = metric_ops.pair_stats(to_device(volume, dev),
-                                  to_device(stego, dev))
+    per_shard = []
+    for k, (rows, vol_k) in enumerate(vol_parts):
+        st_k = stego[k] if isinstance(stego, list) else stego[rows]
+        with device_guard(vol_k.device):
+            per_shard.append(metric_ops.pair_stats(
+                vol_k, to_device(st_k, vol_k.device)))
+    stats = {k: batch_par._gather([st[k] for st in per_shard])
+             for k in per_shard[0]}
     agg = {k: float(torch.sum(v)) for k, v in stats.items()
            if k not in ("max_absdiff", "max_a", "max_b")}
     for k in ("max_absdiff", "max_a", "max_b"):
@@ -114,7 +150,6 @@ def encode_volume(
     *,
     device="cuda",
 ) -> VolumeResult:
-    dev = _resolve(device, mesh)
     d, h, w = volume.shape
     n = h * w
     if isinstance(payload, str):
@@ -126,7 +161,7 @@ def encode_volume(
     total = int(bits.size)
 
     if config.strategy == "pee":
-        return _encode_volume_pee(volume, bits, config, dev)
+        return _encode_volume_pee(volume, bits, config, mesh, device)
     if config.strategy not in ("multi_plane", "hybrid", "block_adaptive"):
         # an unimplemented strategy must raise, not silently get other
         # semantics
@@ -135,10 +170,10 @@ def encode_volume(
             f"'block_adaptive' and 'pee', not '{config.strategy}'"
         )
 
-    # one upload feeds the histograms, the block scans, the embed and the
-    # metric moments
-    vol_dev = to_device(volume, dev)
-    s, hist_total = volume_cut_point(vol_dev, config.beta, device=dev)
+    # one upload per shard feeds the histograms, the block scans, the embed
+    # and the metric moments
+    vol_parts = _volume_shards(volume, mesh, device)
+    s, hist_total = _cut_point(vol_parts, config.beta)
 
     # capacity-aware contiguous split: the per-slice segment distribution
     # oversubscribes its lowest plane (quadratic weights), so the usable
@@ -171,9 +206,12 @@ def encode_volume(
     if config.strategy == "hybrid":
         # per-slice variance-chosen start offsets: the same helper
         # plan_batch uses, so volumes and batches share the offset rule
-        base_offsets = batch_par.hybrid_base_offsets(
-            vol_dev, h, w, config.search_block_size
-        )
+        base_offsets = []
+        for _, part in vol_parts:
+            with device_guard(part.device):
+                base_offsets += batch_par.hybrid_base_offsets(
+                    part, h, w, config.search_block_size
+                )
         align = config.align_across_planes
     else:
         base_offsets = [0] * d
@@ -204,26 +242,29 @@ def encode_volume(
         seed=config.seed,
     )
     with stage("volume_embed"):
+        msgs_prefix = batch_par._msg_prefix(plan)
         if config.strategy == "block_adaptive":
             # variance-ranked tile placement per slice at the GLOBAL cut
             # point: the block batch's popcounts, ranking and embed
-            bases = batch_par._batch_block_bases(
-                vol_dev, nbits, plan.s, config.block_size, h, w
-            )
-            stego = batch_par._block_embed_batch(
-                vol_dev, to_device(batch_par._msg_prefix(plan), dev),
-                bases, lengths, offsets, plan.s, nbits, config.block_size,
-            )
+            stego = [
+                batch_par._block_embed_shard(part, msgs_prefix, plan, rows,
+                                             config.block_size)
+                for rows, part in vol_parts
+            ]
         else:
-            # K1: every slice in one launch
-            stego = batch_par.encode_batch(vol_dev, plan, device=dev)
+            # K1: every slice of a shard in one launch
+            stego = [
+                batch_par._raster_embed_shard(part, msgs_prefix, plan, rows,
+                                              emit_maps=False)[0]
+                for rows, part in vol_parts
+            ]
     with stage("volume_download"):
-        stego_np = stego.cpu().numpy()
+        stego_np = np.concatenate([st.cpu().numpy() for st in stego])
 
     metrics = None
     if config.compute_metrics:
         with stage("volume_metrics"):
-            metrics = _aggregate_volume_metrics(vol_dev, stego, dev)
+            metrics = _aggregate_volume_metrics(vol_parts, stego)
 
     return VolumeResult(
         stego=stego_np, s=s, plan=plan, slice_bits=slice_bits, metrics=metrics
@@ -235,24 +276,26 @@ def _cap_hists(vol: torch.Tensor, t_max: int, max_val: int):
     each, on the volume's device."""
     from ..ops import pee as pee_ops
 
-    return tuple(pee_ops.capacity_histogram(vol, parity, t_max, max_val)
-                 for parity in (0, 1))
+    with device_guard(vol.device):
+        return tuple(pee_ops.capacity_histogram(vol, parity, t_max, max_val)
+                     for parity in (0, 1))
 
 
 def _encode_volume_pee(
     volume: np.ndarray,
     bits: np.ndarray,
     config: EncodeConfig,
-    dev: torch.device,
+    mesh,
+    device,
 ) -> VolumeResult:
     """PEE over a volume: histogram-driven capacity split across slices,
     per-slice thresholds.
 
-    One device pass computes every slice's capacity histogram for both
-    passes; the payload is split contiguously at the smallest uniform
-    reference threshold whose (slightly discounted) estimated capacities
-    cover it, and the batch encoder then gives each slice its own minimal
-    T. Each slice's container is self-describing (T + used0/used1 in the
+    One device pass (one per ``dp`` shard of a ``mesh``) computes every
+    slice's capacity histogram for both passes; the payload is split
+    contiguously at the smallest uniform reference threshold whose
+    (slightly discounted) estimated capacities cover it, and the batch
+    encoder then gives each slice its own minimal T. Each slice's container is self-describing (T + used0/used1 in the
     PEE ext), so STGV decode is the standard per-slice path."""
     from ..models.pee import _MAX_T
     from ..ops import pee as pee_ops
@@ -263,14 +306,13 @@ def _encode_volume_pee(
     dtype_bits = np.dtype(volume.dtype).itemsize * 8
     max_val = (1 << dtype_bits) - 1
 
-    vol_d = to_device(volume, dev)
+    vol_parts = _volume_shards(volume, mesh, device)
     with stage("pee_histogram"):
-        hist0, hist1 = _cap_hists(vol_d, _MAX_T, max_val)
-        caps = (
-            pee_ops.capacities_by_threshold(hist0.cpu().numpy()).astype(
-                np.int64)
-            + pee_ops.capacities_by_threshold(hist1.cpu().numpy()).astype(
-                np.int64)
+        hists = [_cap_hists(part, _MAX_T, max_val) for _, part in vol_parts]
+        caps = sum(
+            pee_ops.capacities_by_threshold(np.concatenate(
+                [h[parity].cpu().numpy() for h in hists])).astype(np.int64)
+            for parity in (0, 1)
         )  # (d, _MAX_T): exact pass-0 + pristine pass-1 estimate per slice
 
     # The pass-1 half is an estimate (real pass 1 runs on the pass-0 stego);
@@ -294,7 +336,8 @@ def _encode_volume_pee(
             chunks.append(bits[off : off + int(sb[i])])
             off += int(sb[i])
         try:
-            return encode_pee_batch(volume, chunks, config, device=dev), sb
+            return encode_pee_batch(volume, chunks, config, mesh,
+                                    device=device), sb
         except CapacityError:
             # only capacity exhaustion re-splits; other ValueErrors (bad
             # codec, malformed config) propagate
@@ -326,7 +369,8 @@ def _encode_volume_pee(
             est = int(caps[:, t - 1].sum())
             if est + 1024 * d < total:
                 continue  # not worth probing: far below the payload
-            exact = probe_capacity_batch(volume, t, max_val, device=dev)
+            exact = probe_capacity_batch(volume, t, max_val,
+                                         device=lead_device(mesh, device))
             got = _try_split(np.asarray(exact))
             if got is not None:
                 r, slice_bits = got
@@ -340,7 +384,7 @@ def _encode_volume_pee(
     metrics = None
     if config.compute_metrics:
         with stage("volume_metrics"):
-            metrics = _aggregate_volume_metrics(vol_d, r.stego, dev)
+            metrics = _aggregate_volume_metrics(vol_parts, r.stego)
 
     return VolumeResult(
         stego=r.stego, s=0, plan=None, slice_bits=slice_bits,
@@ -378,7 +422,7 @@ def pack_volume(
     from ..ops import embed as embed_ops
     from ..ops.segments import distribute_segments
 
-    dev = _resolve(device, None)
+    dev = resolve_device(device)
     d, h, w = result.stego.shape
     s = result.s
     codec = get_codec(config.codec)
@@ -508,7 +552,7 @@ def extract_volume(
     device="cuda",
 ) -> np.ndarray:
     """Recover the full payload bit array from a stego volume: one K2
-    launch for every slice."""
+    launch for every slice (one per ``dp`` shard of a ``mesh``)."""
     bits = np.asarray(batch_par.extract_batch(stego, result_plan, mesh,
                                               device=device))
     out = []

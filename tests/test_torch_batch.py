@@ -209,18 +209,37 @@ def test_encode_and_extract_batch_match_jax(b, h, w, dtype, strategy):
 
 
 def test_batch_entry_points_refuse_a_mesh():
+    """A batch that does not split evenly over the mesh's ``dp`` axis is
+    refused with the JAX package's exception type (its ``device_put``
+    raises ``ValueError``); a bad container under a mesh raises the
+    decoder's ``ValueError`` in both packages."""
+    from codec_tcc_tpu.parallel import mesh as jax_mesh
+    from codec_tcc_tpu_torch.parallel.mesh import make_mesh
+
     imgs = _images(7, 2, 16, 16, np.uint8)
     plan = _plan(imgs, ["a", "b"])
-    for call in (
-        lambda: tb.encode_batch(imgs, plan, mesh=object(), device="cpu"),
-        lambda: tb.extract_batch(imgs, plan, mesh=object(), device="cpu"),
-        lambda: tb.encode_batch_containers(imgs, ["a", "b"], EncodeConfig(),
-                                           mesh=object(), device="cpu"),
-        lambda: tb.decode_batch_containers([b"x"], mesh=object(),
-                                           device="cpu"),
+    mesh = make_mesh(devices=["cpu"] * 3, axes=("dp",))
+    jmesh = jax_mesh.make_mesh(3, ("dp",))
+    cfg = dict(device_policy="device")
+    for port_call, jax_call in (
+        (lambda: tb.encode_batch(imgs, plan, mesh=mesh, device="cpu"),
+         lambda: np.asarray(jb.encode_batch(imgs, plan, mesh=jmesh))),
+        (lambda: tb.extract_batch(imgs, plan, mesh=mesh, device="cpu"),
+         lambda: jb.extract_batch(imgs, plan, mesh=jmesh)),
+        (lambda: tb.encode_batch_containers(imgs, ["a", "b"],
+                                            EncodeConfig(**cfg), mesh=mesh,
+                                            device="cpu"),
+         lambda: jb.encode_batch_containers(imgs, ["a", "b"],
+                                            JaxConfig(**cfg), mesh=jmesh)),
     ):
-        with pytest.raises(NotImplementedError, match="multi-device"):
-            call()
+        with pytest.raises(ValueError):
+            jax_call()
+        with pytest.raises(ValueError, match="does not split evenly"):
+            port_call()
+    with pytest.raises(ValueError, match="Invalid file"):
+        jb.decode_batch_containers([b"x"], mesh=jmesh)
+    with pytest.raises(ValueError, match="Invalid file"):
+        tb.decode_batch_containers([b"x"], mesh=mesh, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +288,8 @@ def test_batch_quality_reports_match_jax():
     stego = imgs ^ (_images(11, 3, 24, 40, np.uint16) & 3).astype(np.uint16)
     imgs[:, 0, 0] = stego[:, 0, 0] = 4095  # equal ranges: no rescaling
     stego[1] = imgs[1]                     # an unchanged image: PSNR inf
-    got = tb._batch_quality_reports(imgs, stego, torch.device("cpu"))
+    got = tb._batch_quality_reports(
+        imgs, stego, [(torch.device("cpu"), slice(0, len(imgs)))])
     want = jb._batch_quality_reports(imgs, stego)
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):

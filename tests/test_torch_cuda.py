@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a GPU: K1-K4, the batch forms of K1/K2 and
 the shard mode of K3/K4 against their plain versions; the raster, PEE,
-block_adaptive, container batch and tiled (one image across a mesh of the
-card repeated) encode paths against the CPU path; the device block
+block_adaptive, container batch, tiled (one image across a mesh of the
+card repeated) and ``dp`` (a batch split over such a mesh) encode paths
+against the CPU path; the device block
 extract against its host twin; the host embed route with no K1; the
 ``jls`` codec, v1 containers and the serving daemon against the parity
 fixture. Marked ``cuda``: they skip where no GPU is present and run on the
@@ -815,6 +816,102 @@ def test_gpu_tiled_raster_equals_single_device(cuda, strategy):
     assert set(rk.LAUNCHES.values()) == {0}
     assert dec.payload == payload
     np.testing.assert_array_equal(dec.original, img)
+
+
+# ---------------------------------------------------------------------------
+# the dp axis: a batch split over a mesh of the card repeated
+# ---------------------------------------------------------------------------
+
+
+def _dp_batch(b=8, h=96, w=128):
+    rng = np.random.default_rng(31)
+    y, x = np.mgrid[0:h, 0:w]
+    imgs = ((x * 37 + y * 11)[None] + rng.integers(0, 512, (b, h, w))) % 4096
+    pays = [rng.integers(0, 2, 200 + 97 * i, dtype=np.uint8)
+            for i in range(b)]
+    return imgs.astype(np.uint16), pays
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "block_adaptive"])
+def test_gpu_dp_batch_equals_unsharded(cuda, strategy):
+    """``encode_batch_containers`` over ``make_mesh(devices=["cuda:0"] *
+    4)``: the unsharded containers (on the card and on the CPU), batch K1
+    launched once per shard for the raster strategy and never for the
+    block batch; ``extract_batch`` launches batch K2 once per shard and
+    gives the payloads back."""
+    from codec_tcc_tpu_torch.parallel import batch, make_mesh
+
+    imgs, pays = _dp_batch()
+    cfg = port.EncodeConfig(strategy=strategy)
+    mesh = make_mesh(devices=["cuda:0"] * 4, axes=("dp",))
+    rk.reset_launch_counts()
+    res = batch.encode_batch_containers(imgs, pays, cfg, mesh,
+                                        bits_stored=12)
+    launched = dict(rk.LAUNCHES)
+    want = batch.encode_batch_containers(imgs, pays, cfg, bits_stored=12)
+    assert res.containers == want.containers == batch.encode_batch_containers(
+        imgs, pays, cfg, bits_stored=12, device="cpu").containers
+    raster = strategy == "hybrid"
+    assert launched == {**{k: 0 for k in launched},
+                        "raster_embed_batch": 4 if raster else 0}
+    if raster:
+        rk.reset_launch_counts()
+        bits = batch.extract_batch(res.stego, res.plan, mesh)
+        assert rk.LAUNCHES["raster_extract_batch"] == 4
+        for i, p in enumerate(pays):
+            np.testing.assert_array_equal(bits[i, :p.size], p)
+    decs = batch.decode_batch_containers(res.containers, mesh)
+    for dec, p, img in zip(decs, pays, imgs):
+        np.testing.assert_array_equal(dec.payload_bits, p)
+        np.testing.assert_array_equal(dec.original, img)
+
+
+def test_gpu_dp_pee_batch_and_volume_equal_unsharded(cuda):
+    """The PEE batch over a (2, 2) ``("dp", "tile")`` mesh of the card:
+    the unsharded containers, K3 twice per non-empty shard of each
+    attempt group; a raster volume over ``dp`` = 4: the unsharded STGV,
+    one batch K1 per shard, ``extract_volume`` one batch K2 per shard."""
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.models.pee import max_value
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import batch_pee, make_mesh, volume
+
+    two = np.stack([cases.image(cases.Case("t", 96, 128, "uint16", 12,
+                                           "text", "pee", 60 + i))
+                    for i in range(2)])
+    imgs = two[[0, 0, 0, 1, 1, 1, 1, 1]]
+    rng = np.random.default_rng(4)
+    pays = [rng.integers(0, 2, 3000, dtype=np.uint8) for _ in range(8)]
+    cfg = port.EncodeConfig(strategy="pee")
+    mesh = make_mesh(devices=["cuda:0"] * 4, axes=("dp", "tile"),
+                     shape=(2, 2))
+    pk.reset_launch_counts()
+    res = batch_pee.encode_pee_batch(imgs, pays, cfg, mesh, bits_stored=12)
+    embeds = pk.LAUNCHES["pee_embed"]
+    want = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
+                                      device="cpu")
+    assert res.containers == want.containers
+    t_start = batch_pee._start_thresholds(
+        torch.from_numpy(imgs), [p.size for p in pays],
+        max_value(int(imgs.max()), 16, 12), cfg.pee_threshold)
+    groups = cases.pee_attempt_group_lists(t_start, res.thresholds)
+    shards = cases.pee_group_shards(groups, 2, mesh.size)
+    assert embeds == 2 * sum(len(sizes) for sizes in shards)
+
+    vol = np.random.default_rng(8).integers(0, 4096, (8, 128, 96)).astype(
+        np.uint16)
+    dp4 = make_mesh(devices=["cuda:0"] * 4, axes=("dp",))
+    vcfg = port.EncodeConfig(strategy="hybrid")
+    rk.reset_launch_counts()
+    vres = volume.encode_volume(vol, "a dp volume", vcfg, dp4)
+    assert rk.LAUNCHES["raster_embed_batch"] == 4
+    blob = volume.pack_volume(vol, vres, vcfg)
+    cpu = volume.encode_volume(vol, "a dp volume", vcfg, device="cpu")
+    assert blob == volume.pack_volume(vol, cpu, vcfg, device="cpu")
+    rk.reset_launch_counts()
+    bits = volume.extract_volume(vres.stego, vres.plan, dp4)
+    assert rk.LAUNCHES["raster_extract_batch"] == 4
+    assert bytes(np.packbits(bits)) == b"a dp volume"
 
 
 # ---------------------------------------------------------------------------

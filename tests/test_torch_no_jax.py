@@ -3,7 +3,9 @@ cannot import jax, ``codec_tcc_tpu_torch`` imports, encodes and decodes on
 the CPU (raster, block_adaptive, the host embed route and PEE, single
 image and batch, the container batch path, the runner, volumes, capacity,
 analyze, the embedder models, the CLI and one image tiled across a mesh
-of CPU devices, raster and PEE; the ``jls`` codec and v1 containers,
+of CPU devices, raster and PEE; a batch and a volume split over a mesh's
+``dp`` axis, ``initialize_distributed`` and the codec stages of
+``ops/callback_codec.py``; the ``jls`` codec and v1 containers,
 ``doctor`` and the ``serve`` daemon), and nothing of the JAX package
 gets loaded. Neither the port's sources nor ``chip_smoke.py`` import
 jax or the JAX package."""
@@ -86,6 +88,23 @@ res = tile.encode_array_tiled(img, "tiled", port.EncodeConfig(), cpu3,
                               bits_stored=12)
 dec = tile.decode_container_tiled(res.container, cpu3)
 assert dec.message == "tiled" and np.array_equal(dec.original, img)
+from codec_tcc_tpu_torch.parallel import initialize_distributed
+initialize_distributed()           # no world: a no-op
+cpu2 = mesh.make_mesh(devices=["cpu"] * 2, axes=("dp",))
+for cfg in (port.EncodeConfig(), pee):
+    res = batch.encode_batch_containers(np.stack([img, img[::-1]]),
+                                        ["d1", "d22"], cfg, cpu2,
+                                        bits_stored=12, device="cpu")
+    decs = batch.decode_batch_containers(res.containers, cpu2, device="cpu")
+    assert [d.message for d in decs] == ["d1", "d22"]
+res = volume.encode_volume(np.stack([img, img[::-1]]), "dp volume",
+                           port.EncodeConfig(), cpu2, device="cpu")
+bits = volume.extract_volume(res.stego, res.plan, cpu2, device="cpu")
+assert bytes(np.packbits(bits)) == b"dp volume"
+from codec_tcc_tpu_torch.ops import callback_codec
+out = callback_codec.roundtrip_in_jit(torch.from_numpy(img), "deflate",
+                                      1 << 16)
+assert np.array_equal(out.numpy(), img)
 loaded = sorted(m for m in sys.modules
                 if m == "codec_tcc_tpu" or m.startswith("codec_tcc_tpu.")
                 or m == "jax" or m.startswith("jax.") or m.startswith("jaxlib"))
@@ -181,6 +200,10 @@ def test_serve_doctor_and_jls_run_without_jax():
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    # what chip_smoke.py runs beside the port: its multi-process worker and
+    # the cases it reads
+    yield os.path.join(REPO, "tests", "torch_multihost_worker.py")
+    yield os.path.join(REPO, "tests", "torch_port_cases.py")
     for root, _, files in os.walk(os.path.join(REPO, "codec_tcc_tpu_torch")):
         for name in files:
             if name.endswith(".py"):

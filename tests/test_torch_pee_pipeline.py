@@ -253,9 +253,17 @@ def test_probe_capacity_batch_matches_jax(t):
 
 
 def test_batch_refuses_a_mesh_and_foreign_containers():
+    """A batch that does not split evenly over the mesh's ``dp`` axis
+    raises ``ValueError``, as the JAX package's ``device_put`` does."""
+    from codec_tcc_tpu.parallel import mesh as jax_mesh
+    from codec_tcc_tpu_torch.parallel.mesh import make_mesh
+
     imgs = np.zeros((1, 8, 8), np.uint8)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        port_batch.encode_pee_batch(imgs, ["x"], mesh=object(), device="cpu")
+    with pytest.raises(ValueError):
+        jax_batch.encode_pee_batch(imgs, ["x"], mesh=jax_mesh.make_mesh(2))
+    with pytest.raises(ValueError, match="does not split evenly"):
+        port_batch.encode_pee_batch(
+            imgs, ["x"], mesh=make_mesh(devices=["cpu"] * 2), device="cpu")
     raster = port.encode_array(_image(16, 16, np.uint8, 8, seed=1), "x",
                                bits_stored=8, device="cpu").container
     with pytest.raises(ValueError, match="not a PEE container"):

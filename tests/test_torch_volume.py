@@ -275,16 +275,27 @@ def test_malformed_stgv_raises_jax_value_error(kind):
 @pytest.mark.parametrize("call", ["encode_volume", "volume_cut_point",
                                   "extract_volume"])
 def test_mesh_raises_not_implemented(call):
+    """A volume whose depth (3) does not split evenly over the mesh's
+    ``dp`` axis (2) raises ``ValueError``, as the JAX package's
+    ``device_put`` does: nothing is left unimplemented for a mesh."""
+    from codec_tcc_tpu.parallel import mesh as jax_mesh
+    from codec_tcc_tpu_torch.parallel.mesh import make_mesh
+
     vol = _volume("u8odd")
-    mesh = object()
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        if call == "encode_volume":
-            pv.encode_volume(vol, "x", EncodeConfig(), mesh, device="cpu")
-        elif call == "volume_cut_point":
-            pv.volume_cut_point(vol, 0.4, mesh, device="cpu")
-        else:
-            _, _, _, _, pr, _ = _run("u8odd", "hybrid", "text")
-            pv.extract_volume(pr.stego, pr.plan, mesh, device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 2, axes=("dp",))
+    jmesh = jax_mesh.make_mesh(2, ("dp",))
+    for m, dev in ((jmesh, None), (mesh, "cpu")):
+        kw = {} if dev is None else {"device": dev}
+        mod = jv if dev is None else pv
+        cfg = JaxConfig() if dev is None else EncodeConfig()
+        with pytest.raises(ValueError):
+            if call == "encode_volume":
+                mod.encode_volume(vol, "x", cfg, m, **kw)
+            elif call == "volume_cut_point":
+                mod.volume_cut_point(vol, 0.4, m, **kw)
+            else:
+                _, _, _, _, pr, _ = _run("u8odd", "hybrid", "text")
+                np.asarray(mod.extract_volume(pr.stego, pr.plan, m, **kw))
 
 
 def test_default_device_is_cuda():

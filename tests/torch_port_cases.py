@@ -273,6 +273,26 @@ def pee_attempt_groups(t_start, t_final) -> int:
     return len(pee_attempt_group_lists(t_start, t_final))
 
 
+def pee_group_shards(groups, dp: int, mesh_size: int):
+    """The shard sizes of each attempt group of ``groups`` (as
+    :func:`pee_attempt_group_lists` gives them) over a mesh of
+    ``mesh_size`` devices with ``dp`` on its ``dp`` axis: the JAX package
+    shards a group over ``dp`` when its power-of-two size ``g_pad`` is a
+    multiple of the mesh's size, ``g_pad / dp`` rows a shard; the port pads
+    nothing, so its last shards are shorter or empty, and K3 runs twice
+    per non-empty shard. An unsharded group is one shard."""
+    out = []
+    for _, idxs in groups:
+        g = len(idxs)
+        g_pad = 1 << max(0, (g - 1).bit_length())
+        if g_pad % mesh_size:
+            out.append([g])
+            continue
+        k = g_pad // dp
+        out.append([min(k, g - i * k) for i in range(dp) if g > i * k])
+    return out
+
+
 # The tiled path (parallel/tile.py, parallel/tile_pee.py): one image's rows
 # split over K bands of a mesh. TILED_PEE runs the 2048x2048 PEE case over
 # K in TILED_KS (the fixture's ``tiled`` section holds the JAX package's
