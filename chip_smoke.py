@@ -10,9 +10,10 @@ split over a mesh's ``dp`` axis and over two processes, the other
 transport codecs with STGC v1, and the serving daemon) through
 its hand-written CUDA kernels (K1 ``raster_embed`` and its batch form
 ``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
-K3 ``pee_embed``, K4 ``pee_extract`` and their shard mode
-``pee_embed_shard``/``pee_extract_shard``) and checks them, phase by
-phase; any failure exits non-zero:
+K3 ``pee_embed``, K4 ``pee_extract`` and their band mode, two launches
+each: ``pee_count_band`` and ``pee_embed_band``, ``pee_extract_count_band``
+and ``pee_extract_band``) and checks them, phase by phase; any failure
+exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
@@ -55,12 +56,12 @@ phase; any failure exits non-zero:
    each on 8 x 2048x2048 uint16 (8,192 tiles) repeated 20 times with
    identical outputs; then the device block extract (torch ops, no
    kernel) against ``extract_block_host`` on the stegos of the five
-   ``blk_*`` cases, with the case's cut point and one lower; then K3/K4 in
-   shard mode against their plain band versions on the 2048x2048 uint16
+   ``blk_*`` cases, with the case's cut point and one lower; then K3/K4's
+   band launches against their plain versions on the 2048x2048 uint16
    image of the 3 Mbit PEE case at its T, over 4 bands (pass 0 saturated
-   and at half its capacity, pass 1 on pass 0's stego): every band's
-   outputs exact, the used count and boundary exact, the bands stitched
-   together equal to the whole-image K3/K4;
+   and at half its capacity, pass 1 on pass 0's stego): every band's tile
+   counts and outputs exact, the used count and boundary exact, the bands
+   stitched together equal to the whole-image K3/K4;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE, five block_adaptive, three on the host embed route) through
    ``encode_array(device="cuda")``: the container's sha256 (and for PEE the
@@ -166,9 +167,10 @@ phase; any failure exits non-zero:
    none for a raster or block ``unpack_volume``, K3 twice per equal-T
    attempt group of the PEE volume, K4 twice per decode group), the
    capacity probes (K3 twice each), analyze (none), the F1 batch (as the
-   PEE batch) and the tiled paths (shard K3 once per band per pass per
-   attempt, replayed from the start and final T, shard K4 once per band
-   per inverse pass; no kernel for the tiled raster path), the ``dp``
+   PEE batch) and the tiled paths (K3's band count and apply launches
+   once per band per pass per attempt, replayed from the start and final
+   T, K4's band count and apply once per band per inverse pass; no kernel
+   for the tiled raster path), the ``dp``
    paths (batch K1, batch K2 and K3 once per non-empty shard: one batch
    K1 per shard of a batch or volume encode, one batch K2 per shard of
    ``extract_batch`` or ``extract_volume``, K3 twice per non-empty shard
@@ -207,10 +209,11 @@ phase; any failure exits non-zero:
    ``encode_volume`` + ``pack_volume`` and ``extract_volume`` at the
    64-slice volume (median of 3), and batch K1/K2 device time per shard;
    the tiled PEE encode and decode
-   walls at 2048x2048 for K = 1, 2, 4 beside the single-device ones, and
-   K3/K4 in shard mode band by band at K = 4 on the case's four passes
-   (per call, device, plain, the band's bound) with the band's eligible
-   count (torch ops); ``jls`` against ``deflate``: the
+   walls at 2048x2048 for K = 1, 2, 4 beside the single-device ones, in
+   turns, and K3/K4's band launches band by band at K = 4 on the case's
+   four passes and on band 1 of the 4096x3328 frame (per call, device,
+   plain, each launch's bound), with K4's look-back design at the same
+   band beside them; ``jls`` against ``deflate``: the
    ``transport_codec`` and ``transport_decode`` stage means, the cycle's
    host wall and the container bytes at 512x512 (304 bits) and 2048x2048
    (at capacity) uint16; the warm daemon's ``encode`` and ``decode``
@@ -1946,15 +1949,16 @@ def time_volume_kernels(vol, bits, res) -> None:
 
 
 def phase2_pee_shard(dev, parity, max_err) -> str:
-    """K3/K4 in shard mode against their plain band versions on the card:
-    the 2048x2048 uint16 image of the 3 Mbit PEE case at its T, split into
-    4 bands, pass 0 at the whole payload (saturated) and at half its
+    """K3/K4's band launches against their plain versions on the card: the
+    2048x2048 uint16 image of the 3 Mbit PEE case at its T, split into 4
+    bands, pass 0 at the whole payload (saturated) and at half its
     capacity (the boundary inside a band), pass 1 on the saturated pass's
     stego at the rest of the payload; each inverted by K4. Exact: every
-    band's stego, overflow, count and nproc (K3) and restored band, bits
-    and nbits (K4); the used count and the pass boundary; the four bands
-    stitched together against the whole-image K3/K4. Updates ``max_err``;
-    returns the text for phase 2."""
+    band's tile counts, stego, overflow and nproc (K3's count and apply)
+    and tile counts, restored band, valid bits and nbits (K4's count and
+    apply); the used count and the pass boundary; the four bands stitched
+    together against the whole-image K3/K4. Updates ``max_err``; returns
+    the text for phase 2."""
     import torch
     import torch_port_cases as cases
     import torch_tile_cases as tiles
@@ -1973,6 +1977,17 @@ def phase2_pee_shard(dev, parity, max_err) -> str:
     def i32(v):
         return torch.tensor([int(v)], dtype=torch.int32, device=dev)
 
+    def band_err(got, ref, names):
+        """Max abs error of each launch over the bands: per band the count
+        launch's output first, then the apply launch's."""
+        for name, g, r in ((names[0], [x[:1] for x in got],
+                            [x[:1] for x in ref]),
+                           (names[1], [x[1:] for x in got],
+                            [x[1:] for x in ref])):
+            err = max(max_abs_diff(a, b) for a, b in zip(g, r))
+            max_err[name] = max(max_err[name], err)
+            check(err == 0, f"{name} != plain at {what}")
+
     cap0 = int(pk.pee_embed(img, msg, i32(0), i32(0), 0, t, max_val)[4][0])
     s0, _, u0, _, _ = pk.pee_embed(img, msg, i32(0), i32(total), 0, t,
                                    max_val)
@@ -1982,35 +1997,31 @@ def phase2_pee_shard(dev, parity, max_err) -> str:
     for src, base, want, par in runs:
         what = f"2048x2048 T={t} parity={par} want={want} over {k} bands"
         got, (stego, over, used, nproc) = tiles.embed(
-            pk.pee_embed, src, msg, base, want, par, t, max_val, k)
-        ref, _ = tiles.embed(pk.pee_embed_plain, src, msg, base, want, par,
-                             t, max_val, k)
+            src, msg, base, want, par, t, max_val, k)
+        ref, _ = tiles.embed(src, msg, base, want, par, t, max_val, k,
+                             plain=True)
         torch.cuda.synchronize()
-        err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-        max_err["pee_embed_shard"] = max(max_err["pee_embed_shard"], err)
-        check(err == 0, f"K3 shard mode != plain at {what}")
+        band_err(got, ref, ("pee_count_band", "pee_embed_band"))
         whole = pk.pee_embed(src, msg, i32(base), i32(want), par, t, max_val)
         check(max_abs_diff((stego, over), whole[:2]) == 0
               and (used, nproc) == (int(whole[2][0]), int(whole[3][0]))
-              and sum(int(g[2][0]) for g in got) == int(whole[4][0]),
-              f"K3 shard bands stitched != whole-image K3 at {what}")
+              and sum(int(g[0].sum()) for g in got) == int(whole[4][0]),
+              f"K3 bands stitched != whole-image K3 at {what}")
         got, (restored, bits_k, n_bits) = tiles.extract(
-            pk.pee_extract, stego, over, nproc, par, t, out_len, k)
-        ref, _ = tiles.extract(pk.pee_extract_plain, stego, over, nproc, par,
-                               t, out_len, k)
+            stego, over, nproc, par, t, out_len, k)
+        ref, _ = tiles.extract(stego, over, nproc, par, t, out_len, k,
+                               plain=True)
         torch.cuda.synchronize()
-        err = max(max_abs_diff(g, r) for g, r in zip(got, ref))
-        max_err["pee_extract_shard"] = max(max_err["pee_extract_shard"], err)
-        check(err == 0, f"K4 shard mode != plain at {what}")
+        band_err(got, ref, ("pee_extract_count_band", "pee_extract_band"))
         w_r, w_bits, w_n = pk.pee_extract(stego, over, i32(nproc), par, t,
                                           out_len)
         check(torch.equal(restored, w_r) and torch.equal(restored, src)
               and torch.equal(bits_k, w_bits[0].cpu())
               and n_bits == int(w_n[0]) == used,
-              f"K4 shard bands stitched != whole-image K4 at {what}")
-    return (f"K3/K4 shard mode == plain at 2048x2048 u16 T={t} over {k} "
-            f"bands (pass 0 saturated and at {cap0 // 2}, pass 1 at "
-            f"{total - used0}), stitched == whole image")
+              f"K4 bands stitched != whole-image K4 at {what}")
+    return (f"K3/K4 band launches (count, apply) == plain at 2048x2048 u16 "
+            f"T={t} over {k} bands (pass 0 saturated and at {cap0 // 2}, "
+            f"pass 1 at {total - used0}), stitched == whole image")
 
 
 def phase3_f1(port, tparity, counted, dev):
@@ -2061,8 +2072,8 @@ def phase3_tiled(port, parity, tparity, counted, dev):
     port's single-device container; both passes used), then
     ``encode_array_tiled`` / ``decode_container_tiled`` at 4096x3328 for
     hybrid and block_adaptive over 4 bands (equal to ``encode_array``);
-    every decode exact. Returns (text, the launches of each path, the
-    encode/decode walls by K)."""
+    every decode exact. Returns (text, the launches of each path, (the
+    inputs, each PEE case's final T))."""
     import numpy as np
     import torch
     import torch_port_cases as cases
@@ -2086,8 +2097,9 @@ def phase3_tiled(port, parity, tparity, counted, dev):
             img, bits, c.config(port.EncodeConfig),
             bits_stored=c.bits_stored, device=dev).container
     runs = [(case, k) for k in cases.TILED_KS] + [(big_pee, cases.TILED_BIG_K)]
-    expected = {"pee_embed_shard": 0, "pee_extract_shard": 0}
-    walls = {}
+    expected = {"pee_count_band": 0, "pee_embed_band": 0,
+                "pee_extract_count_band": 0, "pee_extract_band": 0}
+    walls, thresholds = {}, {}
 
     def pee_path():
         out = []
@@ -2122,11 +2134,15 @@ def phase3_tiled(port, parity, tparity, counted, dev):
         check(passes == 2, f"{what}: one pass only")
         t_start = int(pee_start_thresholds(img[None], [bits.size],
                                            c.bits_stored, pee_cfg, dev)[0])
-        # K launches per pass: both passes of every attempt that fell
-        # short, then the final attempt's; K per inverse pass
-        expected["pee_embed_shard"] += k * (2 * (t_final - t_start) + passes)
-        expected["pee_extract_shard"] += k * passes
+        # K count and K apply launches per pass: both passes of every
+        # attempt that fell short, then the final attempt's; K of each per
+        # inverse pass
+        for name in ("pee_count_band", "pee_embed_band"):
+            expected[name] += k * (2 * (t_final - t_start) + passes)
+        for name in ("pee_extract_count_band", "pee_extract_band"):
+            expected[name] += k * passes
         walls[(c.name, k)] = (enc_s, dec_s)
+        thresholds[c.name] = t_final
         print(f"  {what}: T={t_final} from {t_start}, container "
               f"{len(res.container)} B equal, decode exact; walls (first "
               f"run) encode {enc_s * 1e3:.2f} ms, decode {dec_s * 1e3:.2f} "
@@ -2154,7 +2170,8 @@ def phase3_tiled(port, parity, tparity, counted, dev):
             f"{cases.TILED_BIG_K} bands and tiled hybrid/block_adaptive at "
             f"4096x3328 equal to the single-device containers; all decodes "
             f"exact")
-    return text, {"tiled_pee": expected, "tiled_raster": {}}, (inputs, walls)
+    return (text, {"tiled_pee": expected, "tiled_raster": {}},
+            (inputs, thresholds))
 
 
 DP_MESHES = (("k1", ("dp",), (1,)), ("k2", ("dp",), (2,)),
@@ -2505,14 +2522,18 @@ def time_dp(port, device_batches, volume_walls, smi, dev) -> None:
               flush=True)
 
 
-def time_tiled(parity, tiled_inputs, dev) -> dict:
-    """The tiled PEE path at 2048x2048 u16, 3 Mbit: encode and decode host
-    walls for K = 1, 2, 4 (median of 3 after the path's first run) beside
-    the single-device ``encode_array``/``decode_container``; then K3/K4 in
-    shard mode, band by band at K = 4 on the case's real passes (per call,
-    device time, the plain band version, the bound of the band's bytes)
-    and the band's eligible count (the torch-op sweep that gives the rank
-    prefix). Returns the band times of band 1 for the kernels line."""
+def time_tiled(tiled_inputs, thresholds, dev) -> dict:
+    """The tiled PEE path: encode and decode host walls at 2048x2048 u16, 3
+    Mbit, for K = 1, 2, 4 beside the single-device
+    ``encode_array``/``decode_container``, in turns (three rounds, the
+    order reversed each round; median of 3); then K3/K4's band launches,
+    band by band at K = 4 on the case's four real passes, and on band 1 of
+    the 4096x3328 frame's pass 0 and its inverse: per call, device time
+    (profiler, by kernel), the plain version per call and the bound of
+    each launch's bytes; beside K4's, the look-back design at the same
+    band (the whole-image K4 on the band as its own image, its memset of
+    status words and a band-sized bit row included). Returns band 1's
+    times of the 2048x2048 case for the kernels line."""
     import torch
     import torch_port_cases as cases
     import torch_tile_cases as tiles
@@ -2538,97 +2559,168 @@ def time_tiled(parity, tiled_inputs, dev) -> dict:
                 img, bits, cfg, mesh, bits_stored=12),
             lambda mesh=mesh: tile_pee.decode_container_tiled_pee(blob,
                                                                   mesh))
-    for what, (enc, dec) in calls.items():
-        walls = []
-        for fn in (enc, dec):
-            times = []
-            for _ in range(3):
+    walls = {what: ([], []) for what in calls}
+    order = list(calls)
+    for rnd in range(3):
+        for what in (order if rnd % 2 == 0 else order[::-1]):
+            for fn, times in zip(calls[what], walls[what]):
                 t0 = time.perf_counter()
                 fn()
                 times.append((time.perf_counter() - t0) * 1e3)
-            walls.append(statistics.median(times))
-        print(f"  tiled PEE 2048x2048 u16 3 Mbit {what}: encode "
-              f"{walls[0]:.2f} ms, decode {walls[1]:.2f} ms host wall "
-              f"(median of 3)", flush=True)
-
-    t = parity[case.name]["pee_ext"][0]
-    k = cases.TILED_BIG_K
-    max_val = (1 << case.bits_stored) - 1
-    img_d = torch.from_numpy(img).to(dev)[None]
-    msg = message_buffer([bits], dev)
+    single = [statistics.median(v) for v in walls["single-device"]]
+    for what, (enc, dec) in walls.items():
+        e, d = statistics.median(enc), statistics.median(dec)
+        print(f"  tiled PEE 2048x2048 u16 3 Mbit {what}: encode {e:.2f} ms "
+              f"({e / single[0]:.3f}x single), decode {d:.2f} ms "
+              f"({d / single[1]:.3f}x single) host wall (median of 3, in "
+              f"turns; encode {', '.join(f'{v:.2f}' for v in enc)}, decode "
+              f"{', '.join(f'{v:.2f}' for v in dec)})", flush=True)
 
     def i32(v):
         return torch.tensor([int(v)], dtype=torch.int32, device=dev)
 
-    s0, o0, u0, n0, _ = pk.pee_embed(img_d, msg, i32(0), i32(bits.size), 0,
-                                     t, max_val)
-    used0 = int(u0[0])
-    s1, o1, u1, n1, _ = pk.pee_embed(s0, msg, u0, i32(bits.size) - u0, 1, t,
-                                     max_val)
-    over = o0 | o1
-    out_len = 1 << max(3, (bits.size - 1).bit_length())
-    r1 = pk.pee_extract(s1, over, n1, 1, t, out_len)[0]
-    h, w = img.shape
-    lh = -(-h // k)
-    passes = {
-        "k3_pass0": ("embed", img_d, 0, 0, bits.size),
-        "k3_pass1": ("embed", s0, 1, used0, bits.size - used0),
-        "k4_pass1": ("extract", s1, 1, int(n1[0]), None),
-        "k4_pass0": ("extract", r1, 0, int(n0[0]), None),
-    }
-    band_times = {}
-    for key, (kind, src, par, arg, want) in passes.items():
-        rank_base = 0
-        for b, (a, e) in enumerate(tiles.bands(h, k)):
-            top, bot = tiles.halo(src, a, e)
-            band = src[:, a:e].contiguous()
-            n = band.numel()
-            if kind == "embed":
-                shard = (top, bot, i32(a), i32(rank_base), h)
-                args = (band, msg, i32(arg), i32(want), par, t, max_val)
-                kern = (lambda args=args, shard=shard:
-                        pk.pee_embed(*args, shard=shard))
-                plain = (lambda args=args, shard=shard:
-                         pk.pee_embed_plain(*args, shard=shard))
-                out = kern()
-                count = int(pee_ops.band_eligible_count(
-                    band, top, bot, i32(a), par, t, max_val, h)[0])
-                # embedded bits of the band: its eligible pixels below want
-                emb = max(0, min(count, want - rank_base))
-                rank_base += count
-                # band read, stego and overflow written, halo rows, bits
-                nbytes = 2 * n + 2 * n + n + 4 * w + emb
-                sweep = (lambda band=band, top=top, bot=bot, a=a, par=par:
-                         pee_ops.band_eligible_count(band, top, bot, i32(a),
-                                                     par, t, max_val, h))
-            else:
-                shard = (top, bot, i32(a), h)
-                ov = over[:, a:e].contiguous()
-                args = (band, ov, i32(arg), par, t, out_len)
-                kern = (lambda args=args, shard=shard:
-                        pk.pee_extract(*args, shard=shard))
-                plain = (lambda args=args, shard=shard:
-                         pk.pee_extract_plain(*args, shard=shard))
-                nb = int(kern()[2][0])
-                # stego and overflow read, restored written, halo, bits
-                nbytes = 2 * n + n + 2 * n + 4 * w + nb
-                sweep = None
-            row = {"ms": cuda_median_ms(kern),
-                   "plain_ms": cuda_median_ms(plain),
-                   "dev_ms": device_ms(kern),
-                   "bound": bound(nbytes, K3_K4_OPS_PER_PIXEL * n)}
-            sweep_txt = ""
-            if sweep is not None:
-                sweep_txt = (f", the band's eligible count (torch ops) "
-                             f"device {fmt_ms(device_ms(sweep))}")
-            print(f"  shard {key} band {b} rows {a}-{e} of 2048x2048 "
-                  f"u16 T={t}: per call {row['ms']:.4f} ms (plain "
-                  f"{row['plain_ms']:.4f} ms), device {fmt_ms(row['dev_ms'])},"
-                  f" bound {row['bound'][0]:.4f} ms ({nbytes} B)"
-                  f"{sweep_txt}", flush=True)
-            if b == 1:
-                band_times[key] = row
-    return band_times
+    def row(label, kern, plain, kernel_name, nbytes, n):
+        """Time one launch: per call (CUDA events), device (profiler, the
+        named kernel alone), the plain version per call, the bound."""
+        ops = dict(device_ops_ms(kern))
+        out = {"ms": cuda_median_ms(kern),
+               "plain_ms": cuda_median_ms(plain),
+               "dev_ms": ops.get(kernel_name),
+               "bound": bound(nbytes, K3_K4_OPS_PER_PIXEL * n)}
+        print(f"  {label}: per call {out['ms']:.4f} ms (plain "
+              f"{out['plain_ms']:.4f} ms), device {fmt_ms(out['dev_ms'])}, "
+              f"bound {out['bound'][0]:.4f} ms ({nbytes} B)", flush=True)
+        return out
+
+    def band_launches(what, over, k, passes, only_band=None):
+        """Time the band launches of each pass over the K bands of its
+        source; returns band 1's times."""
+        times = {}
+        for key, (kind, x, par, arg, want) in passes.items():
+            h, w = x.shape[1:]
+            rank_base = 0
+            for b, (a, e) in enumerate(tiles.bands(h, k)):
+                top, bot = tiles.halo(x, a, e)
+                band = x[:, a:e].contiguous()
+                n = band.numel()
+                tiles_n = -(-n // pee_ops.TILE_PX)
+                label = f"{what} {key} band {b} rows {a}-{e}"
+                timed = only_band is None or b == only_band
+                if kind == "embed":
+                    cnt_args = (band, top, bot, a, h, par, t, max_val)
+                    counts = pk.pee_count_band(*cnt_args)
+                    app = (band, top, bot, a, h, counts,
+                           i32(rank_base) if a else None, msg, arg, want,
+                           par, t, max_val)
+                    count = int(counts.sum())
+                    # embedded bits of the band: its eligible pixels below
+                    # want
+                    emb = max(0, min(count, want - rank_base))
+                    rank_base += count
+                    if not timed:
+                        continue
+                    # count: the band and its halo rows read, the counts
+                    # written; apply: the band, halo rows, counts and the
+                    # band's message bits read, stego and overflow written
+                    parts = {
+                        "count": row(
+                            f"{label} count", lambda a_=cnt_args:
+                            pk.pee_count_band(*a_), lambda a_=cnt_args:
+                            pk.pee_count_band_plain(*a_),
+                            "pee_count_band_kernel",
+                            2 * n + 4 * w + 4 * tiles_n, n),
+                        "apply": row(
+                            f"{label} apply", lambda a_=app:
+                            pk.pee_embed_band(*a_), lambda a_=app:
+                            pk.pee_embed_band_plain(*a_),
+                            "pee_embed_band_kernel",
+                            2 * n + 4 * w + 4 * tiles_n + emb + 2 * n + n,
+                            n)}
+                else:
+                    if not timed:
+                        continue
+                    ov = over[:, a:e].contiguous()
+                    args = (band, top, bot, a, h, ov, arg, par, t)
+                    nb = int(pk.pee_extract_band(*args, out_len)[2][0])
+                    # count: stego, overflow and halo read, counts written;
+                    # apply: the same and the counts read, the restored
+                    # band and its bits written
+                    parts = {
+                        "count": row(
+                            f"{label} count", lambda a_=args:
+                            pk.pee_extract_count_band(*a_), lambda a_=args:
+                            pk.pee_extract_count_band_plain(*a_),
+                            "pee_extract_count_band_kernel",
+                            2 * n + n + 4 * w + 4 * tiles_n, n),
+                        "apply": row(
+                            f"{label} apply (per call: with its count "
+                            f"launch)", lambda a_=args:
+                            pk.pee_extract_band(*a_, out_len),
+                            lambda a_=args:
+                            pk.pee_extract_band_plain(*a_, out_len),
+                            "pee_extract_band_kernel",
+                            2 * n + n + 4 * w + 4 * tiles_n + 2 * n + nb,
+                            n)}
+                    # the look-back design at this band: one memset (its
+                    # status words, ticket and a band-sized bit row) and
+                    # one launch
+                    row_len = max(1, min(out_len, pee_ops.band_set_count(
+                        a, e - a, h, w, par)))
+                    lb = (lambda band=band, ov=ov, arg=arg, par=par,
+                          row_len=row_len: pk.pee_extract(
+                              band, ov, i32(arg), par, t, row_len))
+                    ops = dict(device_ops_ms(lb))
+                    memset = sum(v for name, v in ops.items()
+                                 if name.startswith("Memset")) or None
+                    print(f"  {label}, the look-back design (whole-image "
+                          f"K4 on the band, bit row {row_len} B): per call "
+                          f"{cuda_median_ms(lb):.4f} ms, device "
+                          f"{fmt_ms(ops.get('pee_extract_kernel'))} + "
+                          f"memset {fmt_ms(memset)}", flush=True)
+                if b == 1:
+                    times.update({(key, p): v for p, v in parts.items()})
+        return times
+
+    def four_passes(x_img, nbits):
+        """K3 pass 0 and 1, K4 pass 1 and 0 of ``x_img`` at ``nbits`` (the
+        whole-image kernels make each pass's input): (the passes, the
+        overflow map)."""
+        s0, o0, u0, n0, _ = pk.pee_embed(x_img, msg, i32(0), i32(nbits), 0,
+                                         t, max_val)
+        used0 = int(u0[0])
+        s1, o1, _, n1, _ = pk.pee_embed(s0, msg, u0, i32(nbits) - u0, 1, t,
+                                        max_val)
+        over = o0 | o1
+        r1 = pk.pee_extract(s1, over, n1, 1, t, out_len)[0]
+        return {
+            "k3_pass0": ("embed", x_img, 0, 0, nbits),
+            "k3_pass1": ("embed", s0, 1, used0, nbits - used0),
+            "k4_pass1": ("extract", s1, 1, int(n1[0]), None),
+            "k4_pass0": ("extract", r1, 0, int(n0[0]), None),
+        }, over
+
+    # the 2048x2048 case at K = 4, every band of its four passes; then
+    # band 1 of the 4096x3328 frame over 4 bands, pass 0 and its inverse
+    times = {}
+    for c, keys, only in ((case, None, None),
+                          (cases.TILED_BIG[0], ("k3_pass0", "k4_pass0"), 1)):
+        x, nbits = tiled_inputs[c.name]
+        t = thresholds[c.name]
+        max_val = (1 << c.bits_stored) - 1
+        msg = message_buffer([nbits], dev)
+        out_len = 1 << max(3, (nbits.size - 1).bit_length())
+        passes, over = four_passes(torch.from_numpy(x).to(dev)[None],
+                                   nbits.size)
+        if keys:
+            passes = {key: passes[key] for key in keys}
+        got = band_launches(f"{x.shape[0]}x{x.shape[1]} u16 T={t}", over,
+                            cases.TILED_BIG_K, passes, only)
+        if c is case:
+            times = got
+    return {"pee_count_band": times[("k3_pass0", "count")],
+            "pee_embed_band": times[("k3_pass0", "apply")],
+            "pee_extract_count_band": times[("k4_pass1", "count")],
+            "pee_extract_band": times[("k4_pass1", "apply")]}
 
 
 def build_native():
@@ -3086,12 +3178,13 @@ def main() -> int:
     batch_err, batch_k_txt = phase2_batch(dev)
     max_err.update(batch_err)
     max_err.update(phase2_pee(dev))
-    max_err.update(pee_embed_shard=0, pee_extract_shard=0)
+    max_err.update(pee_count_band=0, pee_embed_band=0,
+                   pee_extract_count_band=0, pee_extract_band=0)
     parity = cases.load_parity()
     shard_txt = phase2_pee_shard(dev, parity, max_err)
     stress_txt = phase2_pee_stress(dev)
     block_txt = phase2_block(port, dev)
-    phase(2, f"K1-K4, batch K1/K2 and shard K3/K4 == plain on the card (max "
+    phase(2, f"K1-K4, batch K1/K2 and band K3/K4 == plain on the card (max "
              f"abs err {max_err}); {k1_txt}; {k2_txt}; {batch_k_txt}; "
              f"{shard_txt}; {stress_txt}; {block_txt}")
 
@@ -3279,7 +3372,7 @@ def main() -> int:
     time_batch_walls(port, device_batches)
     time_volume_walls(volume_walls)
     time_dp(port, device_batches, volume_walls, smi, dev)
-    shard = time_tiled(parity, tiled_inputs[0], dev)
+    band = time_tiled(*tiled_inputs, dev)
     cfg = port.EncodeConfig()
 
     def cycle_of(name, config):
@@ -3325,13 +3418,14 @@ def main() -> int:
         ("raster_extract_batch", "raster_extract.cu", "pallas_embed.py:386",
          batch[2048]["k2"], batch[2048]["k2_plain"],
          batch[2048]["k2_bound"]),
-        ("pee_embed_shard", "pee_embed.cu", "pallas_pee.py:481",
-         shard["k3_pass0"]["ms"], shard["k3_pass0"]["plain_ms"],
-         shard["k3_pass0"]["bound"]),
-        ("pee_extract_shard", "pee_extract.cu", "pallas_pee.py:670",
-         shard["k4_pass1"]["ms"], shard["k4_pass1"]["plain_ms"],
-         shard["k4_pass1"]["bound"]),
-    )
+    ) + tuple(
+        (name, src, tpu, band[name]["ms"], band[name]["plain_ms"],
+         band[name]["bound"])
+        for name, src, tpu in (
+            ("pee_count_band", "pee_embed.cu", "pallas_pee.py:481"),
+            ("pee_embed_band", "pee_embed.cu", "pallas_pee.py:481"),
+            ("pee_extract_count_band", "pee_extract.cu", "pallas_pee.py:670"),
+            ("pee_extract_band", "pee_extract.cu", "pallas_pee.py:670")))
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"codec_tcc_tpu_torch/csrc/{src}",

@@ -11,11 +11,14 @@
 // checkerboard colour, and their count before any raster position is a
 // function of (y, x) alone, so no scan is needed for it.
 //
-// Shard mode (BAND = true; pallas_pee.py `pos_base`/`rank_base`): the
-// kernels run on a band of lh rows of an image h rows tall, whose first row
-// is global row row0. The geometry takes the global row, the neighbours of
-// the band's first and last rows come from the rows `top` and `bot` (the
-// next bands' edge rows), and a run stops at the band's end.
+// Band mode (BAND = true; pallas_pee.py `pos_base`/`rank_base`): the band
+// kernels of pee_embed.cu and pee_extract.cu run on a band of lh rows of an
+// image h rows tall, whose first row is global row row0. The geometry takes
+// the global row, the neighbours of the band's first and last rows come
+// from the rows `top` and `bot` (the next bands' edge rows), and a run stops
+// at the band's end. They take no ticket and no look-back: a count launch
+// writes each tile's count, and the apply launch's block sums the counts of
+// the tiles before its own (pee_tiles_before).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,6 +31,19 @@
 // Tiles per image.
 static inline long long pee_tiles(int h, int w) {
     return ((long long)h * w + PEE_TILE_PX - 1) / PEE_TILE_PX;
+}
+
+// The arguments every band launch checks: int pixel indices as for whole
+// images (n + w plus a tile, and the image's set ranks, below 2**31), at
+// most 65535 bands (grid.y), rows [row0, row0 + lh) inside the image, both
+// halo rows.
+static inline bool pee_band_args_ok(int batch, int lh, int h, int w,
+                                    int row0, int parity, int t,
+                                    const void* top, const void* bot) {
+    return batch >= 1 && batch <= 65535 && h >= 1 && w >= 1 && lh >= 1 &&
+           row0 >= 0 && lh <= h - row0 && (parity == 0 || parity == 1) &&
+           t >= 1 && ((long long)h + 1) * w <= 0x7fffffffLL - PEE_TILE_PX &&
+           top && bot;
 }
 
 // Interior pixel of checkerboard colour `parity`: the pixels a pass may touch.
@@ -113,6 +129,31 @@ __device__ __forceinline__ int pee_block_excl_scan(int v, int* warp_tot,
     }
     *total = sum;
     return before + x - v;
+}
+
+// The sum of `v` over the block's threads, returned to every thread: a warp
+// reduction, then the THREADS / 32 warp sums in `warp_tot` (shared). One
+// barrier; `warp_tot` must not be rewritten after it by the same block.
+template <int THREADS>
+__device__ __forceinline__ int pee_block_sum(int v, int* warp_tot) {
+    const unsigned s = __reduce_add_sync(0xffffffffu, (unsigned)v);
+    if ((threadIdx.x & 31) == 0) warp_tot[threadIdx.x >> 5] = (int)s;
+    __syncthreads();
+    int sum = 0;
+#pragma unroll
+    for (int k = 0; k < THREADS / 32; ++k) sum += warp_tot[k];
+    return sum;
+}
+
+// This thread's part of the sum of counts[0 .. tile), the per-tile counts
+// a band's count launch wrote (at most 1 + tile / PEE_THREADS loads, all
+// issued before any pixel is used); pee_block_sum of the parts is the
+// number of counted pixels in the tiles before this one.
+__device__ __forceinline__ int pee_tiles_before_part(
+    const int* __restrict__ counts, int tile) {
+    int v = 0;
+    for (int j = threadIdx.x; j < tile; j += PEE_THREADS) v += __ldg(counts + j);
+    return v;
 }
 
 // Exclusive prefix of tile `tile` among the tiles of one image, whose status
@@ -215,6 +256,34 @@ __device__ __forceinline__ void pee_load_band_scalar(
                : i < n + w  ? bot[i - n]
                             : T(0);
     }
+}
+
+// The run of RUN pixels at p0 (< n) of a band of n pixels in rows of w, the
+// runs above and below it and its row neighbours, all loads issued before
+// any is used: 16-byte vectors where the three rows lie inside the band
+// (pee_rows_vectorizable), else scalar loads, the band's first and last
+// rows taking their neighbours from `top` and `bot`. Returns whether the
+// loads were vectors.
+template <typename T, int RUN>
+__device__ __forceinline__ bool pee_load_band_run(
+    const T* __restrict__ im, const T* __restrict__ top,
+    const T* __restrict__ bot, int p0, int n, int w, T (&c)[RUN],
+    T (&up)[RUN], T (&dn)[RUN], int& left, int& right) {
+    if (pee_rows_vectorizable<T, RUN>(im, p0, w, n)) {
+        left = im[p0 - 1];
+        right = im[p0 + RUN];
+        pee_load_vec(im + p0, c);
+        pee_load_vec(im + p0 - w, up);
+        pee_load_vec(im + p0 + w, dn);
+        return true;
+    }
+    // an in-set pixel is interior, so its row neighbours are in range
+    left = p0 > 0 ? im[p0 - 1] : 0;
+    right = p0 + RUN < n ? im[p0 + RUN] : 0;
+    pee_load_scalar(im, p0, n, c);
+    pee_load_band_scalar(im, top, bot, p0 - w, n, w, up);
+    pee_load_band_scalar(im, top, bot, p0 + w, n, w, dn);
+    return false;
 }
 
 // Elements [start, start + RUN) of `v` into `base` (start >= 0), the ones at

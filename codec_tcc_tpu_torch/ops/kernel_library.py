@@ -124,13 +124,24 @@ def library() -> ctypes.CDLL:
         # buf (scratch with nbits at its front, then the bit rows), stream
         "pee_extract": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i64, ptr,
                         ptr, ptr],
-        # their shard mode: K3's arguments with top, bottom, row0 and
-        # rank_base after want, and batch, lh, h, w for batch, h, w
-        "pee_embed_band": [ptr, ptr, i64, ptr, ptr, ptr, ptr, ptr, ptr, i32,
-                           i32, i32, i32, i32, i32, i32, ptr, ptr, ptr, ptr],
-        # K4's with top, bottom and row0 after nproc, and batch, lh, h, w
-        "pee_extract_band": [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
-                             i32, i32, i32, i64, ptr, ptr, ptr],
+        # band mode, K3's count: img, top, bottom, row0, batch, lh, h, w,
+        # parity, t, max_val, counts, stream
+        "pee_count_band": [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32,
+                           i32, ptr, ptr],
+        # K3's apply: img, msg, msg_len, msg_base, want, top, bottom, row0,
+        # rank_base (or null), counts, batch, lh, h, w, parity, t, max_val,
+        # stego, over, nproc, stream
+        "pee_embed_band": [ptr, ptr, i64, i32, i32, ptr, ptr, i32, ptr, ptr,
+                           i32, i32, i32, i32, i32, i32, i32, ptr, ptr, ptr,
+                           ptr],
+        # K4's count: stego, over, nproc, top, bottom, row0, batch, lh, h, w,
+        # parity, t, counts, stream
+        "pee_extract_count_band": [ptr, ptr, i32, ptr, ptr, i32, i32, i32,
+                                   i32, i32, i32, i32, ptr, ptr],
+        # K4's apply: stego, over, nproc, top, bottom, row0, counts, batch,
+        # lh, h, w, parity, t, row_len, restored, bits, nbits, stream
+        "pee_extract_band": [ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, i32,
+                             i32, i32, i32, i64, ptr, ptr, ptr, ptr],
     }
     for name, argtypes in signatures.items():
         for dt in ("u8", "u16"):

@@ -16,11 +16,15 @@ after the shortest raster prefix of the set that holds the pass's bits.
 :func:`embed_pass` and :func:`extract_pass` are the plain versions of the
 kernels K3 ``pee_embed`` and K4 ``pee_extract``
 (:mod:`~codec_tcc_tpu_torch.ops.pee_kernels`), and
-:func:`embed_pass_band` and :func:`extract_pass_band` those of their shard
-mode: one pass over a band of rows of a larger image, with the rows
-around it, its global row offset and the eligible count of the rows above
-it (:mod:`~codec_tcc_tpu_torch.parallel.tile_pee`). A whole image is one
-band, so the whole-image passes run through the band versions. The
+:func:`embed_pass_band` and :func:`extract_pass_band` the passes over a band
+of rows of a larger image, with the rows around it, its global row offset
+and the eligible count of the rows above it
+(:mod:`~codec_tcc_tpu_torch.parallel.tile_pee`). A whole image is one
+band, so the whole-image passes run through the band versions. The band
+kernels' plain versions follow their two launches each:
+:func:`band_tile_counts` and :func:`band_extract_tile_counts` (the count of
+each :data:`TILE_PX`-pixel tile) and :func:`embed_pass_band_tiles` (the
+apply from the tiles' offsets, equal to :func:`embed_pass_band`). The
 wrappers run them for CPU tensors and ``chip_smoke.py`` holds the CUDA
 kernels against them on the card. Everything here is plain torch;
 nothing launches a kernel.
@@ -38,18 +42,28 @@ from typing import Tuple
 import torch
 
 __all__ = [
+    "TILE_PX",
     "rhombus_predict",
     "capacity",
     "capacity_histogram",
     "capacities_by_threshold",
+    "error_histogram",
     "band_capacity_histogram",
     "band_eligible_count",
+    "band_set_count",
+    "band_tile_counts",
+    "band_extract_tile_counts",
     "embed_pass",
     "embed_pass_band",
+    "embed_pass_band_tiles",
     "extract_pass",
     "extract_pass_band",
     "parity_mask",
 ]
+
+# Pixels per tile of the kernels K3/K4 (csrc/pee_common.cuh PEE_TILE_PX):
+# a band kernel's count launch counts each TILE_PX consecutive band pixels.
+TILE_PX = 4096
 
 def rhombus_predict(img: torch.Tensor) -> torch.Tensor:
     """Floor-average of the 4-neighbourhood with edge replication. int32."""
@@ -124,6 +138,29 @@ def capacity_histogram(
     idx = (e.reshape(nimg, h * w).to(torch.int64) + t_max
            + nbins * torch.arange(nimg, device=img.device)[:, None])
     hist = torch.bincount(idx[ok], minlength=nimg * nbins)
+    return hist.to(torch.int32).reshape(*lead, nbins)
+
+
+def error_histogram(img: torch.Tensor, parity: int,
+                    t_max: int = 64) -> torch.Tensor:
+    """Prediction-error histogram for one pass, ``(..., 2*t_max + 1)``
+    int32: counts of ``e = x - pred`` over the in-set pixels, clamped to
+    ``[-t_max, t_max]`` (bin 0 <=> ``e = -t_max``). The central ``2T``
+    bins sum to the expandable pixels at threshold ``T``. The JAX package
+    sorts instead of a ``bincount`` (a TPU workaround); the bins are the
+    same."""
+    lead = img.shape[:-2]
+    h, w = img.shape[-2:]
+    e = img.to(torch.int32) - rhombus_predict(img)
+    in_set = parity_mask(h, w, parity, img.device).reshape(-1)
+    nbins = 2 * t_max + 1
+    nimg = 1
+    for d in lead:
+        nimg *= d
+    idx = (e.reshape(nimg, h * w).clamp(-t_max, t_max).to(torch.int64)
+           + t_max + nbins * torch.arange(nimg, device=img.device)[:, None])
+    hist = torch.bincount(idx[:, in_set].reshape(-1),
+                          minlength=nimg * nbins)
     return hist.to(torch.int32).reshape(*lead, nbins)
 
 
@@ -216,6 +253,52 @@ def band_eligible_count(band, top, bottom, row0, parity: int, t: int,
     return eligible.sum(dim=(1, 2), dtype=torch.int32)
 
 
+def _rows_before_set_count(y: int, height: int, w: int, parity: int) -> int:
+    """In-set pixels in the rows above global row ``y`` (the closed form of
+    :func:`_band_geometry` at column 0, in host ints)."""
+    m = min(max(y - 1, 0), max(height - 2, 0))   # interior rows before y
+    n_q1 = (m + 1) // 2 if parity % 2 == 0 else m // 2
+    return n_q1 * ((w - 1) // 2) + (m - n_q1) * (max(w - 2, 0) // 2)
+
+
+def band_set_count(row0: int, lh: int, height: int, w: int,
+                   parity: int) -> int:
+    """In-set pixels of the band of rows ``[row0, row0 + lh)``: the most
+    bits one pass can carry there (K4's band bit row holds as many)."""
+    return (_rows_before_set_count(row0 + lh, height, w, parity)
+            - _rows_before_set_count(row0, height, w, parity))
+
+
+def _row0s(row0: int, band: torch.Tensor) -> torch.Tensor:
+    """The band kernels' by-value first row as the ``(B,)`` int32 tensor
+    the band formulas take."""
+    return torch.full((band.shape[0],), row0, dtype=torch.int32,
+                      device=band.device)
+
+
+def _tiles(mask: torch.Tensor) -> torch.Tensor:
+    """A ``(B, lh, W)`` mask as ``(B, tiles, TILE_PX)`` int32, zero-padded
+    past the band's last pixel: the kernels' tiles of consecutive band
+    pixels."""
+    b = mask.shape[0]
+    flat = mask.reshape(b, -1).to(torch.int32)
+    n = flat.shape[1]
+    tiles = -(-n // TILE_PX)
+    flat = torch.nn.functional.pad(flat, (0, tiles * TILE_PX - n))
+    return flat.reshape(b, tiles, TILE_PX)
+
+
+def band_tile_counts(band, top, bottom, row0: int, height: int, parity: int,
+                     t: int, max_val: int) -> torch.Tensor:
+    """Each :data:`TILE_PX`-pixel tile's eligible pixels, ``(B, tiles)``
+    int32, the plain version of K3's band count launch: a tile covers band
+    pixels ``[j * TILE_PX, (j + 1) * TILE_PX)`` in raster order, and a
+    row sums to :func:`band_eligible_count`."""
+    eligible = _band_classify(band, top, bottom, _row0s(row0, band), height,
+                              parity, t, max_val)[-1]
+    return _tiles(eligible).sum(2, dtype=torch.int32)
+
+
 def band_capacity_histogram(band, top, bottom, row0, parity: int,
                             t_max: int, max_val: int,
                             height: int) -> torch.Tensor:
@@ -233,36 +316,13 @@ def band_capacity_histogram(band, top, bottom, row0, parity: int,
     return hist.to(torch.int32).reshape(b, nbins)
 
 
-def embed_pass_band(
-    band: torch.Tensor,        # (B, lh, W) uint8/uint16: rows of an image
-    top: torch.Tensor,         # (B, W): the row above the band, or its first
-    bottom: torch.Tensor,      # (B, W): the row below it, or its last
-    row0: torch.Tensor,        # (B,) int32: the band's first global row
-    rank_base: torch.Tensor,   # (B,) int32: eligible pixels of the rows above
-    msg_bits: torch.Tensor,    # (B, L) uint8, the whole message, L >= 1
-    msg_base: torch.Tensor,    # (B,) int32: this pass's first message bit
-    want_bits: torch.Tensor,   # (B,) int32: bits the whole pass should embed
-    parity: int,
-    t: int,
-    max_val: int,
-    height: int,               # the image's rows
-) -> Tuple[torch.Tensor, ...]:
-    """One PEE pass over a band of rows of an image ``height`` rows tall,
-    the plain version of K3's shard mode. Returns ``(stego, overflow u8,
-    count, nproc)``: ``count`` is the band's eligible pixels and ``nproc``
-    the largest set rank the band processes (0 if none).
-
-    A pixel's global eligible rank is ``rank_base`` plus its inclusive rank
-    in the band. The pass processes the in-set pixels up to the
-    ``want``-th eligible pixel of the image (all of them past ``cap``), so
-    a band needs no global boundary; the caller combines the bands:
-    ``used = min(want, cap)`` and ``nproc = H*W`` when ``want > cap``, else
-    the largest band ``nproc``."""
+def _embed_band_apply(band, cls, grank, msg_bits, msg_base, want_bits,
+                      t: int):
+    """The pass over a band from its classification ``cls``
+    (:func:`_band_classify`) and each pixel's global eligible rank
+    ``grank``: ``(stego, overflow u8, nproc)`` of :func:`embed_pass_band`."""
     b, lh, w = band.shape
-    x, pred, e, in_set, set_rank, expandable, overflow, eligible = (
-        _band_classify(band, top, bottom, row0, height, parity, t, max_val))
-    grank = (rank_base.to(torch.int32)[:, None, None]
-             + _raster_cumsum(eligible))
+    x, pred, e, in_set, set_rank, expandable, overflow, eligible = cls
     want = want_bits.to(torch.int32)[:, None, None]
     embeds = eligible & (grank <= want)
     processed = in_set & ((grank < want) | (eligible & (grank == want)))
@@ -282,9 +342,97 @@ def embed_pass_band(
     # only expand where a bit was embedded, otherwise only shift
     modify = processed & ~overflow & (embeds | ~expandable)
     out = torch.where(modify, pred + e_new, x).to(band.dtype)
-    count = eligible.sum(dim=(1, 2), dtype=torch.int32)
     nproc = torch.where(processed, set_rank, 0).amax(dim=(1, 2))
-    return out, (overflow & processed).to(torch.uint8), count, nproc
+    return out, (overflow & processed).to(torch.uint8), nproc
+
+
+def embed_pass_band(
+    band: torch.Tensor,        # (B, lh, W) uint8/uint16: rows of an image
+    top: torch.Tensor,         # (B, W): the row above the band, or its first
+    bottom: torch.Tensor,      # (B, W): the row below it, or its last
+    row0: torch.Tensor,        # (B,) int32: the band's first global row
+    rank_base: torch.Tensor,   # (B,) int32: eligible pixels of the rows above
+    msg_bits: torch.Tensor,    # (B, L) uint8, the whole message, L >= 1
+    msg_base: torch.Tensor,    # (B,) int32: this pass's first message bit
+    want_bits: torch.Tensor,   # (B,) int32: bits the whole pass should embed
+    parity: int,
+    t: int,
+    max_val: int,
+    height: int,               # the image's rows
+) -> Tuple[torch.Tensor, ...]:
+    """One PEE pass over a band of rows of an image ``height`` rows tall.
+    Returns ``(stego, overflow u8, count, nproc)``: ``count`` is the band's
+    eligible pixels and ``nproc`` the largest set rank the band processes
+    (0 if none).
+
+    A pixel's global eligible rank is ``rank_base`` plus its inclusive rank
+    in the band. The pass processes the in-set pixels up to the
+    ``want``-th eligible pixel of the image (all of them past ``cap``), so
+    a band needs no global boundary; the caller combines the bands:
+    ``used = min(want, cap)`` and ``nproc = H*W`` when ``want > cap``, else
+    the largest band ``nproc``."""
+    cls = _band_classify(band, top, bottom, row0, height, parity, t, max_val)
+    eligible = cls[-1]
+    grank = (rank_base.to(torch.int32)[:, None, None]
+             + _raster_cumsum(eligible))
+    out, over, nproc = _embed_band_apply(band, cls, grank, msg_bits,
+                                         msg_base, want_bits, t)
+    return out, over, eligible.sum(dim=(1, 2), dtype=torch.int32), nproc
+
+
+def embed_pass_band_tiles(band, top, bottom, row0: int, height: int, counts,
+                          rank_base, msg_bits, msg_base: int, want: int,
+                          parity: int, t: int, max_val: int):
+    """The plain version of K3's band apply launch: :func:`embed_pass_band`
+    with each pixel ranked from the tiles' counts (``counts`` ``(B,
+    tiles)``, :func:`band_tile_counts`), as the kernel's blocks rank theirs:
+    ``rank_base`` (``(B,)`` int32, or None for 0), plus the counts of the
+    tiles before the pixel's tile, plus its inclusive rank in its tile.
+    ``row0``, ``msg_base`` and ``want`` are the launch's by-value ints.
+    Returns ``(stego, overflow u8, nproc)``, equal to
+    :func:`embed_pass_band`'s."""
+    b, lh, w = band.shape
+    rows = _row0s(row0, band)
+    cls = _band_classify(band, top, bottom, rows, height, parity, t, max_val)
+    counts = counts.to(torch.int32)
+    before = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    if rank_base is not None:
+        before = before + rank_base.to(torch.int32)[:, None]
+    grank = before[:, :, None] + torch.cumsum(_tiles(cls[-1]), 2,
+                                              dtype=torch.int32)
+    grank = grank.reshape(b, -1)[:, :lh * w].reshape(b, lh, w)
+    return _embed_band_apply(band, cls, grank, msg_bits,
+                             torch.full_like(rows, msg_base),
+                             torch.full_like(rows, want), t)
+
+
+def _extract_band_classify(band, top, bottom, row0, overflow_map, n_proc,
+                           parity: int, t: int, height: int):
+    """``(x2, pred, e2, processed, expanded, bit)`` of the inverse of one
+    pass over a band (see :func:`extract_pass_band`)."""
+    x2 = band.to(torch.int32)
+    pred = _predict_band(band, top, bottom)
+    e2 = x2 - pred
+    in_set, set_rank = _band_geometry(band.shape[1], band.shape[2], row0,
+                                      height, parity)
+    processed = (in_set & (set_rank <= n_proc.to(torch.int32)[:, None, None])
+                 & (overflow_map == 0))
+    expanded = processed & (e2 >= -2 * t) & (e2 < 2 * t)
+    bit = e2 & 1   # floor-mod 2 for int32
+    return x2, pred, e2, processed, expanded, bit
+
+
+def band_extract_tile_counts(band, top, bottom, row0: int, height: int,
+                             overflow_map, n_proc: int, parity: int,
+                             t: int) -> torch.Tensor:
+    """Each :data:`TILE_PX`-pixel tile's expanded processed pixels (the bits
+    it carries), ``(B, tiles)`` int32: the plain version of K4's band count
+    launch. ``row0`` and ``n_proc`` are the launch's by-value ints."""
+    rows = _row0s(row0, band)
+    expanded = _extract_band_classify(
+        band, top, bottom, rows, overflow_map, torch.full_like(rows, n_proc),
+        parity, t, height)[4]
+    return _tiles(expanded).sum(2, dtype=torch.int32)
 
 
 def extract_pass_band(
@@ -299,22 +447,14 @@ def extract_pass_band(
     out_len: int,
     height: int,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Invert one PEE pass over a band, the plain version of K4's shard
-    mode. Returns ``(restored, bits (B, out_len) uint8, n_bits (B,)
-    int32)``: bit ``r`` of a row is the bit of the band's expanded pixel of
-    band rank ``r`` (the caller places a band's bits after those of the
-    bands above it), 0 past ``n_bits``; ranks at or past ``out_len`` are
-    dropped."""
+    """Invert one PEE pass over a band. Returns ``(restored, bits (B,
+    out_len) uint8, n_bits (B,) int32)``: bit ``r`` of a row is the bit of
+    the band's expanded pixel of band rank ``r`` (the caller places a
+    band's bits after those of the bands above it), 0 past ``n_bits``;
+    ranks at or past ``out_len`` are dropped."""
     b, lh, w = band.shape
-    x2 = band.to(torch.int32)
-    pred = _predict_band(band, top, bottom)
-    e2 = x2 - pred
-    in_set, set_rank = _band_geometry(lh, w, row0, height, parity)
-    processed = (in_set & (set_rank <= n_proc.to(torch.int32)[:, None, None])
-                 & (overflow_map == 0))
-
-    expanded = processed & (e2 >= -2 * t) & (e2 < 2 * t)
-    bit = e2 & 1   # floor-mod 2 for int32
+    x2, pred, e2, processed, expanded, bit = _extract_band_classify(
+        band, top, bottom, row0, overflow_map, n_proc, parity, t, height)
     e = torch.where(
         expanded,
         (e2 - bit) >> 1,

@@ -1,5 +1,5 @@
 # Port of codec_tcc_tpu/parallel/tile_pee.py on a mesh of torch devices,
-# through the shard mode of K3/K4 (the JAX package's Pallas route; its XLA
+# through the band mode of K3/K4 (the JAX package's Pallas route; its XLA
 # route is the plain band versions in ops/pee.py, which the kernel wrappers
 # run for CPU tensors). `backend`, `interpret` and `pallas_supported` are
 # TPU routing and are gone; any geometry tiles over any mesh, the last
@@ -8,21 +8,26 @@
 
 The PEE counterpart of :mod:`.tile`. Band ``k`` of the image (rows
 ``[k*lh, (k+1)*lh)`` on the ``k``-th device of the mesh axis) runs each
-pass through K3/K4 in shard mode, one launch per band. What couples the
-bands reduces to three small exchanges per pass:
+pass through K3/K4 in band mode: per band, K3's count launch and its apply
+launch, K4's count launch and its apply launch. What couples the bands
+reduces to three small exchanges per pass:
 
 * **halo rows** — the rhombus prediction of a band's first and last rows
   needs one row from each neighbour band: a copy of a ``(W,)`` row between
   devices (the image's border bands pass their own edge row, matching
   :func:`..ops.pee.rhombus_predict`'s edge replication);
 * **rank prefix** — the bit-to-pixel mapping is the global raster rank
-  among eligible pixels: each band's eligible count (a torch-op sweep of
-  the band, :func:`..ops.pee.band_eligible_count`) gathers on the first
-  device, and each band's kernel starts its ranks at the exclusive prefix
-  of the bands above it;
+  among eligible pixels: each band's per-tile eligible counts
+  (:func:`..ops.pee_kernels.pee_count_band`) gather on the first device,
+  one ``cumsum`` gives each band the count of the bands above it, and its
+  apply launch ranks its tiles from there;
 * **processed boundary** — the used-th eligible pixel lies in one band;
   the pass's boundary is the largest set rank the bands process, a max of
-  ``K`` scalars.
+  ``K`` scalars, downloaded with the image's eligible count in one copy.
+
+The pass's message base and budget, and the inverse pass's boundary, go
+to every launch by value. An inverse pass downloads every band's bits and
+count in one copy.
 
 Pixels never move between bands. Containers are byte-identical to the
 single-device PEE encoder's (:func:`..models.pee.encode_pee_array`).
@@ -56,10 +61,6 @@ __all__ = [
 ]
 
 
-def _scalar(v: int, dev: torch.device) -> torch.Tensor:
-    return torch.tensor([int(v)], dtype=torch.int32, device=dev)
-
-
 def _halo_rows(bands: Bands, k: int):
     """(top, bottom) ``(1, W)`` rows of band ``k`` on its device: the
     neighbour bands' edge rows; the image's border bands replicate their
@@ -72,12 +73,12 @@ def _halo_rows(bands: Bands, k: int):
     return top.to(band.device), bot.to(band.device)
 
 
-def _row0s(bands: Bands, h: int):
-    """``{k: (1,) int32 first global row}`` of the non-empty bands, each on
-    its band's device (band k starts at row ``k * shard_rows(h, K)``)."""
+def _live(bands: Bands):
+    """``{k: first global row}`` of the non-empty bands (band k starts at
+    row ``k * shard_rows(h, K)``)."""
+    h = sum(band.shape[0] for band in bands)
     lh = shard_rows(h, len(bands))
-    return {k: _scalar(k * lh, band.device)
-            for k, band in enumerate(bands) if band.numel()}
+    return {k: k * lh for k, band in enumerate(bands) if band.numel()}
 
 
 def embed_pass_tiled(
@@ -86,47 +87,46 @@ def embed_pass_tiled(
 ):
     """One PEE pass over a row-split image (a host image or its bands).
     Returns ``(stego_bands, overflow_bands u8, used, n_proc)``, the bands
-    on their devices and ``used``/``n_proc`` as 0-d int32 tensors on the
-    first band's device. ``msg_bits`` is the whole padded message (a host
-    array, or its ``(1, L)`` copy per device from
-    :func:`.tile._on_devices`)."""
+    on their devices and ``used``/``n_proc`` as ints. ``msg_bits`` is the
+    whole padded message (a host array, or its ``(1, L)`` copy per device
+    from :func:`.tile._on_devices`)."""
     bands = split_rows(image, mesh, axis)
     h, w = sum(band.shape[0] for band in bands), bands[0].shape[1]
-    row0 = _row0s(bands, h)
+    row0 = _live(bands)
     msgs = msg_bits if isinstance(msg_bits, dict) else _on_devices(
         np.asarray(msg_bits)[None], bands)
     halos = {k: _halo_rows(bands, k) for k in row0}
 
-    # the rank prefix: every band's eligible count, gathered on the first
-    # device, its exclusive prefix sent back to each band
+    # the rank prefix: every band's per-tile eligible counts, gathered on
+    # the first device; band k's rank base is the sum of the rows above it
+    counts = {}
+    for k in row0:
+        with device_guard(bands[k].device):
+            counts[k] = pee_kernels.pee_count_band(
+                bands[k][None], *halos[k], row0[k], h, parity, t, max_val)
     first = bands[0].device
-    counts = torch.cat([
-        pee_ops.band_eligible_count(bands[k][None], *halos[k], row0[k],
-                                    parity, t, max_val, h).to(first)
-        for k in row0
-    ])
-    prefix = torch.cumsum(counts, 0, dtype=torch.int32) - counts
-    total_cap = counts.sum(dtype=torch.int32)
+    rows = [counts[k][0].to(first) for k in row0]
+    csum = torch.cumsum(rows[0] if len(rows) == 1 else torch.cat(rows), 0,
+                        dtype=torch.int32)
 
     stego = list(bands)
-    over = [torch.zeros_like(band, dtype=torch.uint8) for band in bands]
-    nprocs = []
-    for i, k in enumerate(row0):
+    over = [None if k in row0 else torch.zeros_like(band, dtype=torch.uint8)
+            for k, band in enumerate(bands)]
+    nprocs, end = [], 0
+    for k, row in zip(row0, rows):
         dev = bands[k].device
+        rank_base = csum[end - 1:end].to(dev) if end else None
+        end += row.numel()
         with device_guard(dev):
-            s_k, o_k, _, n_k = pee_kernels.pee_embed(
-                bands[k][None], msgs[dev], _scalar(msg_base, dev),
-                _scalar(want, dev), parity, t, max_val,
-                shard=(*halos[k], row0[k], prefix[i:i + 1].to(dev), h),
-            )
+            s_k, o_k, n_k = pee_kernels.pee_embed_band(
+                bands[k][None], *halos[k], row0[k], h, counts[k], rank_base,
+                msgs[dev], msg_base, want, parity, t, max_val)
         stego[k], over[k] = s_k[0], o_k[0]
         nprocs.append(n_k.to(first))
-    wnt = torch.tensor(int(want), dtype=torch.int32, device=first)
-    used = torch.minimum(wnt, total_cap)
-    n_proc = torch.where(
-        wnt > total_cap, h * w,
-        torch.where(used > 0, torch.cat(nprocs).amax(), 0),
-    ).to(torch.int32)
+    # one download: the image's eligible count and each band's boundary
+    cap, *band_nprocs = torch.cat([csum[-1:], *nprocs]).tolist()
+    used = min(want, cap)
+    n_proc = h * w if want > cap else (max(band_nprocs) if used > 0 else 0)
     return stego, over, used, n_proc
 
 
@@ -136,29 +136,33 @@ def extract_pass_tiled(
 ):
     """Invert one PEE pass over a row-split stego image (host images or
     bands). Returns ``(restored_bands, bits (out_len,), n_bits)``: each
-    band's bits come back in band rank order and are placed on the host at
-    the count of the bands above it."""
+    band's bits come back in band rank order, every band's with its count
+    in one download, and are placed on the host at the count of the bands
+    above it."""
     bands = split_rows(stego, mesh, axis)
     overs = split_rows(overflow, mesh, axis)
     h = sum(band.shape[0] for band in bands)
+    first = bands[0].device
     restored = list(bands)
-    runs = []
-    for k, row0 in _row0s(bands, h).items():
-        with device_guard(row0.device):
-            r_k, bits_k, n_k = pee_kernels.pee_extract(
-                bands[k][None], overs[k][None], _scalar(n_proc, row0.device),
-                parity, t, out_len, shard=(*_halo_rows(bands, k), row0, h),
-            )
+    nbits, rows = [], []
+    for k, row0 in _live(bands).items():
+        with device_guard(bands[k].device):
+            r_k, bits_k, n_k = pee_kernels.pee_extract_band(
+                bands[k][None], *_halo_rows(bands, k), row0, h,
+                overs[k][None], n_proc, parity, t, out_len)
         restored[k] = r_k[0]
-        runs.append((bits_k[0], n_k))
+        nbits.append(n_k.to(first).view(torch.uint8))
+        rows.append(bits_k[0].to(first))
+    flat = torch.cat(nbits + rows).cpu().numpy()
+    counts = flat[:4 * len(rows)].view(np.int32)
     out = np.zeros(out_len, dtype=np.uint8)
-    off = 0
-    for bits_k, n_k in runs:
-        c = int(n_k)
+    off, pos = 0, 4 * len(rows)
+    for c, row in zip(counts.tolist(), rows):
         take = min(c, out_len - off)
         if take > 0:
-            out[off:off + take] = bits_k[:take].cpu().numpy()
+            out[off:off + take] = flat[pos:pos + take]
         off += c
+        pos += row.numel()
     return restored, out, off
 
 
@@ -169,9 +173,10 @@ def _capacity_histogram_tiled(bands: Bands, parity: int, t_max: int,
     h = sum(band.shape[0] for band in bands)
     hist = [
         pee_ops.band_capacity_histogram(
-            bands[k][None], *_halo_rows(bands, k), row0, parity, t_max,
-            max_val, h)[0].cpu().numpy()
-        for k, row0 in _row0s(bands, h).items()
+            bands[k][None], *_halo_rows(bands, k),
+            torch.full((1,), row0, dtype=torch.int32, device=bands[k].device),
+            parity, t_max, max_val, h)[0].cpu().numpy()
+        for k, row0 in _live(bands).items()
     ]
     return np.sum(hist, axis=0)
 
@@ -228,19 +233,18 @@ def encode_array_tiled_pee(
 
     result = None
     while t <= _MAX_T:
-        s0, o0, u0, n0 = run_pass(img0, 0, total_bits, 0, t)
-        used0 = int(u0)
+        s0, o0, used0, n0 = run_pass(img0, 0, total_bits, 0, t)
         want1 = total_bits - used0
         if want1 <= 0:
-            result = (t, s0, o0, used0, int(n0), None, 0, 0, 1)
+            result = (t, s0, o0, used0, n0, None, 0, 0, 1)
             break
         # pass 1 runs on pass 0's stego bands, where they lie: the halo
         # rows come from pass 0's stego
         s1, o1, u1, n1 = run_pass(s0, used0, want1, 1, t)
-        if int(u1) < want1:
+        if u1 < want1:
             t += 1  # pass-interaction shortfall of the estimate; escalate
             continue
-        result = (t, s1, o0, used0, int(n0), o1, int(u1), int(n1), 2)
+        result = (t, s1, o0, used0, n0, o1, u1, n1, 2)
         break
     if result is None:
         raise CapacityError(

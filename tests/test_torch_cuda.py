@@ -1,5 +1,5 @@
 """The port's CUDA kernels on a GPU: K1-K4, the batch forms of K1/K2 and
-the shard mode of K3/K4 against their plain versions; the raster, PEE,
+the band launches of K3/K4 against their plain versions; the raster, PEE,
 block_adaptive, container batch, tiled (one image across a mesh of the
 card repeated) and ``dp`` (a batch split over such a mesh) encode paths
 against the CPU path; the device block
@@ -378,6 +378,11 @@ def test_pee_extract_many_tiles_repeats_on_gpu(cuda):
         assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
+# the band launches, none on a whole-image path
+NO_BAND = {"pee_count_band": 0, "pee_embed_band": 0,
+           "pee_extract_count_band": 0, "pee_extract_band": 0}
+
+
 def test_gpu_pee_encode_equals_cpu_encode(cuda):
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
@@ -388,15 +393,13 @@ def test_gpu_pee_encode_equals_cpu_encode(cuda):
     cfg = port.EncodeConfig(strategy="pee")
     pk.reset_launch_counts()
     res_g = port.encode_array(img, bits, cfg, bits_stored=12, device=cuda)
-    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 0,
-                           "pee_embed_shard": 0, "pee_extract_shard": 0}
+    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2, "pee_extract": 0}
     res_c = port.encode_array(img, bits, cfg, bits_stored=12, device="cpu")
     assert res_g.container == res_c.container
     dec = port.decode_container(res_g.container, device=cuda)
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
-    assert pk.LAUNCHES == {"pee_embed": 2, "pee_extract": 2,
-                           "pee_embed_shard": 0, "pee_extract_shard": 0}
+    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2, "pee_extract": 2}
 
 
 def test_gpu_pee_batch_equals_cpu_batch(cuda):
@@ -420,8 +423,8 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
         torch.from_numpy(imgs), [100, 900, 400, 304],
         max_value(int(imgs.max()), 16, 12), cfg.pee_threshold)
     groups = cases.pee_attempt_groups(t_start, res_g.thresholds)
-    assert pk.LAUNCHES == {"pee_embed": 2 * groups, "pee_extract": 0,
-                           "pee_embed_shard": 0, "pee_extract_shard": 0}
+    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2 * groups,
+                           "pee_extract": 0}
     res_c = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
                                        device="cpu")
     assert len(set(res_g.thresholds.tolist())) > 1
@@ -430,9 +433,8 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
                                                    device=cuda), imgs):
         np.testing.assert_array_equal(dec.original, img)
     assert pk.LAUNCHES == {
-        "pee_embed": 2 * groups,
-        "pee_extract": 2 * len(set(res_g.thresholds.tolist())),
-        "pee_embed_shard": 0, "pee_extract_shard": 0}
+        **NO_BAND, "pee_embed": 2 * groups,
+        "pee_extract": 2 * len(set(res_g.thresholds.tolist()))}
 
 
 def test_gpu_block_encode_equals_cpu_encode(cuda):
@@ -710,15 +712,22 @@ def _shard_carrier(rng, h, w, dtype, max_val):
     return img.clip(0, max_val).astype(dtype)
 
 
+# (h, w, dtype, max_val): the first four since the band mode's first port,
+# then bands of one row (k = 7 over 6 rows), an odd width past one tile per
+# row, and uint8 at max_val 4095 (BitsStored 12: pixels wrap past 255)
 @pytest.mark.parametrize("h,w,dtype,max_val", [
     (64, 48, np.uint8, 255), (37, 53, np.uint16, 4095),
-    (257, 130, np.uint16, 4095), (300, 4096, np.uint8, 255)])
+    (257, 130, np.uint16, 4095), (300, 4096, np.uint8, 255),
+    (6, 37, np.uint16, 4095), (9, 4099, np.uint16, 4095),
+    (64, 48, np.uint8, 4095)])
 @pytest.mark.parametrize("k", [2, 3, 7])
 def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
-    """K3/K4 in shard mode against their plain band versions, band by band,
-    exact (stego, overflow, count, nproc; restored, bits, nbits), at wants
-    of 0, 1, half the capacity, the capacity and past it, both parities;
-    the bands stitched together equal the whole-image K3/K4."""
+    """K3/K4's band launches (counts, apply) against their plain versions,
+    band by band, exact (tile counts, stego, overflow, nproc; tile counts,
+    restored, the valid bits, nbits), at wants of 0, 1, half the capacity
+    (the boundary inside a band), the capacity and past it (saturated),
+    both parities; the bands stitched together equal the whole-image
+    K3/K4."""
     import torch_tile_cases as tiles
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
@@ -733,9 +742,9 @@ def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
         cap = int(pk.pee_embed_plain(img, msg, z, z, parity, 3, max_val)[4])
         for want in (0, 1, cap // 2, cap, cap + 5):
             got, (stego, over, used, nproc) = tiles.embed(
-                pk.pee_embed, img, msg, 3, want, parity, 3, max_val, k)
-            ref, _ = tiles.embed(pk.pee_embed_plain, img, msg, 3, want,
-                                 parity, 3, max_val, k)
+                img, msg, 3, want, parity, 3, max_val, k)
+            ref, _ = tiles.embed(img, msg, 3, want, parity, 3, max_val, k,
+                                 plain=True)
             for g, r in zip(got, ref):
                 for x, y in zip(g, r):
                     assert torch.equal(x.cpu(), y.cpu())
@@ -747,29 +756,115 @@ def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
 
             out_len = max(8, 1 << max(used - 1, 0).bit_length())
             got, (restored, bits, n_bits) = tiles.extract(
-                pk.pee_extract, stego, over, nproc, parity, 3, out_len, k)
-            ref, _ = tiles.extract(pk.pee_extract_plain, stego, over, nproc,
-                                   parity, 3, out_len, k)
+                stego, over, nproc, parity, 3, out_len, k)
+            ref, _ = tiles.extract(stego, over, nproc, parity, 3, out_len, k,
+                                   plain=True)
             for g, r in zip(got, ref):
                 for x, y in zip(g, r):
                     assert torch.equal(x.cpu(), y.cpu())
             w_r, w_bits, w_n = pk.pee_extract(
                 stego, over, z + nproc, parity, 3, out_len)
             assert torch.equal(restored.cpu(), w_r.cpu())
-            assert torch.equal(restored.cpu(), img.cpu())
             assert torch.equal(bits, w_bits[0].cpu())
-            assert n_bits == int(w_n[0]) == used
-    n_bands = len(tiles.bands(h, k))
-    assert pk.LAUNCHES["pee_embed_shard"] == 2 * 5 * n_bands
-    assert pk.LAUNCHES["pee_extract_shard"] == 2 * 5 * n_bands
+            assert n_bits == int(w_n[0])
+            # a uint8 pixel that wraps past 255 does not come back, and may
+            # read as one more expanded pixel
+            if max_val <= np.iinfo(dtype).max:
+                assert torch.equal(restored.cpu(), img.cpu())
+                assert n_bits == used
+    runs = 2 * 5 * len(tiles.bands(h, k))
+    # tiles.extract runs K4's count once more per band to compare it
+    assert pk.LAUNCHES == {"pee_embed": 10, "pee_extract": 10,
+                           "pee_count_band": runs, "pee_embed_band": runs,
+                           "pee_extract_count_band": 2 * runs,
+                           "pee_extract_band": runs}
+
+
+@pytest.mark.parametrize("h,w,k", [(5, 64, 8), (6, 37, 7), (300, 256, 4)])
+def test_gpu_tiled_pee_passes_equal_cpu_with_empty_bands(cuda, h, w, k):
+    """``embed_pass_tiled``/``extract_pass_tiled`` on ``cuda:0`` repeated K
+    times against the same passes on K CPU devices (the plain versions):
+    more bands than rows (empty last bands), one-row bands and full
+    bands, saturated and with the boundary inside a band."""
+    from codec_tcc_tpu_torch.ops import pee as pee_ops
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    rng = np.random.default_rng(h + k)
+    img = _shard_carrier(rng, h, w, np.uint16, 4095)
+    msg = rng.integers(0, 2, 1 << 15, dtype=np.uint8)
+    meshes = [make_mesh(devices=[d] * k, axes=("tile",))
+              for d in (cuda, "cpu")]
+    cap = int(pee_ops.capacity(torch.from_numpy(img), 1, 3, 4095))
+    for want in (cap // 2, cap + 3):
+        outs = [tile_pee.embed_pass_tiled(img, msg, 5, want, 1, 3, 4095, m)
+                for m in meshes]
+        (s_g, o_g, u_g, n_g), (s_c, o_c, u_c, n_c) = outs
+        assert (u_g, n_g) == (u_c, n_c) and u_g == min(want, cap)
+        for a, b in zip(s_g + o_g, s_c + o_c):
+            assert torch.equal(a.cpu(), b)
+        out_len = 1 << max(3, (u_g - 1).bit_length())
+        r_g, b_g, m_g = tile_pee.extract_pass_tiled(s_g, o_g, n_g, 1, 3,
+                                                    out_len, meshes[0])
+        r_c, b_c, m_c = tile_pee.extract_pass_tiled(s_c, o_c, n_c, 1, 3,
+                                                    out_len, meshes[1])
+        assert m_g == m_c == u_g
+        np.testing.assert_array_equal(b_g, b_c)
+        np.testing.assert_array_equal(b_g[:u_g], msg[5:5 + u_g])
+        for a, b in zip(r_g, r_c):
+            assert torch.equal(a.cpu(), b)
+        assert np.array_equal(np.concatenate([r.cpu().numpy() for r in r_g]),
+                              img)
+
+
+def test_gpu_tiled_pee_runs_the_band_kernels_only(cuda, monkeypatch):
+    """On the card the tiled PEE path makes no ``band_eligible_count``
+    call and runs no plain band version, and its band launches copy
+    nothing from the host: the profiler sees the count and apply kernels
+    of both passes and no host-to-device copy."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from codec_tcc_tpu_torch.ops import pee as pee_ops
+    from codec_tcc_tpu_torch.ops import pee_kernels as pk
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile, tile_pee
+
+    def refused(*args, **kwargs):
+        raise AssertionError("a plain version on the card's band path")
+    for name in ("pee_count_band_plain", "pee_embed_band_plain",
+                 "pee_extract_count_band_plain", "pee_extract_band_plain"):
+        monkeypatch.setattr(pk, name, refused)
+    monkeypatch.setattr(pee_ops, "band_eligible_count", refused)
+    img = _shard_carrier(np.random.default_rng(3), 300, 256, np.uint16, 4095)
+    bits = np.random.default_rng(4).integers(0, 2, 9_000, dtype=np.uint8)
+    mesh = make_mesh(devices=[cuda] * 4, axes=("tile",))
+    cfg = port.EncodeConfig(strategy="pee")
+    res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh)
+    assert res.container == port.encode_array(img, bits, cfg,
+                                              device=cuda).container
+    # one pass on bands and a message already on the card
+    bands = tile.split_rows(img, mesh, "tile")
+    msgs = tile._on_devices(np.pad(bits, (0, (1 << 14) - bits.size))[None],
+                            bands)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, used, _ = tile_pee.embed_pass_tiled(bands, msgs, 0, 9_000, 0, 2,
+                                                  4095, mesh)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()]
+    assert used > 0
+    assert sum("pee_count_band_kernel" in n for n in names) == 4
+    assert sum("pee_embed_band_kernel" in n for n in names) == 4
+    assert not [n for n in names if "HtoD" in n], names
+    dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
+    np.testing.assert_array_equal(dec.payload_bits, bits)
 
 
 @pytest.mark.parametrize("k", [1, 2, 4])
 def test_gpu_tiled_pee_equals_single_device(cuda, k):
     """``encode_array_tiled_pee`` on ``cuda:0`` repeated K times: the
-    single-device container (on the card and on the CPU), one K3 shard
-    launch per band per pass, one K4 per band per inverse pass, and an
-    exact decode."""
+    single-device container (on the card and on the CPU), K3's band count
+    and apply launches once per band per pass, K4's once per band per
+    inverse pass, and an exact decode."""
     from codec_tcc_tpu_torch.io.container import parse_pee_ext
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
@@ -783,8 +878,9 @@ def test_gpu_tiled_pee_equals_single_device(cuda, k):
     mesh = make_mesh(devices=[cuda] * k, axes=("tile",))
     pk.reset_launch_counts()
     res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh)
-    embeds = pk.LAUNCHES["pee_embed_shard"]
+    embeds = pk.LAUNCHES["pee_embed_band"]
     assert pk.LAUNCHES["pee_embed"] == 0
+    assert pk.LAUNCHES["pee_count_band"] == embeds
     single = port.encode_array(img, bits, cfg, device=cuda)
     assert res.container == single.container == port.encode_array(
         img, bits, cfg, device="cpu").container
@@ -792,7 +888,9 @@ def test_gpu_tiled_pee_equals_single_device(cuda, k):
     assert embeds % k == 0 and embeds >= k * passes
     pk.reset_launch_counts()
     dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
-    assert pk.LAUNCHES["pee_extract_shard"] == k * passes
+    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 0, "pee_extract": 0,
+                           "pee_extract_count_band": k * passes,
+                           "pee_extract_band": k * passes}
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
 

@@ -105,6 +105,30 @@ def test_plain_ops_match_jax(h, w, dtype, parity):
                                                         128, hi)))
 
 
+@pytest.mark.parametrize("dtype,hi", [(np.uint8, 255), (np.uint16, 4095)])
+@pytest.mark.parametrize("parity", [0, 1])
+@pytest.mark.parametrize("t_max", [8, 64])
+def test_error_histogram_matches_jax(dtype, hi, parity, t_max):
+    """``error_histogram`` (a bincount) equals the JAX package's (a sort)
+    on seeded carriers, errors past +-t_max clamped into the end bins."""
+    img = _carriers(np.random.default_rng(t_max + parity), 1, 45, 38, dtype,
+                    hi)[0]
+    got = torch_pee.error_histogram(torch.from_numpy(img), parity, t_max)
+    want = np.asarray(jax_pee.error_histogram(jnp.asarray(img), parity,
+                                              t_max))
+    assert got.dtype == torch.int32 and got.shape == (2 * t_max + 1,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the end bins hold the clamped errors
+    assert want[0] > 0 and want[-1] > 0
+    both = torch_pee.error_histogram(
+        torch.from_numpy(np.stack([img, img[::-1].copy()])), parity, t_max)
+    np.testing.assert_array_equal(both[0].numpy(), want)
+    np.testing.assert_array_equal(
+        both[1].numpy(),
+        np.asarray(jax_pee.error_histogram(jnp.asarray(img[::-1]), parity,
+                                           t_max)))
+
+
 def test_capacities_by_threshold_is_a_copy():
     assert same_code(torch_pee.capacities_by_threshold,
                      jax_pee.capacities_by_threshold)
@@ -331,9 +355,52 @@ def test_wrappers_refuse_bad_arguments(bad):
         call(**args)
 
 
+@pytest.mark.parametrize("bad", ["row0", "rows_past_height", "top_shape",
+                                 "bottom_dtype", "counts_shape",
+                                 "rank_base_dtype", "want_int32",
+                                 "nproc_int32", "out_len"])
+def test_band_wrappers_refuse_bad_arguments(bad):
+    band = torch.zeros((1, 4, 8), dtype=torch.uint16)
+    row = torch.zeros((1, 8), dtype=torch.uint16)
+    counts = torch.zeros((1, 1), dtype=torch.int32)
+    embed = dict(band=band, top=row, bottom=row, row0=2, height=6,
+                 counts=counts, rank_base=None,
+                 msg=torch.zeros((1, 8), dtype=torch.uint8), msg_base=0,
+                 want=3, parity=0, t=2, max_val=4095)
+    extract = dict(band=band, top=row, bottom=row, row0=2, height=6,
+                   overflow=torch.zeros_like(band, dtype=torch.uint8),
+                   nproc=5, parity=1, t=2, out_len=8)
+    bad_args = {
+        "row0": (embed, "row0", -1),
+        "rows_past_height": (extract, "row0", 3),
+        "top_shape": (embed, "top", row[:, :4]),
+        "bottom_dtype": (extract, "bottom", row.to(torch.uint8)),
+        "counts_shape": (embed, "counts", torch.zeros((1, 2),
+                                                      dtype=torch.int32)),
+        "rank_base_dtype": (embed, "rank_base", torch.zeros(1)),
+        "want_int32": (embed, "want", 1 << 31),
+        "nproc_int32": (extract, "nproc", -(1 << 31) - 1),
+        "out_len": (extract, "out_len", 0),
+    }
+    args, key, value = bad_args[bad]
+    pk.pee_embed_band(**embed)       # the good arguments pass
+    pk.pee_extract_band(**extract)
+    args[key] = value
+    call = pk.pee_embed_band if args is embed else pk.pee_extract_band
+    with pytest.raises(ValueError):
+        call(**args)
+
+
 def test_plain_runs_count_no_launch():
     pk.reset_launch_counts()
     imgs = _carriers(np.random.default_rng(0), 2, 16, 16, np.uint8, 255)
     msgs = np.zeros((2, 8), dtype=np.uint8)
     _port_two_pass(imgs, msgs, [5, 9], 2, 255)
+    band, row = torch.from_numpy(imgs[:1, 4:12]), torch.from_numpy(imgs[:1, 3])
+    counts = pk.pee_count_band(band, row, row, 4, 16, 0, 2, 255)
+    pk.pee_embed_band(band, row, row, 4, 16, counts, None,
+                      torch.from_numpy(msgs[:1]), 0, 5, 0, 2, 255)
+    over = torch.zeros_like(band)
+    pk.pee_extract_count_band(band, row, row, 4, 16, over, 9, 0, 2)
+    pk.pee_extract_band(band, row, row, 4, 16, over, 9, 0, 2, 8)
     assert set(pk.LAUNCHES.values()) == {0}

@@ -1,10 +1,12 @@
-"""The port's tile-sharded PEE (``parallel/tile_pee.py``, K3/K4 in shard
+"""The port's tile-sharded PEE (``parallel/tile_pee.py``, K3/K4 in band
 mode through their plain band versions on the CPU) against the JAX
 package's on a mesh of CPU devices.
 
 * The band plain versions (``ops/pee.py``: ``embed_pass_band``,
   ``extract_pass_band``, ``band_eligible_count``,
-  ``band_capacity_histogram``) against the JAX per-shard XLA route
+  ``band_capacity_histogram``, and the band kernels' ``band_tile_counts``,
+  ``embed_pass_band_tiles`` and ``band_extract_tile_counts``, through the
+  wrappers' CPU route) against the JAX per-shard XLA route
   (``tile_pee._shard_classify``, ``_global_geometry``, ``_predict_block``,
   ``embed_pass_tiled``, ``extract_pass_tiled``) and against the Pallas
   kernels' shard mode in interpret mode (``embed_pass_batch`` /
@@ -119,27 +121,95 @@ def test_band_formulas_match_the_jax_shard_route(h, w, k, parity):
         hist, np.asarray(jax_pee.capacity_histogram(img, parity, 128, 255)))
 
 
+# (name, h, w, bands, dtype, max_val): two 65,536-pixel bands (the
+# smallest geometry of the TPU route), the odd 509x512 over four, more
+# bands than rows, and u8 at BitsStored 8 and 12 (pixels wrap past 255)
+TILE_COUNT_CASES = [
+    ("1024x128_k2", 1024, 128, 2, np.uint16, 4095),
+    ("509x512_k4", 509, 512, 4, np.uint16, 4095),
+    ("5x64_k8", 5, 64, 8, np.uint16, 4095),
+    ("u8_bs8_k3", 40, 48, 3, np.uint8, 255),
+    ("u8_bs12_k3", 67, 45, 3, np.uint8, 4095),
+]
+
+
+@pytest.mark.parametrize("case", TILE_COUNT_CASES, ids=lambda c: c[0])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_band_tile_counts_match_the_jax_shard_count(case, parity):
+    """K3's band count launch through its wrapper (``band_tile_counts`` on
+    the CPU): each tile's count equals the JAX shard classification's
+    eligible pixels in that tile's 4096 band pixels, a band's row sums to
+    ``_shard_classify_count`` and to ``band_eligible_count``, and the rows
+    of all bands sum to the image's capacity (``ops.pee.capacity``)."""
+    _, h, w, k, dtype, max_val = case
+    img = _smooth(h, w, seed=h * w + parity, peak=min(max_val, 900),
+                  dtype=dtype)
+    t = 3
+    total = 0
+    for a, b in tiles.bands(h, k):
+        top, bot = _halo(img, a, b)
+        blk = img[a:b]
+        counts = pk.pee_count_band(_t(blk[None]), _t(top[None]),
+                                   _t(bot[None]), a, h, parity, t, max_val)
+        j_elig = np.asarray(jax_tile_pee._shard_classify(
+            jnp.asarray(blk), jnp.asarray(top[None]), jnp.asarray(bot[None]),
+            a, h, w, parity, t, max_val)[-1]).reshape(-1)
+        n_tiles = -(-j_elig.size // port_pee.TILE_PX)
+        j_tiles = np.pad(j_elig, (0, n_tiles * port_pee.TILE_PX - j_elig.size))
+        np.testing.assert_array_equal(
+            counts[0].numpy(),
+            j_tiles.reshape(n_tiles, -1).sum(1, dtype=np.int32))
+        count = int(counts.sum())
+        assert count == int(jax_tile_pee._shard_classify_count(
+            jnp.asarray(blk), jnp.asarray(top[None]), jnp.asarray(bot[None]),
+            a, h, w, parity, t, max_val))
+        assert count == int(port_pee.band_eligible_count(
+            _t(blk[None]), _t(top[None]), _t(bot[None]), _i32(a), parity, t,
+            max_val, h)[0])
+        total += count
+    assert total == int(jax_pee.capacity(img, parity, t, max_val))
+
+
 def _port_pass_by_bands(img, k, msg, base, want, parity, t, max_val):
-    """One pass through the K3 wrapper in shard mode band by band (the
-    plain band version on the CPU), ``torch_tile_cases.embed``; each
-    band's count is its plain eligible count. Returns (stego, overflow,
-    used, nproc) of the whole image as numpy and ints."""
+    """One pass through K3's band wrappers band by band (their plain
+    versions on the CPU), ``torch_tile_cases.embed``: each band's tile
+    counts sum to its plain eligible count, and its apply from the tiles'
+    offsets equals ``embed_pass_band``. Returns (stego, overflow, used,
+    nproc) of the whole image as numpy and ints."""
     per_band, (stego, over, used, nproc) = tiles.embed(
-        pk.pee_embed, _t(img[None]), _t(msg[None]), base, want, parity, t,
-        max_val, k)
+        _t(img[None]), _t(msg[None]), base, want, parity, t, max_val, k)
     h = img.shape[0]
-    for (a, b), out in zip(tiles.bands(h, k), per_band):
+    rank_base = 0
+    for (a, b), (counts, s_k, o_k, n_k) in zip(tiles.bands(h, k), per_band):
         top, bot = tiles.halo(_t(img[None]), a, b)
-        assert int(out[2][0]) == int(port_pee.band_eligible_count(
-            _t(img[None, a:b]), top, bot, _i32(a), parity, t, max_val,
-            h)[0])
+        band = _t(img[None, a:b])
+        count = port_pee.band_eligible_count(band, top, bot, _i32(a), parity,
+                                             t, max_val, h)
+        assert int(counts.sum()) == int(count[0])
+        ref = port_pee.embed_pass_band(band, top, bot, _i32(a),
+                                       _i32(rank_base), _t(msg[None]),
+                                       _i32(base), _i32(want), parity, t,
+                                       max_val, h)
+        for got, want_k in zip((s_k, o_k, count, n_k), ref):
+            assert torch.equal(got, want_k)
+        rank_base += int(count[0])
     return stego[0].numpy(), over[0].numpy(), used, nproc
 
 
 def _port_extract_by_bands(stego, over, nproc, k, parity, t, out_len):
-    _, (restored, bits, n_bits) = tiles.extract(
-        pk.pee_extract, _t(stego[None]), _t(over[None]), nproc, parity, t,
-        out_len, k)
+    """The inverse through K4's band wrapper band by band: each band's bit
+    row is band-sized (its in-set pixels, at most ``out_len``)."""
+    per_band, (restored, bits, n_bits) = tiles.extract(
+        _t(stego[None]), _t(over[None]), nproc, parity, t, out_len, k)
+    h, w = stego.shape
+    for (a, b), (counts, _, _, n_k) in zip(tiles.bands(h, k), per_band):
+        assert int(counts.sum()) == int(n_k[0])
+        top, bot = tiles.halo(_t(stego[None]), a, b)
+        row = pk.pee_extract_band(_t(stego[None, a:b]), top, bot, a, h,
+                                  _t(over[None, a:b]), nproc, parity, t,
+                                  out_len)[1]
+        assert row.shape == (1, min(out_len, port_pee.band_set_count(
+            a, b - a, h, w, parity)))
     return restored[0].numpy(), bits.numpy(), n_bits
 
 
@@ -373,19 +443,28 @@ def test_tiled_pee_capacity_error_and_bad_calls():
 
 
 def test_tiled_pee_kernel_calls_are_one_per_band_per_pass(monkeypatch):
-    """Each pass calls the K3 wrapper in shard mode once per band, each
-    inverse pass the K4 wrapper once per band: the launch counts that
-    ``chip_smoke.py`` requires on the card (K per pass per attempt)."""
-    calls = {"embed": 0, "extract": 0}
+    """Each pass calls K3's band count and apply wrappers once per band,
+    each inverse pass K4's band wrapper once per band: the launch counts
+    that ``chip_smoke.py`` requires on the card (K per pass per attempt);
+    the rank prefix comes from the count wrapper, never from
+    ``band_eligible_count``."""
+    calls = {"count": 0, "embed": 0, "extract": 0}
 
     def counted(name, fn):
         def wrapper(*args, **kwargs):
-            assert kwargs.get("shard") is not None
             calls[name] += 1
             return fn(*args, **kwargs)
         return wrapper
-    monkeypatch.setattr(pk, "pee_embed", counted("embed", pk.pee_embed))
-    monkeypatch.setattr(pk, "pee_extract", counted("extract", pk.pee_extract))
+
+    def refused(*args, **kwargs):
+        raise AssertionError("band_eligible_count on the band path")
+    monkeypatch.setattr(pk, "pee_count_band",
+                        counted("count", pk.pee_count_band))
+    monkeypatch.setattr(pk, "pee_embed_band",
+                        counted("embed", pk.pee_embed_band))
+    monkeypatch.setattr(pk, "pee_extract_band",
+                        counted("extract", pk.pee_extract_band))
+    monkeypatch.setattr(port_pee, "band_eligible_count", refused)
     img = _smooth(64, 64, seed=8, peak=600)
     bits = np.random.default_rng(3_800).integers(0, 2, 3_800, dtype=np.uint8)
     res = port_tile_pee.encode_array_tiled_pee(
@@ -395,6 +474,8 @@ def test_tiled_pee_kernel_calls_are_one_per_band_per_pass(monkeypatch):
         jax_pee.capacity_histogram(img, p, 128, 65535)) for p in (0, 1)]
     t0 = jax_model.select_threshold(caps[0], caps[1], bits.size, 2)
     assert passes == 2 and t > t0      # escalated after a pass-1 shortfall
-    assert calls["embed"] == 4 * (2 * (t - t0) + passes)
-    port_tile_pee.decode_container_tiled_pee(res.container, _cpu_mesh(4))
+    assert calls["count"] == calls["embed"] == 4 * (2 * (t - t0) + passes)
+    dec = port_tile_pee.decode_container_tiled_pee(res.container,
+                                                   _cpu_mesh(4))
     assert calls["extract"] == 4 * passes
+    np.testing.assert_array_equal(dec.payload_bits, bits)

@@ -1,15 +1,16 @@
-"""One PEE pass band by band through K3/K4's shard mode, shared by
-``chip_smoke.py`` (its tiled phase) and ``tests/test_torch_cuda.py``.
+"""One PEE pass band by band through K3/K4's band mode, shared by
+``chip_smoke.py`` (its tiled phase) and the port's tests.
 
 An image ``(1, H, W)`` splits into K bands of ``ceil(H/K)`` rows (the last
 shorter), each with its neighbours' edge rows as halo (its own at the
-image's border) and its first global row; the rank prefix of a band is the
-plain eligible count of the bands above it, as in
+image's border) and its first global row; the rank base of a band is the
+sum of the tile counts of the bands above it, as in
 ``codec_tcc_tpu_torch/parallel/tile_pee.py``. ``embed`` and ``extract``
-take the wrapper to run (``pee_embed`` / ``pee_extract`` for the kernel,
-``pee_embed_plain`` / ``pee_extract_plain`` for the plain band version,
-on any device) and return every band's outputs and their combination,
-which must equal the whole-image pass."""
+run the band wrappers (``pee_count_band`` + ``pee_embed_band``,
+``pee_extract_count_band`` + ``pee_extract_band``: the kernels on a CUDA
+tensor) or, with ``plain=True``, their plain versions on any device, and
+return every band's outputs and their combination, which must equal the
+whole-image pass."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import List, Tuple
 
 import torch
 
-from codec_tcc_tpu_torch.ops import pee as pee_ops
+from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
 
 def bands(h: int, k: int) -> List[Tuple[int, int]]:
@@ -48,52 +49,60 @@ def _i32(v: int, dev) -> torch.Tensor:
     return torch.tensor([int(v)], dtype=torch.int32, device=dev)
 
 
-def embed(fn, img, msg, base: int, want: int, parity: int, t: int,
-          max_val: int, k: int):
+def embed(img, msg, base: int, want: int, parity: int, t: int,
+          max_val: int, k: int, plain: bool = False):
     """K3 over K bands of ``img`` ``(1, H, W)``. Returns ``(per_band,
-    (stego, overflow, used, nproc))``: per band ``(stego, overflow, count,
-    nproc)`` as the wrapper gave them; the combination on the host."""
+    (stego, overflow, used, nproc))``: per band ``(counts, stego,
+    overflow, nproc)`` as the count and apply wrappers gave them; the
+    combination on the host."""
+    count_fn = pk.pee_count_band_plain if plain else pk.pee_count_band
+    apply_fn = pk.pee_embed_band_plain if plain else pk.pee_embed_band
     h, w = img.shape[1:]
     dev = img.device
     rank_base, per_band = 0, []
     for a, b in bands(h, k):
         top, bot = halo(img, a, b)
         band = img[:, a:b].contiguous()
-        out = fn(band, msg, _i32(base, dev), _i32(want, dev), parity, t,
-                 max_val, shard=(top, bot, _i32(a, dev), _i32(rank_base, dev),
-                                 h))
-        per_band.append(out)
-        rank_base += int(pee_ops.band_eligible_count(
-            band, top, bot, _i32(a, dev), parity, t, max_val, h)[0])
-    stego = _cat_rows([o[0] for o in per_band])
-    over = _cat_rows([o[1] for o in per_band])
+        counts = count_fn(band, top, bot, a, h, parity, t, max_val)
+        out = apply_fn(band, top, bot, a, h, counts,
+                       _i32(rank_base, dev) if a else None, msg, base, want,
+                       parity, t, max_val)
+        per_band.append((counts, *out))
+        rank_base += int(counts.sum())
+    stego = _cat_rows([o[1] for o in per_band])
+    over = _cat_rows([o[2] for o in per_band])
     used = min(want, rank_base)
     nproc = h * w if want > rank_base else (
         max(int(o[3][0]) for o in per_band) if used > 0 else 0)
     return per_band, (stego, over, used, nproc)
 
 
-def extract(fn, stego, over, nproc: int, parity: int, t: int, out_len: int,
-            k: int):
+def extract(stego, over, nproc: int, parity: int, t: int, out_len: int,
+            k: int, plain: bool = False):
     """K4 over K bands. Returns ``(per_band, (restored, bits (out_len,),
-    n_bits))``: per band ``(restored, bits, nbits)``; each band's bits
-    placed after the counts of the bands above it."""
+    n_bits))``: per band ``(counts, restored, bits, nbits)``, the count
+    launch's tile counts and the bits cut to their valid part (the
+    kernel's row is not zeroed past it); each band's bits placed after the
+    counts of the bands above it."""
+    count_fn = (pk.pee_extract_count_band_plain if plain
+                else pk.pee_extract_count_band)
+    apply_fn = pk.pee_extract_band_plain if plain else pk.pee_extract_band
     h = stego.shape[1]
-    dev = stego.device
-    per_band, runs = [], []
+    per_band = []
     for a, b in bands(h, k):
         top, bot = halo(stego, a, b)
-        out = fn(stego[:, a:b].contiguous(), over[:, a:b].contiguous(),
-                 _i32(nproc, dev), parity, t, out_len,
-                 shard=(top, bot, _i32(a, dev), h))
-        per_band.append(out)
+        args = (stego[:, a:b].contiguous(), top, bot, a, h,
+                over[:, a:b].contiguous(), nproc, parity, t)
+        restored, bits_k, n_k = apply_fn(*args, out_len)
+        valid = min(int(n_k[0]), bits_k.shape[1])
+        per_band.append((count_fn(*args), restored, bits_k[:, :valid], n_k))
     bits = torch.zeros(out_len, dtype=torch.uint8)
     off = 0
-    for _, bits_k, n_k in per_band:
+    for *_, bits_k, n_k in per_band:
         c = int(n_k[0])
         take = min(c, out_len - off)
         if take > 0:
             bits[off:off + take] = bits_k[0, :take].cpu()
         off += c
-    restored = _cat_rows([o[0] for o in per_band])
+    restored = _cat_rows([o[1] for o in per_band])
     return per_band, (restored, bits, off)

@@ -4,6 +4,7 @@
 ``raster_embed``, without the whole ``chip_smoke.py``.
 
     python3 tools/torch_pee_embed_probe.py [--kernel embed|extract|raster_extract|raster_embed] [--ptxas] [--sass PATH] [--check] [--time]
+    python3 tools/torch_pee_embed_probe.py --tiled-walls [--root PATH]
 
 * ``--kernel``: the kernel the other options look at (default ``embed``,
   K3; ``extract`` is K4, ``raster_extract`` K2, ``raster_embed`` K1).
@@ -37,6 +38,16 @@
   achievable rate and, for K2, the download of its bits beside that of
   the same bits packed eight to a byte; last the committed kernel again,
   so that the order of the rows can be told from the variants.
+* ``--tiled-walls``: the tiled PEE path at the 2048x2048 uint16 3 Mbit
+  plan (``pee_cr2048_u16_3m``): encode and decode host walls over K = 1,
+  2, 4 bands of the card beside the single-device ones, in turns (three
+  rounds, the order reversed each round; median of 3), then one tiled
+  encode and decode at K = 4 under ``torch.profiler``: the copies between
+  host and card (count, device time) and the host calls that issue them,
+  synchronise and launch (count, host time). ``--root PATH`` runs the
+  package and test helpers of another checkout (a parent commit unpacked
+  with ``git archive``), built there: two checkouts compare in one call,
+  in turns, one process each.
 
 Prints the card's name and power limit first; fails without a GPU.
 """
@@ -69,11 +80,25 @@ SOURCES = {"embed": ("pee_embed.cu", "pee_common.cuh",
 _NO_SLEEP = (r"__nanosleep\(32\);", "")
 _NO_TICKET = (r"pee_take_ticket\(ticket, &s_tile\)", "(int)blockIdx.x")
 _NO_LOOKBACK = (r"pee_lookback\(\s*status.*?\);", "0u;")
+# K3: no message bit loaded (the whole-image kernel's; the band kernels'
+# helper has its own line)
+_NO_MESSAGE = (r"(nproc\[b\] = pee_set_rank\(y, .*?)"
+               r"const int n_emb = __popc\(proc & elig\);",
+               r"\1const int n_emb = 0;")
 # K4: the tiles' bits to disjoint places without the look-back (prefix 0
 # would make every tile store to the same bytes, which the card serialises)
 _K4_NO_LOOKBACK = (r"pee_lookback\(\s*status.*?\);", "(unsigned)(tile * agg);")
 _K4_NO_BITS = (r"\*reinterpret_cast<uint4\*>\(seg \+ lo\) =",
                "if (s_bits[lo] == 7) *reinterpret_cast<uint4*>(seg) =")
+
+
+# the whole-image kernels' vector loads with the rows above and below read
+# as the run itself (the band kernels' loader in pee_common.cuh is left)
+_ROWS_AS_RUN = (r"(const bool vec = live && pee_rows_vectorizable<T, RUN>"
+                r"\(im, p0, w, n\);\s*if \(vec\) \{.*?)"
+                r"pee_load_vec\(im \+ p0 - w, up\);(\s*)"
+                r"pee_load_vec\(im \+ p0 \+ w, dn\);",
+                r"\1pee_load_vec(im + p0, up);\2pee_load_vec(im + p0, dn);")
 
 
 def _threads(n):
@@ -325,19 +350,12 @@ VARIANTS = {
     "embed": {
         "no look-back (prefix 0; time only)": [_NO_LOOKBACK],
         "tile from blockIdx, no ticket (time only)": [_NO_TICKET],
-        "no message load (bit 0; time only)":
-            [(r"const int n_emb = __popc\(proc & elig\);",
-              "const int n_emb = 0;")],
+        "no message load (bit 0; time only)": [_NO_MESSAGE],
         "no look-back, ticket or message load (time only)":
-            [_NO_LOOKBACK, _NO_TICKET,
-             (r"const int n_emb = __popc\(proc & elig\);",
-              "const int n_emb = 0;")],
+            [_NO_LOOKBACK, _NO_TICKET, _NO_MESSAGE],
         "look-back without sleep": [_NO_SLEEP],
         "rows above and below read as the run itself (time only)":
-            [(r"pee_load_vec\(im \+ p0 - w, up\);",
-              "pee_load_vec(im + p0, up);"),
-             (r"pee_load_vec\(im \+ p0 \+ w, dn\);",
-              "pee_load_vec(im + p0, dn);")],
+            [_ROWS_AS_RUN],
         "no stego or overflow store (time only)":
             [(r"pee_store_run\(stego \+ img_off, p0, n, out\);",
               "if (out[0] == 12345 && out[1] == 54321) stego[0] = 0;"),
@@ -356,32 +374,34 @@ VARIANTS = {
         "no look-back, ticket or bit stores (time only)":
             [_K4_NO_LOOKBACK, _NO_TICKET, _K4_NO_BITS],
         "no restored store (time only)":
-            [(r"if \(live\) pee_store_run\(out_im, p0, n, out\);",
-              "if (live && out[0] == 12345 && out[1] == 54321) "
-              "out_im[0] = 0;")],
+            [(r"(pee_extract_run<T, false>\(.*?\);\s*)"
+              r"pee_store_run\(out_im, p0, n, out\);",
+              r"\1if (out[0] == 12345 && out[1] == 54321) out_im[0] = 0;")],
         "no overflow-map load (time only)":
             [(r"if \(live\) ovm = pee_load_nonzero16\(over \+ img_off, p0, "
               r"n\);", "")],
         "rows above and below read as the run itself (time only)":
-            [(r"pee_load_vec\(im \+ p0 - w, up\);",
-              "pee_load_vec(im + p0, up);"),
-             (r"pee_load_vec\(im \+ p0 \+ w, dn\);",
-              "pee_load_vec(im + p0, dn);")],
+            [_ROWS_AS_RUN],
         "restore stored after the look-back":
-            [(r"if \(live\) pee_store_run\(out_im, p0, n, out\);", ""),
+            [(r"unsigned expd = 0, bitm = 0;\s*if \(live\) \{\s*T out\[RUN\];",
+              "unsigned expd = 0, bitm = 0;\n    T out[RUN];\n    if (live) {"),
+             (r"(pee_extract_run<T, false>\(.*?\);\s*)"
+              r"pee_store_run\(out_im, p0, n, out\);", r"\1"),
              (r"const int prefix = s_prefix;",
               "const int prefix = s_prefix;\n"
               "    if (live) pee_store_run(out_im, p0, n, out);")],
         "bits stored by each thread at its ranks (no staging)":
-            [(r"const int shift = .*?seg\[k\] = s_bits\[k\];\s*\}\s*\}\s*\}\n",
-              "unsigned rest = expd;\n"
+            [(r"pee_extract_store_bits\(expd, bitm, thread_excl, prefix, agg,"
+              r"\s*bits \+ \(long long\)b \* out_len, out_len, s_bits\);",
+              "uint8_t* row = bits + (long long)b * out_len;\n"
+              "    unsigned rest = expd;\n"
               "    for (long long r = (long long)prefix + thread_excl; rest;"
               " ++r, rest &= rest - 1) {\n"
               "        if (r < out_len) row[r] = (uint8_t)((bitm >> "
-              "(__ffs(rest) - 1)) & 1u);\n    }\n")],
+              "(__ffs(rest) - 1)) & 1u);\n    }")],
         "every tile takes the full path (no copy shortcut)":
-            [(r"if \(pee_set_count_before\(row0 \+ ty, tile0 - ty \* w, "
-              r"h, w, parity\) >=\s+np\)", "if (false)")],
+            [(r"if \(pee_set_count_before\(ty, tile0 - ty \* w, h, w, "
+              r"parity\) >= np\)", "if (false)")],
         "look-back without sleep": [_NO_SLEEP],
         "128 threads per tile": [_threads(128)],
         "512 threads per tile": [_threads(512)],
@@ -796,6 +816,78 @@ def time_kernel(kernel, dev, only=None) -> None:
         row(f"{tag} {label}, again after the variants", kern)
 
 
+def tiled_walls(dev) -> None:
+    """See ``--tiled-walls`` in the module's docstring."""
+    import statistics
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import codec_tcc_tpu_torch as port
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    print(f"package: {os.path.dirname(port.__file__)}")
+    case = cases.BY_NAME[cases.TILED_PEE]
+    img, bits = cases.image(case), cases.payload_bits(case, 0)
+    cfg = port.EncodeConfig(strategy="pee")
+    blob = port.encode_array(img, bits, cfg, bits_stored=12,
+                             device=dev).container
+    calls = {"single-device": (
+        lambda: port.encode_array(img, bits, cfg, bits_stored=12,
+                                  device=dev),
+        lambda: port.decode_container(blob, device=dev))}
+    for k in cases.TILED_KS:
+        mesh = make_mesh(devices=[dev] * k, axes=("tile",))
+        calls[f"K={k}"] = (
+            lambda mesh=mesh: tile_pee.encode_array_tiled_pee(
+                img, bits, cfg, mesh, bits_stored=12),
+            lambda mesh=mesh: tile_pee.decode_container_tiled_pee(blob,
+                                                                  mesh))
+    for enc, dec in calls.values():   # warm: builds, allocator, caches
+        enc()
+        dec()
+    walls = {what: ([], []) for what in calls}
+    order = list(calls)
+    for rnd in range(3):
+        for what in (order if rnd % 2 == 0 else order[::-1]):
+            for fn, times in zip(calls[what], walls[what]):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e3)
+    single = [statistics.median(v) for v in walls["single-device"]]
+    for what, (enc, dec) in walls.items():
+        e, d = statistics.median(enc), statistics.median(dec)
+        print(f"tiled PEE 2048x2048 u16 3 Mbit {what}: encode {e:.2f} ms "
+              f"({e / single[0]:.3f}x single), decode {d:.2f} ms "
+              f"({d / single[1]:.3f}x single) host wall, median of 3 in "
+              f"turns", flush=True)
+
+    for what, fn in zip(("encode", "decode"), calls["K=4"]):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        copies, host = {}, {}
+        for evt in prof.key_averages():
+            if evt.device_type == DeviceType.CUDA and (
+                    evt.key.startswith("Memcpy")
+                    or evt.key.startswith("Memset")):
+                copies[evt.key] = (evt.count,
+                                   evt.self_device_time_total / 1e3)
+            elif evt.device_type == DeviceType.CPU and evt.key in (
+                    "cudaMemcpyAsync", "cudaStreamSynchronize",
+                    "cudaLaunchKernel", "cudaMemsetAsync"):
+                host[evt.key] = (evt.count, evt.self_cpu_time_total / 1e3)
+        print(f"tiled {what} K=4 under the profiler: device copies "
+              f"{ {k: f'{n} x, {ms:.3f} ms' for k, (n, ms) in copies.items()} }"
+              f"; host calls "
+              f"{ {k: f'{n} x, {ms:.3f} ms' for k, (n, ms) in host.items()} }",
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -808,7 +900,13 @@ def main() -> int:
     ap.add_argument("--variant", action="append", metavar="TEXT",
                     help="time only the variants whose name holds TEXT "
                          "(repeatable; default: all)")
+    ap.add_argument("--tiled-walls", action="store_true")
+    ap.add_argument("--root", metavar="PATH",
+                    help="the checkout whose package --tiled-walls runs")
     args = ap.parse_args()
+    if args.root:
+        root = os.path.abspath(args.root)
+        sys.path[:0] = [root, os.path.join(root, "tests")]
     if not torch.cuda.is_available():
         sys.exit("no CUDA GPU: this probe runs the port's kernels on the card")
     print(subprocess.run(
@@ -824,6 +922,8 @@ def main() -> int:
         check(args.kernel, dev)
     if args.time:
         time_kernel(args.kernel, dev, args.variant)
+    if args.tiled_walls:
+        tiled_walls(dev)
     return 0
 
 
