@@ -3152,6 +3152,7 @@ def main() -> int:
     import torch_port_cases as cases
     from codec_tcc_tpu_torch.io.container import parse_pee_ext
     from codec_tcc_tpu_torch.ops import kernel_library
+    from codec_tcc_tpu_torch import profiling
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
@@ -3193,17 +3194,17 @@ def main() -> int:
     # read just after it (phase 6 checks them).
     tparity = cases.load_parity_tiled()
     paths, expected = {}, {}
-    kernel_names = tuple(rk.LAUNCHES) + tuple(pk.LAUNCHES)
+    kernel_names = rk.KERNELS + pk.KERNELS
 
     def launches(**nonzero):
         """Launches by kernel: 0 for every kernel not named."""
         return {**{name: 0 for name in kernel_names}, **nonzero}
 
     def counted(path, fn):
-        rk.reset_launch_counts()
-        pk.reset_launch_counts()
+        before = profiling.launches(kernel_names)
         out = fn()
-        paths[path] = {**rk.LAUNCHES, **pk.LAUNCHES}
+        after = profiling.launches(kernel_names)
+        paths[path] = {k: after[k] - before[k] for k in kernel_names}
         return out
 
     results = {}

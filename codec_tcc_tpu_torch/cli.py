@@ -286,7 +286,7 @@ def _load_any(path: str) -> np.ndarray:
 
 def cmd_encode(args: argparse.Namespace) -> int:
     from . import pipeline
-    from .profiling import get_profiler, trace_to
+    from .profiling import enable, get_profiler, trace_to
 
     if args.message is not None:
         payload: object = args.message
@@ -309,6 +309,8 @@ def cmd_encode(args: argparse.Namespace) -> int:
         container_version=args.container_version,
         device_policy=args.device_policy,
     )
+    if args.verbose:
+        enable()
     with trace_to(args.profile_dir):
         result = pipeline.encode_dicom(
             args.input, payload, config, device=args.device

@@ -1,9 +1,15 @@
-"""How an array reaches the device: the one place that resolves a caller's
-``device`` and uploads numpy arrays to it.
+"""How an array reaches the device and comes back: the one place that
+resolves a caller's ``device``, uploads numpy arrays to it and downloads
+tensors from it.
 
 Every entry point of the package takes ``device`` (default ``"cuda"``) and
 passes it through :func:`resolve_device`, which never picks a device itself:
 ``"cuda"`` without a usable GPU raises instead of running on the CPU.
+
+Every copy between the host and a CUDA device goes through :func:`upload`,
+:func:`to_device` or :func:`download`, which count its bytes in
+``profiling``'s ``h2d_bytes`` and ``d2h_bytes`` and in the innermost open
+span. A CPU tensor counts nothing, and neither does a copy between devices.
 """
 
 from __future__ import annotations
@@ -13,7 +19,9 @@ from typing import Union
 import numpy as np
 import torch
 
-__all__ = ["DeviceLike", "resolve_device", "upload", "to_device"]
+from . import profiling
+
+__all__ = ["DeviceLike", "resolve_device", "upload", "to_device", "download"]
 
 DeviceLike = Union[torch.device, str]
 
@@ -33,17 +41,38 @@ def resolve_device(device: DeviceLike) -> torch.device:
     return dev
 
 
-def upload(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+def upload(arr: np.ndarray, dev: torch.device, *,
+           pinned: bool = False) -> torch.Tensor:
     """numpy -> tensor on ``dev``; copies first when the array is read-only
-    (``np.frombuffer`` results), which ``torch.from_numpy`` must not wrap."""
+    (``np.frombuffer`` results), which ``torch.from_numpy`` must not wrap.
+    ``pinned`` stages the array in pinned memory and queues the copy on
+    the current stream without waiting for it."""
     if not (arr.flags.writeable and arr.flags.c_contiguous):
         arr = np.array(arr, order="C", copy=True)
-    return torch.from_numpy(arr).to(dev)
+    t = torch.from_numpy(arr)
+    if torch.device(dev).type != "cuda":
+        return t.to(dev)
+    profiling.copied("h2d_bytes", arr.nbytes)
+    if pinned:
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
 
 
 def to_device(arr, dev: torch.device) -> torch.Tensor:
     """An array as a tensor on ``dev``: tensors move there, anything else
     goes through ``np.asarray`` and uploads."""
-    if isinstance(arr, torch.Tensor):
-        return arr.to(dev)
-    return upload(np.asarray(arr), dev)
+    if not isinstance(arr, torch.Tensor):
+        return upload(np.asarray(arr), dev)
+    dev = torch.device(dev)
+    if arr.device.type != dev.type:
+        nbytes = arr.numel() * arr.element_size()
+        profiling.copied("h2d_bytes" if dev.type == "cuda" else "d2h_bytes",
+                         nbytes)
+    return arr.to(dev)
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """A tensor's values on the host, as numpy."""
+    if t.device.type == "cuda":
+        profiling.copied("d2h_bytes", t.numel() * t.element_size())
+    return t.cpu().numpy()

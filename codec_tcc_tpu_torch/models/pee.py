@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import upload
+from ..device import download, upload
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
@@ -83,7 +83,7 @@ def message_buffer(bit_arrays, device) -> torch.Tensor:
     msgs = np.zeros((len(bit_arrays), lpad), dtype=np.uint8)
     for i, bits in enumerate(bit_arrays):
         msgs[i, : bits.size] = bits
-    return torch.from_numpy(msgs).to(device)
+    return upload(msgs, device)
 
 
 def encode_pee_array(
@@ -106,18 +106,19 @@ def encode_pee_array(
 
     msg_bits = _as_payload_bits(payload)
     total_bits = int(msg_bits.size)
-    image_dev = upload(image, device)[None]
-    msg_dev = message_buffer([msg_bits], device)
-    want_dev = torch.tensor([total_bits], dtype=torch.int32, device=device)
+    with stage("image_upload"):
+        image_dev = upload(image, device)[None]
+        msg_dev = message_buffer([msg_bits], device)
+        want_dev = upload(np.array([total_bits], np.int32), device)
 
     # one histogram per pass gives the exact pass-0 capacity and the pass-1
     # estimate at every threshold; an attempt that falls short of the
     # estimate escalates T
     with stage("pee_histogram"):
-        hist = torch.stack([
+        hist = download(torch.stack([
             pee_ops.capacity_histogram(image_dev[0], p, _MAX_T, max_val)
             for p in (0, 1)
-        ]).cpu().numpy()
+        ]))
         cap0 = pee_ops.capacities_by_threshold(hist[0])
         cap1 = pee_ops.capacities_by_threshold(hist[1])
     t = select_threshold(cap0, cap1, total_bits, config.pee_threshold)
@@ -132,7 +133,7 @@ def encode_pee_array(
                 image_dev, msg_dev, want_dev, t, max_val
             )
             used0, nproc0, used1, nproc1 = (
-                int(v) for v in torch.cat([u0, n0, u1, n1]).cpu())
+                int(v) for v in download(torch.cat([u0, n0, u1, n1])))
             if used0 + used1 < total_bits:
                 t += 1  # the estimate fell short by the pass interaction
                 continue
@@ -148,12 +149,13 @@ def encode_pee_array(
 
         # the overflow map is packed on the device: its bytes are the
         # container blob's zlib input
-        packed_over = embed_ops.pack_bits_batch(over_dev)[0].cpu().numpy()
+        packed_over = download(embed_ops.pack_bits_batch(over_dev)[0])
         metrics = None
         if config.compute_metrics:
-            metrics = metric_ops.quality_report(
-                metric_ops.pair_stats(image_dev[0], stego[0]))
-        stego_np = stego[0].cpu().numpy()
+            metrics = metric_ops.quality_report({
+                k: download(v) for k, v in
+                metric_ops.pair_stats(image_dev[0], stego[0]).items()})
+        stego_np = download(stego[0])
 
     with stage("transport_codec"):
         map_blob = zlib.compress(packed_over.tobytes())
@@ -271,17 +273,16 @@ def decode_pee_container(
         # invert pass 1 first (it was applied last), then pass 0, through
         # K4; a single-pass container must not have a pass-1 inversion
         # applied even if its ext carries a nonzero nproc1
-        nproc = torch.tensor(
-            [[nproc0], [nproc1 if passes == 2 else 0]], dtype=torch.int32,
-            device=device,
-        )
+        nproc = upload(np.array(
+            [[nproc0], [nproc1 if passes == 2 else 0]], dtype=np.int32,
+        ), device)
         img, b1, n1, b0, n0 = pee_kernels.extract_both_passes(
             upload(stego, device)[None], upload(overflow, device)[None],
             nproc[0], nproc[1], t, out_len,
         )
-        n0, n1 = (int(v) for v in torch.cat([n0, n1]).cpu())
-        bits = torch.cat([b0[0, :n0], b1[0, :n1]]).cpu().numpy()
-        original = img[0].cpu().numpy() if restore_original else None
+        n0, n1 = (int(v) for v in download(torch.cat([n0, n1])))
+        bits = download(torch.cat([b0[0, :n0], b1[0, :n1]]))
+        original = download(img[0]) if restore_original else None
 
     return DecodeResult(
         payload_bits=bits[: meta.payload_bits].astype(np.uint8),

@@ -11,7 +11,10 @@ point ``s`` instead of carrying ragged per-plane lists.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from ..device import to_device
 
 __all__ = ["split_planes", "merge_planes", "merge_local_global"]
 
@@ -45,7 +48,8 @@ def merge_local_global(image: torch.Tensor, local_planes: torch.Tensor,
     original image, without materializing global planes. ``s`` is an int or
     a 0-d integer tensor."""
     nbits = local_planes.shape[0]
-    s = torch.as_tensor(s, dtype=torch.int32, device=image.device)
+    s = to_device(s if isinstance(s, torch.Tensor) else np.asarray(s, np.int32),
+                  image.device).to(torch.int32)
     shifts = _shifts(nbits, image.device)
     active = shifts < s
     local_bits = torch.sum(

@@ -19,6 +19,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..device import download, upload
 from ..io.codecs import get as get_codec
 
 __all__ = ["compress_stage", "decompress_stage", "roundtrip_in_jit"]
@@ -49,9 +50,9 @@ def compress_stage(image: torch.Tensor, codec_name: str, capacity: int):
     """``image -> (buffer (capacity,) uint8, length 0-d int32)``, both on
     ``image.device``. A blob longer than ``capacity`` raises
     ``ValueError``."""
-    buf, n = _encode_host(codec_name, capacity, image.cpu().numpy())
-    return (torch.from_numpy(buf).to(image.device),
-            torch.tensor(int(n), dtype=torch.int32, device=image.device))
+    buf, n = _encode_host(codec_name, capacity, download(image))
+    return (upload(buf, image.device),
+            upload(np.array(int(n), dtype=np.int32), image.device))
 
 
 def decompress_stage(buf: torch.Tensor, n: torch.Tensor, codec_name: str,
@@ -60,8 +61,8 @@ def decompress_stage(buf: torch.Tensor, n: torch.Tensor, codec_name: str,
     ``dtype`` (a numpy or torch dtype) on ``buf.device``. A decoded shape
     other than ``shape`` raises ``ValueError``."""
     arr = _decode_host(codec_name, shape, _numpy_dtype(dtype),
-                       buf.cpu().numpy(), int(n))
-    return torch.from_numpy(arr).to(buf.device)
+                       download(buf), int(download(n)))
+    return upload(arr, buf.device)
 
 
 def roundtrip_in_jit(image: torch.Tensor, codec_name: str,

@@ -19,6 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import download
 from . import histogram as hist_ops
 
 __all__ = ["DecompositionResult", "decompose"]
@@ -64,9 +65,8 @@ def decompose(
     max_val = 255 if itemsize == 1 else 65535
 
     if histogram_counts is None:
-        histogram_counts = (
-            hist_ops.value_histogram(image, max_val + 1).cpu().numpy()
-        )
+        histogram_counts = download(
+            hist_ops.value_histogram(image, max_val + 1))
     mi, h = hist_ops.plane_mi_curve(
         histogram_counts, size, nbits, max_val,
         stop_at_beta=None if full_curve else beta,

@@ -35,6 +35,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import to_device
+
 __all__ = [
     "embed",
     "extract_aligned",
@@ -247,9 +249,7 @@ def _block_fill_rank(
 
 def _base_table(base_offsets, device: torch.device) -> torch.Tensor:
     """``(nbits, ntiles)`` tile bases as int64 on ``device``."""
-    return torch.as_tensor(np.asarray(base_offsets)).to(
-        device=device, dtype=torch.int64
-    )
+    return to_device(np.asarray(base_offsets), device).to(torch.int64)
 
 
 def embed_block_adaptive(

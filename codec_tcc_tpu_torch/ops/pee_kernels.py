@@ -33,8 +33,9 @@ runs the plain torch version from :mod:`.pee`. Nothing falls back from the
 kernel to the plain version. The kernels are built with the raster kernels
 into one library (:mod:`.kernel_library`).
 
-:data:`LAUNCHES` counts wrapper calls that launched a kernel, one key per
-kernel; plain-version calls do not count. A call of :func:`pee_embed` or
+:data:`KERNELS` names the kernels; a wrapper call that launched one adds
+one to the counter ``launch.<kernel>`` of :mod:`..profiling`; plain-version
+calls do not count. A call of :func:`pee_embed` or
 :func:`pee_extract` is one memset and ONE kernel launch: the tiles' global
 ranks come from a decoupled look-back (``csrc/pee_common.cuh``). K3's
 memset zeroes its scratch, K4's its scratch and the bit rows, which share
@@ -49,11 +50,12 @@ from typing import Optional, Tuple
 
 import torch
 
+from .. import profiling
 from . import pee as pee_ops
 from .kernel_library import check, library, stream_ptr
 
 __all__ = [
-    "LAUNCHES",
+    "KERNELS",
     "embed_both_passes",
     "extract_both_passes",
     "pee_count_band",
@@ -68,17 +70,10 @@ __all__ = [
     "pee_extract_count_band",
     "pee_extract_count_band_plain",
     "pee_extract_plain",
-    "reset_launch_counts",
 ]
 
-LAUNCHES = {"pee_embed": 0, "pee_extract": 0, "pee_count_band": 0,
-            "pee_embed_band": 0, "pee_extract_count_band": 0,
-            "pee_extract_band": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+KERNELS = ("pee_embed", "pee_extract", "pee_count_band", "pee_embed_band",
+           "pee_extract_count_band", "pee_extract_band")
 
 
 def _check_images(imgs: torch.Tensor, what: str) -> None:
@@ -228,7 +223,7 @@ def pee_embed(
         over.data_ptr(), scratch.data_ptr(), stream_ptr(imgs),
     )
     check(lib, err, "pee_embed")
-    LAUNCHES["pee_embed"] += 1
+    profiling.count("launch.pee_embed")
     used, nproc, cap = scratch[:3 * b].view(3, b)
     return stego, over, used, nproc, cap
 
@@ -276,7 +271,7 @@ def pee_count_band(
              height, w, parity, t, max_val, counts.data_ptr(),
              stream_ptr(band))
     check(lib, err, "pee_count_band")
-    LAUNCHES["pee_count_band"] += 1
+    profiling.count("launch.pee_count_band")
     return counts
 
 
@@ -334,7 +329,7 @@ def pee_embed_band(
         stego.data_ptr(), over.data_ptr(), nproc.data_ptr(), stream_ptr(band),
     )
     check(lib, err, "pee_embed_band")
-    LAUNCHES["pee_embed_band"] += 1
+    profiling.count("launch.pee_embed_band")
     return stego, over, nproc
 
 
@@ -401,7 +396,7 @@ def pee_extract(
         t, out_len, restored.data_ptr(), buf.data_ptr(), stream_ptr(stego),
     )
     check(lib, err, "pee_extract")
-    LAUNCHES["pee_extract"] += 1
+    profiling.count("launch.pee_extract")
     nbits = buf[:4 * b].view(torch.int32)
     return restored, buf[nscratch:].view(b, out_len), nbits
 
@@ -449,7 +444,7 @@ def pee_extract_count_band(
              bottom.data_ptr(), row0, b, lh, height, w, parity, t,
              counts.data_ptr(), stream_ptr(band))
     check(lib, err, "pee_extract_count_band")
-    LAUNCHES["pee_extract_count_band"] += 1
+    profiling.count("launch.pee_extract_count_band")
     return counts
 
 
@@ -517,7 +512,7 @@ def pee_extract_band(
              parity, t, row_len, restored.data_ptr(), bits.data_ptr(),
              nbits.data_ptr(), stream_ptr(band))
     check(lib, err, "pee_extract_band")
-    LAUNCHES["pee_extract_band"] += 1
+    profiling.count("launch.pee_extract_band")
     return restored, bits, nbits
 
 

@@ -26,8 +26,9 @@ current stream or raises; given a CPU tensor it runs the plain torch
 version from :mod:`.embed`. Nothing falls back from the kernel to the plain
 version.
 
-:data:`LAUNCHES` counts kernel launches per wrapper (plain-version calls do
-not count), so a run can show that it went through the kernels.
+:data:`KERNELS` names the kernels; each launch adds one to the counter
+``launch.<kernel>`` of :mod:`..profiling` (plain-version calls do not
+count), so a run can show that it went through the kernels.
 """
 
 from __future__ import annotations
@@ -37,11 +38,13 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
+from ..device import upload
 from . import embed as embed_ops
 from .kernel_library import check, library, stream_ptr
 
 __all__ = [
-    "LAUNCHES",
+    "KERNELS",
     "MAX_PLANES",
     "MAX_SEGMENTS",
     "raster_embed",
@@ -53,25 +56,19 @@ __all__ = [
     "raster_extract_batch_plain",
     "raster_extract_plain",
     "extract_segments",
-    "reset_launch_counts",
 ]
 
 MAX_PLANES = 16       # RASTER_MAX_PLANES in csrc/raster_common.cuh
 MAX_SEGMENTS = 4 * MAX_PLANES + 1   # RASTER_MAX_SEGMENTS there
 _INT32_MAX = (1 << 31) - 1
 
-LAUNCHES = {"raster_embed": 0, "raster_extract": 0, "raster_embed_batch": 0,
-            "raster_extract_batch": 0}
+KERNELS = ("raster_embed", "raster_extract", "raster_embed_batch",
+           "raster_extract_batch")
 # int32 words of one table entry: RasterBatchPlan (start, len, off per
 # plane, then s) and RasterSegments (count, begin, pos, plane), as
 # csrc/raster_common.cuh lays them out
 _EMBED_ENTRY = 3 * MAX_PLANES + 1
 _SEGMENT_ENTRY = 1 + (MAX_SEGMENTS + 1) + 2 * MAX_SEGMENTS
-
-
-def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _plan_lists(starts, lens, offs, s: int, n: int) -> Tuple[list, ...]:
@@ -123,12 +120,6 @@ def _batch_plans(starts, lens, offs, s, b: int, n: int):
         )
     return [(*_plan_lists(st[i], ln[i], of[i], int(cuts[i]), n),
              int(cuts[i])) for i in range(b)]
-
-
-def _upload_table(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    """A batch's plan table on ``device``: one copy from pinned memory,
-    queued on the current stream ahead of the launch that reads it."""
-    return torch.from_numpy(table).pin_memory().to(device, non_blocking=True)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +188,7 @@ def raster_embed(
         stream_ptr(image),
     )
     check(lib, err, "raster_embed")
-    LAUNCHES["raster_embed"] += 1
+    profiling.count("launch.raster_embed")
     return stego, maps
 
 
@@ -276,7 +267,9 @@ def raster_embed_batch(
         table[i, MAX_PLANES:MAX_PLANES + npl] = ln
         table[i, 2 * MAX_PLANES:2 * MAX_PLANES + npl] = of
         table[i, -1] = si
-    table_dev = _upload_table(table, images.device)
+    # one copy from pinned memory, queued on the current stream ahead of
+    # the launch that reads it
+    table_dev = upload(table, images.device, pinned=True)
     stego = torch.empty_like(images)
     maps = (
         torch.empty((b, max_s, n // 8), dtype=torch.uint8,
@@ -294,7 +287,7 @@ def raster_embed_batch(
         stream_ptr(images),
     )
     check(lib, err, "raster_embed_batch")
-    LAUNCHES["raster_embed_batch"] += 1
+    profiling.count("launch.raster_embed_batch")
     return stego, maps
 
 
@@ -395,7 +388,7 @@ def raster_extract(
         stream_ptr(stego),
     )
     check(lib, err, "raster_extract")
-    LAUNCHES["raster_extract"] += 1
+    profiling.count("launch.raster_extract")
     return out
 
 
@@ -452,7 +445,7 @@ def raster_extract_batch(
         row[MAX_SEGMENTS + 2:MAX_SEGMENTS + 2 + count] = pos
         row[2 * MAX_SEGMENTS + 2:] = -1
         row[2 * MAX_SEGMENTS + 2:2 * MAX_SEGMENTS + 2 + count] = plane
-    table_dev = _upload_table(table, stego.device)
+    table_dev = upload(table, stego.device, pinned=True)
     out = torch.empty((b, out_len), dtype=torch.uint8, device=stego.device)
     lib = library()
     fn = (lib.raster_extract_batch_u8 if stego.dtype == torch.uint8
@@ -462,5 +455,5 @@ def raster_extract_batch(
         out_len, out.data_ptr(), stream_ptr(stego),
     )
     check(lib, err, "raster_extract_batch")
-    LAUNCHES["raster_extract_batch"] += 1
+    profiling.count("launch.raster_extract_batch")
     return out

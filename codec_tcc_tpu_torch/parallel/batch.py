@@ -43,13 +43,14 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import resolve_device, to_device, upload
+from ..device import download, resolve_device, to_device, upload
 from ..errors import CapacityError
 from ..ops import decompose as decompose_ops
 from ..ops import embed as embed_ops
 from ..ops import histogram as hist_ops
 from ..ops import raster_kernels
 from ..ops import segments as segment_ops
+from ..profiling import entry
 from ..utils import bits as bit_utils
 from .mesh import device_guard, dp_shards, lead_device
 
@@ -72,9 +73,9 @@ def batched_histograms(images, nbins: int, *, device="cuda") -> np.ndarray:
     ``device`` first); returned as numpy int64."""
     imgs = images if isinstance(images, torch.Tensor) else to_device(
         images, resolve_device(device))
-    return torch.stack([
+    return download(torch.stack([
         hist_ops.value_histogram(im, nbins) for im in imgs
-    ]).cpu().numpy()
+    ]))
 
 
 @dataclass
@@ -214,8 +215,8 @@ def _batch_block_bases(
 
     b = imgs_dev.shape[0]
     max_s = max(int(s_arr.max(initial=1)), 1)
-    counts = block_ops.block_bit_counts_all(imgs_dev, max_s,
-                                            block).cpu().numpy()
+    counts = download(block_ops.block_bit_counts_all(imgs_dev, max_s,
+                                                     block))
     ntiles = (-(-h // block)) * (-(-w // block))
     bases = np.zeros((b, nbits, ntiles), dtype=np.int32)
     for i in range(b):
@@ -383,7 +384,7 @@ def extract_batch(
                 plan.lengths[rows], plan.offsets[rows], plan.s[rows],
                 pad_len,
             ))
-    return np.concatenate([p.cpu().numpy() for p in parts])[:, :out_len]
+    return np.concatenate([download(p) for p in parts])[:, :out_len]
 
 
 # ---------------------------------------------------------------------------
@@ -411,7 +412,7 @@ def _batch_quality_reports(images, stego, shards) -> list:
         with device_guard(dev):
             stats = metric_ops.pair_stats(to_device(img_i, dev),
                                           to_device(st_i, dev))
-        per_shard.append({k: v.cpu().numpy() for k, v in stats.items()})
+        per_shard.append({k: download(v) for k, v in stats.items()})
     stats_np = {k: np.concatenate([st[k] for st in per_shard])
                 for k in per_shard[0]}
     return [
@@ -455,8 +456,8 @@ def hybrid_base_offsets(images, h: int, w: int, search_block: int, *,
 
     imgs = images if isinstance(images, torch.Tensor) else to_device(
         images, resolve_device(device))
-    counts = block_ops.block_bit_counts_all(
-        imgs, 1, search_block)[:, 0].cpu().numpy()
+    counts = download(block_ops.block_bit_counts_all(
+        imgs, 1, search_block)[:, 0])
     return [
         block_ops.best_offset_from_counts(counts[i], h, w, search_block)
         for i in range(counts.shape[0])
@@ -471,6 +472,7 @@ class BatchEncodeResult:
     metrics: Optional[List[dict]] = None    # per-image quality reports
 
 
+@entry
 def encode_batch_containers(
     images: np.ndarray,
     payloads: Sequence[Union[bytes, str, np.ndarray]],
@@ -627,9 +629,8 @@ def encode_batch_containers(
         # the stego is rebuilt on the host as orig ^ diff
         with stage("batch_download"):
             packed = np.concatenate([
-                (pk if pk is not None
-                 else embed_ops.xor_maps_packed_batch(im, st, max_s)
-                 ).cpu().numpy()
+                download(pk if pk is not None
+                         else embed_ops.xor_maps_packed_batch(im, st, max_s))
                 for im, st, pk in zip(imgs_dev, stego_dev, packed_dev)
             ])
         with stage("batch_unpack"):
@@ -655,7 +656,7 @@ def encode_batch_containers(
     else:
         packed = None
         with stage("batch_download"):
-            stego = np.concatenate([st.cpu().numpy() for st in stego_dev])
+            stego = np.concatenate([download(st) for st in stego_dev])
 
     return _pack_batch_result(
         images, stego, packed, plan, config, nbits, bits_stored, h, w,
@@ -733,6 +734,7 @@ def _pack_batch_result(
     )
 
 
+@entry
 def decode_batch_containers(
     containers: Sequence[bytes],
     mesh=None,

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import resolve_device
+from ..device import download, resolve_device, to_device, upload
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
@@ -77,7 +77,7 @@ class BatchPeeResult:
 def _rows(t: torch.Tensor, idxs) -> torch.Tensor:
     """``t[idxs]`` along dim 0, on the device. CUDA has no uint16 gather,
     so uint16 rows are taken through the int16 view (the same bits)."""
-    sel = torch.tensor(idxs, device=t.device)
+    sel = to_device(np.asarray(idxs, np.int64), t.device)
     if t.dtype == torch.uint16:
         return t.view(torch.int16)[sel].view(torch.uint16)
     return t[sel]
@@ -117,10 +117,9 @@ def probe_capacity_batch(
     lpad = max(8, n // 2)
     msgs = torch.zeros((b, lpad), dtype=torch.uint8, device=dev)
     _, _, u0, _, u1, _ = pee_kernels.embed_both_passes(
-        torch.from_numpy(np.ascontiguousarray(images)).to(dev), msgs, big, t,
-        max_val,
+        upload(images, dev), msgs, big, t, max_val,
     )
-    return u0.cpu().numpy().astype(np.int64) + u1.cpu().numpy().astype(np.int64)
+    return download(u0).astype(np.int64) + download(u1).astype(np.int64)
 
 
 def _start_thresholds(imgs, want, max_val: int, t_min: int) -> np.ndarray:
@@ -137,7 +136,7 @@ def _start_thresholds(imgs, want, max_val: int, t_min: int) -> np.ndarray:
                     pee_ops.capacity_histogram(part, p, _MAX_T, max_val)
                     for p in (0, 1)
                 ]))
-        hist = np.concatenate([h.cpu().numpy() for h in per_shard], axis=1)
+        hist = np.concatenate([download(h) for h in per_shard], axis=1)
     cap0 = pee_ops.capacities_by_threshold(hist[0])
     cap1 = pee_ops.capacities_by_threshold(hist[1])
     t_img = np.zeros(len(want), dtype=np.int32)
@@ -157,7 +156,7 @@ def _launch_passes(images, msgs, want: np.ndarray, t: int, max_val: int):
     input. Wants go in unclamped (the passes clamp to capacity
     themselves)."""
     with device_guard(images.device):
-        want_d = torch.from_numpy(want.astype(np.int32)).to(images.device)
+        want_d = upload(want.astype(np.int32), images.device)
         s1, over, u0, n0, u1, n1 = pee_kernels.embed_both_passes(
             images, msgs, want_d, t, max_val
         )
@@ -189,9 +188,9 @@ def _run_passes(img_parts, msg_parts, idxs, b: int, want: np.ndarray,
                        want[rows], t, max_val)
         for dev, rows in shards if rows.stop > rows.start
     ]
-    stego = np.concatenate([r[0].cpu().numpy() for r in runs])
-    over = np.concatenate([r[1].cpu().numpy() for r in runs])
-    scalars = np.concatenate([r[2].cpu().numpy() for r in runs],
+    stego = np.concatenate([download(r[0]) for r in runs])
+    over = np.concatenate([download(r[1]) for r in runs])
+    scalars = np.concatenate([download(r[2]) for r in runs],
                              axis=1).astype(np.int64)
     return stego, over, scalars[0], scalars[1], scalars[2], scalars[3]
 
@@ -218,9 +217,8 @@ def encode_pee_batch(
     bit_arrays = [_as_payload_bits(p) for p in payloads]
     want = np.array([x.size for x in bit_arrays], dtype=np.int64)
     msgs = message_buffer(bit_arrays, "cpu")
-    img_parts = [(rows, torch.from_numpy(np.ascontiguousarray(images[rows]))
-                  .to(dev)) for dev, rows in shards]
-    msg_parts = [(rows, msgs[rows].to(dev)) for dev, rows in shards]
+    img_parts = [(rows, upload(images[rows], dev)) for dev, rows in shards]
+    msg_parts = [(rows, to_device(msgs[rows], dev)) for dev, rows in shards]
 
     t_img = _start_thresholds([t for _, t in img_parts], want, max_val,
                               config.pee_threshold)
@@ -358,20 +356,20 @@ def _decode_group_fused(conts, parsed_ext, overflow_maps, restore_original,
         # same guard as the single-image decoder: a 1-pass container must
         # not have a pass-1 inversion applied even if its ext carries a
         # (foreign/corrupt) nonzero nproc1
-        nproc = torch.tensor(
+        nproc = upload(np.array(
             [[e[2] for e in parsed_ext],
              [e[3] if e[1] == 2 else 0 for e in parsed_ext]],
-            dtype=torch.int32, device=dev,
-        )
+            dtype=np.int32,
+        ), dev)
         out_len = max(int(max(e[4] for e in parsed_ext)),
                       int(max(e[5] for e in parsed_ext)), 1)
         r0, bits1, _, bits0, _ = pee_kernels.extract_both_passes(
-            torch.from_numpy(stego).to(dev), torch.from_numpy(over).to(dev),
+            upload(stego, dev), upload(over, dev),
             nproc[0], nproc[1], t, out_len,
         )
-        restored = r0.cpu().numpy() if restore_original else None
-        bits0 = bits0.cpu().numpy()
-        bits1 = bits1.cpu().numpy()
+        restored = download(r0) if restore_original else None
+        bits0 = download(bits0)
+        bits1 = download(bits1)
 
     results = []
     for i, c in enumerate(conts):

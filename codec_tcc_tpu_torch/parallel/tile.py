@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
+from ..device import download, to_device, upload
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
 from ..ops import decompose as decompose_ops
@@ -159,15 +160,15 @@ def split_rows(image, mesh: Mesh, axis: str = "tile") -> Bands:
     for k, dev in enumerate(devices):
         rows = image[min(k * lh, h):min((k + 1) * lh, h)]
         if isinstance(rows, torch.Tensor):
-            bands.append(rows.to(dev).contiguous())
+            bands.append(to_device(rows, dev).contiguous())
         else:
-            bands.append(torch.from_numpy(np.ascontiguousarray(rows)).to(dev))
+            bands.append(upload(rows, dev))
     return bands
 
 
 def join_rows(bands: Bands) -> np.ndarray:
     """The host image of a row-split image (:func:`split_rows`)."""
-    return np.concatenate([band.cpu().numpy() for band in bands])
+    return np.concatenate([download(band) for band in bands])
 
 
 def _on_devices(arr: np.ndarray, bands: Bands) -> Dict[torch.device, torch.Tensor]:
@@ -175,8 +176,7 @@ def _on_devices(arr: np.ndarray, bands: Bands) -> Dict[torch.device, torch.Tenso
     out: Dict[torch.device, torch.Tensor] = {}
     for band in bands:
         if band.device not in out:
-            out[band.device] = torch.from_numpy(
-                np.ascontiguousarray(arr)).to(band.device)
+            out[band.device] = upload(arr, band.device)
     return out
 
 
@@ -235,8 +235,7 @@ def _block_embed_band(band, msg, bases, seg_len, moffs, s, row0, nbits, block):
     x0 = tx * block
     bw_real = torch.clamp(ww - x0, max=block)
     r = (y - ty * block) * bw_real + (x - x0)
-    base = torch.as_tensor(np.asarray(bases)).to(device=dev,
-                                                 dtype=torch.int64)
+    base = to_device(np.asarray(bases), dev).to(torch.int64)
     acc = band.to(torch.int32)
     for p in range(nbits):
         if p >= s or int(seg_len[p]) <= 0:
@@ -290,8 +289,8 @@ def extract_tiled_aligned(stego, tp: TileParams, mesh: Mesh,
     for k, band in enumerate(bands):
         if band.numel():
             with device_guard(band.device):
-                rows = _extract_block(band, tp.plane_id[k], tp.starts[k],
-                                      tp.lens[k]).cpu().numpy()
+                rows = download(_extract_block(band, tp.plane_id[k],
+                                               tp.starts[k], tp.lens[k]))
             out[k, :, :rows.shape[1]] = rows
     return out
 
@@ -318,7 +317,7 @@ def histogram_tiled(image, nbins: int, mesh: Mesh,
     """Exact value histogram of a row-split image: one ``bincount`` per
     band on its device, summed on the host (the JAX package's ``psum``);
     the decomposition's only reduction."""
-    counts = [hist_ops.value_histogram(band, nbins).cpu().numpy()
+    counts = [download(hist_ops.value_histogram(band, nbins))
               for band in split_rows(image, mesh, axis) if band.numel()]
     return np.sum(counts, axis=0).astype(np.int32)
 
@@ -332,7 +331,8 @@ def pair_stats_tiled(a, b, mesh: Mesh, axis: str = "tile"):
     float32 and maxed on the host as the JAX package's ``psum``/``pmax``
     combine them — feed to :func:`..ops.metrics.quality_report`."""
     per_band = [
-        {k: v.cpu() for k, v in metric_ops.pair_stats(band_a, band_b).items()}
+        {k: to_device(v, torch.device("cpu"))
+         for k, v in metric_ops.pair_stats(band_a, band_b).items()}
         for band_a, band_b in zip(split_rows(a, mesh, axis),
                                   split_rows(b, mesh, axis))
         if band_a.numel()
@@ -413,9 +413,9 @@ def encode_array_tiled(
     # them on the unsharded image
     plan_dev = mesh.axis_devices(axis)[0]
     if config.strategy == "hybrid":
-        counts0 = block_ops.block_bit_counts(
-            torch.from_numpy(image).to(plan_dev), 0, config.search_block_size
-        ).cpu().numpy()
+        counts0 = download(block_ops.block_bit_counts(
+            upload(image, plan_dev), 0, config.search_block_size
+        ))
         start = block_ops.best_offset_from_counts(
             counts0, h, w, config.search_block_size
         )
@@ -430,7 +430,7 @@ def encode_array_tiled(
         # whole image (plan-time work, as the hybrid start search above),
         # then the per-band rank-compare embed
         bases = _block_bases(
-            torch.from_numpy(image).to(plan_dev), kernel_bits, s,
+            upload(image, plan_dev), kernel_bits, s,
             config.block_size, h, w,
         )
         msg_pad = embed_ops.pad_message(
@@ -587,7 +587,7 @@ def _decode_block_tiled(
     # bases from the restored original — the SAME helper the encoder and
     # single-image decoder use, so the ranking can never drift
     bases = _block_bases(
-        torch.from_numpy(original).to(mesh.axis_devices(axis)[0]),
+        upload(original, mesh.axis_devices(axis)[0]),
         kernel_bits, meta.s, block, h, w,
     )
 
@@ -597,8 +597,8 @@ def _decode_block_tiled(
     plane_id = np.arange(nplanes, dtype=np.int32)
     zeros = np.zeros(nplanes, dtype=np.int32)
     planes = np.concatenate([
-        _extract_block(band, plane_id, zeros,
-                       np.full(nplanes, band.numel(), np.int32)).cpu().numpy()
+        download(_extract_block(band, plane_id, zeros,
+                                np.full(nplanes, band.numel(), np.int32)))
         for band in split_rows(stego, mesh, axis) if band.numel()
     ], axis=1)  # (nplanes, n): raw plane bits, raster order
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
+from ..device import download
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
 from ..ops import metrics as metric_ops
@@ -124,7 +125,7 @@ def embed_pass_tiled(
         stego[k], over[k] = s_k[0], o_k[0]
         nprocs.append(n_k.to(first))
     # one download: the image's eligible count and each band's boundary
-    cap, *band_nprocs = torch.cat([csum[-1:], *nprocs]).tolist()
+    cap, *band_nprocs = download(torch.cat([csum[-1:], *nprocs])).tolist()
     used = min(want, cap)
     n_proc = h * w if want > cap else (max(band_nprocs) if used > 0 else 0)
     return stego, over, used, n_proc
@@ -153,7 +154,7 @@ def extract_pass_tiled(
         restored[k] = r_k[0]
         nbits.append(n_k.to(first).view(torch.uint8))
         rows.append(bits_k[0].to(first))
-    flat = torch.cat(nbits + rows).cpu().numpy()
+    flat = download(torch.cat(nbits + rows))
     counts = flat[:4 * len(rows)].view(np.int32)
     out = np.zeros(out_len, dtype=np.uint8)
     off, pos = 0, 4 * len(rows)
@@ -172,10 +173,10 @@ def _capacity_histogram_tiled(bands: Bands, parity: int, t_max: int,
     of its bands' histograms."""
     h = sum(band.shape[0] for band in bands)
     hist = [
-        pee_ops.band_capacity_histogram(
+        download(pee_ops.band_capacity_histogram(
             bands[k][None], *_halo_rows(bands, k),
             torch.full((1,), row0, dtype=torch.int32, device=bands[k].device),
-            parity, t_max, max_val, h)[0].cpu().numpy()
+            parity, t_max, max_val, h)[0])
         for k, row0 in _live(bands).items()
     ]
     return np.sum(hist, axis=0)

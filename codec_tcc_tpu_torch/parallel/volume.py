@@ -1,5 +1,6 @@
 # Port of codec_tcc_tpu/parallel/volume.py. The same code but for the
-# device it passes: unpack_volume and extract_volume. Torch:
+# device it passes and the profiling spans it opens: unpack_volume and
+# extract_volume. Torch:
 # volume_cut_point, _aggregate_volume_metrics, encode_volume,
 # _encode_volume_pee (its capacity histograms are ops.pee.capacity_histogram
 # over the slices, both parities, on the device), _xor_maps_batch and
@@ -45,12 +46,12 @@ import numpy as np
 import torch
 
 from ..config import EncodeConfig
-from ..device import resolve_device, to_device
+from ..device import download, resolve_device, to_device
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..ops import decompose as decompose_ops
 from ..ops import metrics as metric_ops
-from ..profiling import stage
+from ..profiling import entry, stage
 from ..utils import bits as bit_utils
 from . import batch as batch_par
 from .mesh import device_guard, dp_shards, lead_device
@@ -135,13 +136,14 @@ def _aggregate_volume_metrics(vol_parts, stego) -> dict:
                 vol_k, to_device(st_k, vol_k.device)))
     stats = {k: batch_par._gather([st[k] for st in per_shard])
              for k in per_shard[0]}
-    agg = {k: float(torch.sum(v)) for k, v in stats.items()
+    agg = {k: float(download(torch.sum(v))) for k, v in stats.items()
            if k not in ("max_absdiff", "max_a", "max_b")}
     for k in ("max_absdiff", "max_a", "max_b"):
-        agg[k] = float(torch.max(stats[k]))
+        agg[k] = float(download(torch.max(stats[k])))
     return metric_ops.quality_report(agg)  # type: ignore[arg-type]
 
 
+@entry
 def encode_volume(
     volume: np.ndarray,
     payload: Union[bytes, str, np.ndarray],
@@ -172,7 +174,8 @@ def encode_volume(
 
     # one upload per shard feeds the histograms, the block scans, the embed
     # and the metric moments
-    vol_parts = _volume_shards(volume, mesh, device)
+    with stage("volume_upload"):
+        vol_parts = _volume_shards(volume, mesh, device)
     s, hist_total = _cut_point(vol_parts, config.beta)
 
     # capacity-aware contiguous split: the per-slice segment distribution
@@ -207,11 +210,12 @@ def encode_volume(
         # per-slice variance-chosen start offsets: the same helper
         # plan_batch uses, so volumes and batches share the offset rule
         base_offsets = []
-        for _, part in vol_parts:
-            with device_guard(part.device):
-                base_offsets += batch_par.hybrid_base_offsets(
-                    part, h, w, config.search_block_size
-                )
+        with stage("volume_block_scan"):
+            for _, part in vol_parts:
+                with device_guard(part.device):
+                    base_offsets += batch_par.hybrid_base_offsets(
+                        part, h, w, config.search_block_size
+                    )
         align = config.align_across_planes
     else:
         base_offsets = [0] * d
@@ -259,7 +263,7 @@ def encode_volume(
                 for rows, part in vol_parts
             ]
     with stage("volume_download"):
-        stego_np = np.concatenate([st.cpu().numpy() for st in stego])
+        stego_np = np.concatenate([download(st) for st in stego])
 
     metrics = None
     if config.compute_metrics:
@@ -306,12 +310,13 @@ def _encode_volume_pee(
     dtype_bits = np.dtype(volume.dtype).itemsize * 8
     max_val = (1 << dtype_bits) - 1
 
-    vol_parts = _volume_shards(volume, mesh, device)
+    with stage("volume_upload"):
+        vol_parts = _volume_shards(volume, mesh, device)
     with stage("pee_histogram"):
         hists = [_cap_hists(part, _MAX_T, max_val) for _, part in vol_parts]
         caps = sum(
             pee_ops.capacities_by_threshold(np.concatenate(
-                [h[parity].cpu().numpy() for h in hists])).astype(np.int64)
+                [download(h[parity]) for h in hists])).astype(np.int64)
             for parity in (0, 1)
         )  # (d, _MAX_T): exact pass-0 + pristine pass-1 estimate per slice
 
@@ -406,6 +411,7 @@ def _xor_maps_batch(volume: torch.Tensor, stego: torch.Tensor,
     return torch.stack([split_planes(d, nbits) for d in diff])
 
 
+@entry
 def pack_volume(
     volume: np.ndarray,
     result: VolumeResult,
@@ -443,13 +449,13 @@ def pack_volume(
         stego_dev = to_device(result.stego, dev)
         if (h * w) % 8 == 0:
             # the bit-packed s-plane maps: the container blobs' exact input
-            maps_packed = embed_ops.xor_maps_packed_batch(
+            maps_packed = download(embed_ops.xor_maps_packed_batch(
                 vol_dev, stego_dev, s
-            ).cpu().numpy()
+            ))
             maps = None
         else:
             maps_packed = None
-            maps = _xor_maps_batch(vol_dev, stego_dev, s).cpu().numpy()
+            maps = download(_xor_maps_batch(vol_dev, stego_dev, s))
 
     base_offsets = result.plan.base_offsets
     align = result.plan.align
@@ -501,6 +507,7 @@ def pack_volume(
     return header + b"".join(blobs)
 
 
+@entry
 def unpack_volume(data: bytes, *, device="cuda"):
     """Inverse of :func:`pack_volume`. Returns
     ``(payload_bits, stego_volume, original_volume)``."""
@@ -538,24 +545,27 @@ def unpack_volume(data: bytes, *, device="cuda"):
     from .batch import decode_batch_containers
 
     decs = decode_batch_containers(blobs, device=device)
-    bits_parts = [dec.payload_bits for dec in decs]
-    stego_slices = [dec.stego for dec in decs]
-    orig_slices = [dec.original for dec in decs]
-    payload = np.concatenate(bits_parts)[:total_bits] if bits_parts else np.zeros(0, np.uint8)
-    stego = np.stack(stego_slices)
-    original = np.stack(orig_slices) if all(o is not None for o in orig_slices) else None
+    with stage("volume_unstack"):
+        bits_parts = [dec.payload_bits for dec in decs]
+        stego_slices = [dec.stego for dec in decs]
+        orig_slices = [dec.original for dec in decs]
+        payload = np.concatenate(bits_parts)[:total_bits] if bits_parts else np.zeros(0, np.uint8)
+        stego = np.stack(stego_slices)
+        original = np.stack(orig_slices) if all(o is not None for o in orig_slices) else None
     return payload, stego, original
 
 
+@entry
 def extract_volume(
     stego: np.ndarray, result_plan: batch_par.BatchPlan, mesh=None, *,
     device="cuda",
 ) -> np.ndarray:
     """Recover the full payload bit array from a stego volume: one K2
     launch for every slice (one per ``dp`` shard of a ``mesh``)."""
-    bits = np.asarray(batch_par.extract_batch(stego, result_plan, mesh,
-                                              device=device))
-    out = []
-    for i in range(stego.shape[0]):
-        out.append(bits[i, : int(result_plan.payload_bits[i])])
-    return np.concatenate(out) if out else np.zeros(0, dtype=np.uint8)
+    with stage("volume_extract"):
+        bits = np.asarray(batch_par.extract_batch(stego, result_plan, mesh,
+                                                  device=device))
+        out = []
+        for i in range(stego.shape[0]):
+            out.append(bits[i, : int(result_plan.payload_bits[i])])
+        return np.concatenate(out) if out else np.zeros(0, dtype=np.uint8)

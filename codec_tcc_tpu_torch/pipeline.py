@@ -42,7 +42,7 @@ import numpy as np
 import torch
 
 from .config import EncodeConfig
-from .device import DeviceLike, resolve_device, upload
+from .device import DeviceLike, download, resolve_device, upload
 from .errors import CapacityError
 from .io import container as container_io
 from .io import dicom
@@ -56,7 +56,7 @@ from .ops import raster_kernels
 from .ops import segments as segment_ops
 from .ops.host_embed import embed_raster_host_packed
 from .parallel.batch import hybrid_base_offsets_host
-from .profiling import stage
+from .profiling import entry, stage
 from .utils import bits as bit_utils
 from .utils.logging import get_logger
 
@@ -132,7 +132,7 @@ def _block_bases(
     host; rows at and past ``s`` are zero."""
     ntiles = (-(-h // block)) * (-(-w // block))
     base = np.zeros((nbits, ntiles), dtype=np.int32)
-    counts = block_ops.block_bit_counts_all(image, s, block).cpu().numpy()
+    counts = download(block_ops.block_bit_counts_all(image, s, block))
     for p in range(s):
         b, _ = block_ops.block_base_offsets(counts[p], h, w, block)
         base[p] = b
@@ -151,8 +151,8 @@ def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
         pp.lengths, pp.offsets, s, emit_maps=emit_maps,
     )
     stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
-    packed = None if packed_dev is None else packed_dev.cpu().numpy()
-    return stego_dev.cpu().numpy(), packed, stats
+    packed = None if packed_dev is None else download(packed_dev)
+    return download(stego_dev), packed, stats
 
 
 def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
@@ -169,10 +169,10 @@ def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
     stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
     packed = None
     if emit_maps:
-        packed = embed_ops.xor_maps_packed_batch(
+        packed = download(embed_ops.xor_maps_packed_batch(
             image_dev[None], stego_dev[None], s
-        )[0].cpu().numpy()
-    return stego_dev.cpu().numpy(), packed, stats
+        )[0])
+    return download(stego_dev), packed, stats
 
 
 def _embed_host(image, msg_bits, pp, s, with_stats, dev):
@@ -196,6 +196,7 @@ def _embed_host(image, msg_bits, pp, s, with_stats, dev):
 # ---------------------------------------------------------------------------
 
 
+@entry
 def encode_array(
     image: np.ndarray,
     payload: Union[bytes, str, np.ndarray],
@@ -240,7 +241,8 @@ def encode_array(
     # host route never uploads it; its histogram runs on the host, as the
     # JAX package's does for a numpy image.
     host_route = config.device_policy == "host" or config.resolve_host_route(n)
-    image_t = upload(image, torch.device("cpu") if host_route else dev)
+    with stage("image_upload"):
+        image_t = upload(image, torch.device("cpu") if host_route else dev)
 
     # 1. decomposition: one histogram + exact host cut-point math
     with stage("decompose"):
@@ -273,9 +275,9 @@ def encode_array(
                     image[None], h, w, config.search_block_size
                 )[0]
             else:
-                counts0 = block_ops.block_bit_counts(
+                counts0 = download(block_ops.block_bit_counts(
                     image_t, 0, config.search_block_size
-                ).cpu().numpy()
+                ))
                 start = block_ops.best_offset_from_counts(
                     counts0, h, w, config.search_block_size
                 )
@@ -308,7 +310,8 @@ def encode_array(
                 image_t, msg_bits, pp, s, bitmaps_packed,
                 config.compute_metrics,
             )
-        metrics = None if stats is None else metric_ops.quality_report(stats)
+        metrics = None if stats is None else metric_ops.quality_report(
+            {k: download(v) for k, v in stats.items()})
 
     # 5. transport codec + container
     with stage("transport_codec"):
@@ -473,6 +476,7 @@ def _plane_plan_from_meta(meta: container_io.ContainerMeta, n: int, kernel_bits:
     return starts, lengths, offsets
 
 
+@entry
 def decode_container(
     data: Union[bytes, container_io.Container],
     *,
@@ -534,9 +538,9 @@ def decode_container(
     with stage("extract"):
         # K2 reads only the payload's pixels and writes them in message
         # order: the only download is the payload itself
-        bits = raster_kernels.raster_extract(
+        bits = download(raster_kernels.raster_extract(
             upload(stego, dev), starts, lengths, offsets, meta.s, out_len
-        ).cpu().numpy()[: meta.payload_bits]
+        ))[: meta.payload_bits]
 
     original = None
     if restore_original and meta.has_bitmaps:

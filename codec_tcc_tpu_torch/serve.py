@@ -2,7 +2,8 @@
 # stale-socket probe, SIGTERM and timeouts; every function but _op_ping is
 # the same code but for the device it passes. The daemon keeps its device
 # in `state` and hands it to every entry point it calls; ping reports that
-# device's type.
+# device's type. _handle_line opens a profiling request span per request
+# and takes the reply's wall_ms from it.
 """Warm serving daemon: line-delimited JSON over a Unix domain socket.
 
 A per-request CLI pays process start, the first CUDA contact and the
@@ -47,6 +48,7 @@ from typing import Optional
 
 import numpy as np
 
+from . import profiling
 from .config import EncodeConfig
 from .utils.logging import get_logger
 
@@ -326,11 +328,9 @@ def _handle_line(line: bytes, state: dict) -> tuple:
             raise ValueError(
                 f"unknown op {op!r}; valid: {sorted(_OPS) + ['shutdown']}"
             )
-        t0 = time.perf_counter()
-        out = _OPS[op](obj, state)
-        out.update(
-            ok=True, op=op, wall_ms=round(1e3 * (time.perf_counter() - t0), 2)
-        )
+        with profiling.request("serve." + op) as span:
+            out = _OPS[op](obj, state)
+        out.update(ok=True, op=op, wall_ms=round(span.wall_ms, 2))
         state["served"] += 1
         state["op_counts"][op] = state["op_counts"].get(op, 0) + 1
         return out, False

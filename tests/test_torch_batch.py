@@ -18,6 +18,7 @@ from codec_tcc_tpu import pipeline as jax_pipeline
 from codec_tcc_tpu.config import EncodeConfig as JaxConfig
 from codec_tcc_tpu.parallel import batch as jb
 from codec_tcc_tpu.parallel import runner as jax_runner
+from codec_tcc_tpu_torch import profiling
 from codec_tcc_tpu_torch import pipeline as port_pipeline
 from codec_tcc_tpu_torch.config import EncodeConfig
 from codec_tcc_tpu_torch.io import dicom
@@ -185,7 +186,7 @@ def test_encode_and_extract_batch_match_jax(b, h, w, dtype, strategy):
     pays = _payloads(6, b)
     plan = _plan(imgs, pays, strategy)
     want = np.array(jb.encode_batch(imgs, plan))
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     for backend in ("auto", "packed", "preplaced", "pallas", "xla"):
         got = tb.encode_batch(imgs, plan, backend=backend, device="cpu")
         assert got.device.type == "cpu"
@@ -205,7 +206,7 @@ def test_encode_and_extract_batch_match_jax(b, h, w, dtype, strategy):
     want_al = np.asarray(jb.extract_aligned_batch(want, plan))
     got_al = tb.extract_aligned_batch(want, plan, device="cpu")
     np.testing.assert_array_equal(got_al.numpy(), want_al)
-    assert set(rk.LAUNCHES.values()) == {0}     # plain versions only
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}     # plain versions only
 
 
 def test_batch_entry_points_refuse_a_mesh():

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from codec_tcc_tpu_torch import profiling
 import codec_tcc_tpu_torch as port
 import torch_pee_stress as stress
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
@@ -176,15 +177,15 @@ def test_k2_five_planes_2048_repeats_on_gpu(cuda):
 def test_gpu_encode_equals_cpu_encode(cuda):
     rng = np.random.default_rng(1)
     img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res_g = port.encode_array(img, "gpu", bits_stored=12, device=cuda)
     res_c = port.encode_array(img, "gpu", bits_stored=12, device="cpu")
     assert res_g.container == res_c.container
     dec = port.decode_container(res_g.container, device=cuda)
     assert dec.message == "gpu"
     np.testing.assert_array_equal(dec.original, img)
-    assert rk.LAUNCHES["raster_embed"] == 1
-    assert rk.LAUNCHES["raster_extract"] == 1
+    assert profiling.launches(rk.KERNELS)["raster_embed"] == 1
+    assert profiling.launches(rk.KERNELS)["raster_extract"] == 1
 
 
 def _pee_batch(rng, b, h, w, dtype):
@@ -391,15 +392,15 @@ def test_gpu_pee_encode_equals_cpu_encode(cuda):
     # fits pass 0 at the first T: one attempt, so K3 launches exactly twice
     bits = rng.integers(0, 2, 600).astype(np.uint8)
     cfg = port.EncodeConfig(strategy="pee")
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res_g = port.encode_array(img, bits, cfg, bits_stored=12, device=cuda)
-    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2, "pee_extract": 0}
+    assert profiling.launches(pk.KERNELS) == {**NO_BAND, "pee_embed": 2, "pee_extract": 0}
     res_c = port.encode_array(img, bits, cfg, bits_stored=12, device="cpu")
     assert res_g.container == res_c.container
     dec = port.decode_container(res_g.container, device=cuda)
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
-    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2, "pee_extract": 2}
+    assert profiling.launches(pk.KERNELS) == {**NO_BAND, "pee_embed": 2, "pee_extract": 2}
 
 
 def test_gpu_pee_batch_equals_cpu_batch(cuda):
@@ -416,14 +417,14 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
     pays = [rng.integers(0, 2, n, dtype=np.uint8) for n in (100, 900, 400)]
     pays.append(cases.TEXT_PAYLOAD)
     cfg = port.EncodeConfig(strategy="pee")
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res_g = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
                                        device=cuda)
     t_start = batch_pee._start_thresholds(
         torch.from_numpy(imgs), [100, 900, 400, 304],
         max_value(int(imgs.max()), 16, 12), cfg.pee_threshold)
     groups = cases.pee_attempt_groups(t_start, res_g.thresholds)
-    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 2 * groups,
+    assert profiling.launches(pk.KERNELS) == {**NO_BAND, "pee_embed": 2 * groups,
                            "pee_extract": 0}
     res_c = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
                                        device="cpu")
@@ -432,7 +433,7 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
     for dec, img in zip(batch_pee.decode_pee_batch(res_g.containers,
                                                    device=cuda), imgs):
         np.testing.assert_array_equal(dec.original, img)
-    assert pk.LAUNCHES == {
+    assert profiling.launches(pk.KERNELS) == {
         **NO_BAND, "pee_embed": 2 * groups,
         "pee_extract": 2 * len(set(res_g.thresholds.tolist()))}
 
@@ -445,15 +446,14 @@ def test_gpu_block_encode_equals_cpu_encode(cuda):
     rng = np.random.default_rng(3)
     img = np.clip(rng.normal(2000, 300, (96, 84)), 0, 4095).astype(np.uint16)
     cfg = port.EncodeConfig(strategy="block_adaptive", block_size=12)
-    rk.reset_launch_counts()
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res_g = port.encode_array(img, "block", cfg, bits_stored=12, device=cuda)
     res_c = port.encode_array(img, "block", cfg, bits_stored=12, device="cpu")
     assert res_g.container == res_c.container
     dec = port.decode_container(res_g.container, device=cuda)
     assert dec.message == "block"
     np.testing.assert_array_equal(dec.original, img)
-    assert set(rk.LAUNCHES.values()) == {0} and set(pk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS + pk.KERNELS).values()) == {0}
 
 
 @pytest.mark.parametrize("h,w,block,dtype", [(64, 64, 8, np.uint16),
@@ -508,15 +508,15 @@ def test_gpu_host_route_launches_no_k1_and_matches_fixture(cuda):
     want = cases.load_parity()[case.name]
     img = cases.image(case)
     bits = cases.payload_bits(case, 0)
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = port.encode_array(img, bits, case.config(port.EncodeConfig),
                             bits_stored=case.bits_stored, device=cuda)
-    assert set(rk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}
     assert cases.sha256(res.container) == want["container_sha256"]
     dec = port.decode_container(res.container, device=cuda)
     np.testing.assert_array_equal(dec.payload_bits, bits)
     np.testing.assert_array_equal(dec.original, img)
-    assert rk.LAUNCHES == {"raster_embed": 0, "raster_extract": 1,
+    assert profiling.launches(rk.KERNELS) == {"raster_embed": 0, "raster_extract": 1,
                            "raster_embed_batch": 0, "raster_extract_batch": 0}
 
 
@@ -643,17 +643,17 @@ def test_gpu_batch_containers_equal_cpu_batch(cuda, strategy):
     cfg = port.EncodeConfig(strategy=strategy)
     cpu = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
                                      device="cpu")
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     gpu = tb.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
                                      device=cuda)
     raster = strategy in ("hybrid", "multi_plane")
-    assert rk.LAUNCHES["raster_embed_batch"] == int(raster)
-    assert rk.LAUNCHES["raster_embed"] == 0
+    assert profiling.launches(rk.KERNELS)["raster_embed_batch"] == int(raster)
+    assert profiling.launches(rk.KERNELS)["raster_embed"] == 0
     assert gpu.containers == cpu.containers
     if raster:
-        rk.reset_launch_counts()
+        profiling.get_profiler().reset()
         bits = tb.extract_batch(gpu.stego, gpu.plan, device=cuda)
-        assert rk.LAUNCHES["raster_extract_batch"] == 1
+        assert profiling.launches(rk.KERNELS)["raster_extract_batch"] == 1
         for i, p in enumerate(pays):
             n_i = int(gpu.plan.payload_bits[i])
             assert bits_to_bytes(bits[i, :n_i]) == p.encode()
@@ -686,21 +686,20 @@ def test_gpu_volume_equals_cpu_volume(cuda, strategy, dtype):
     cpu = pv.pack_volume(vol, pv.encode_volume(vol, payload, cfg,
                                                device="cpu"),
                          cfg, device="cpu")
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = pv.encode_volume(vol, payload, cfg, device=cuda)
     raster = strategy in ("hybrid", "multi_plane")
-    assert rk.LAUNCHES["raster_embed_batch"] == int(raster)
+    assert profiling.launches(rk.KERNELS)["raster_embed_batch"] == int(raster)
     assert pv.pack_volume(vol, res, cfg, device=cuda) == cpu
     if raster:
-        rk.reset_launch_counts()
+        profiling.get_profiler().reset()
         bits = pv.extract_volume(res.stego, res.plan, device=cuda)
-        assert rk.LAUNCHES["raster_extract_batch"] == 1
+        assert profiling.launches(rk.KERNELS)["raster_extract_batch"] == 1
         assert bytes(np.packbits(bits)) == payload.encode()
-    rk.reset_launch_counts()
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     bits, _, original = pv.unpack_volume(cpu, device=cuda)
-    assert rk.LAUNCHES["raster_extract_batch"] == 0
-    assert (pk.LAUNCHES["pee_extract"] > 0) == (strategy == "pee")
+    assert profiling.launches(rk.KERNELS)["raster_extract_batch"] == 0
+    assert (profiling.launches(pk.KERNELS)["pee_extract"] > 0) == (strategy == "pee")
     assert bytes(np.packbits(bits)) == payload.encode()
     np.testing.assert_array_equal(original, vol)
 
@@ -737,7 +736,7 @@ def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
     msg = torch.from_numpy(rng.integers(0, 2, (1, 1 << 17),
                                         dtype=np.uint8)).to(cuda)
     z = torch.zeros(1, dtype=torch.int32, device=cuda)
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     for parity in (0, 1):
         cap = int(pk.pee_embed_plain(img, msg, z, z, parity, 3, max_val)[4])
         for want in (0, 1, cap // 2, cap, cap + 5):
@@ -774,7 +773,7 @@ def test_pee_shard_mode_matches_plain_on_gpu(cuda, h, w, dtype, max_val, k):
                 assert n_bits == used
     runs = 2 * 5 * len(tiles.bands(h, k))
     # tiles.extract runs K4's count once more per band to compare it
-    assert pk.LAUNCHES == {"pee_embed": 10, "pee_extract": 10,
+    assert profiling.launches(pk.KERNELS) == {"pee_embed": 10, "pee_extract": 10,
                            "pee_count_band": runs, "pee_embed_band": runs,
                            "pee_extract_count_band": 2 * runs,
                            "pee_extract_band": runs}
@@ -876,19 +875,19 @@ def test_gpu_tiled_pee_equals_single_device(cuda, k):
     bits = rng.integers(0, 2, 12_000, dtype=np.uint8)
     cfg = port.EncodeConfig(strategy="pee")
     mesh = make_mesh(devices=[cuda] * k, axes=("tile",))
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh)
-    embeds = pk.LAUNCHES["pee_embed_band"]
-    assert pk.LAUNCHES["pee_embed"] == 0
-    assert pk.LAUNCHES["pee_count_band"] == embeds
+    embeds = profiling.launches(pk.KERNELS)["pee_embed_band"]
+    assert profiling.launches(pk.KERNELS)["pee_embed"] == 0
+    assert profiling.launches(pk.KERNELS)["pee_count_band"] == embeds
     single = port.encode_array(img, bits, cfg, device=cuda)
     assert res.container == single.container == port.encode_array(
         img, bits, cfg, device="cpu").container
     passes = parse_pee_ext(res.meta.ext)[1]
     assert embeds % k == 0 and embeds >= k * passes
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
-    assert pk.LAUNCHES == {**NO_BAND, "pee_embed": 0, "pee_extract": 0,
+    assert profiling.launches(pk.KERNELS) == {**NO_BAND, "pee_embed": 0, "pee_extract": 0,
                            "pee_extract_count_band": k * passes,
                            "pee_extract_band": k * passes}
     np.testing.assert_array_equal(dec.payload_bits, bits)
@@ -906,12 +905,12 @@ def test_gpu_tiled_raster_equals_single_device(cuda, strategy):
     payload = np.random.default_rng(6).bytes(20_000)
     cfg = port.EncodeConfig(strategy=strategy)
     mesh = make_mesh(devices=[cuda] * 4, axes=("tile",))
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = tile.encode_array_tiled(img, payload, cfg, mesh, bits_stored=12)
     assert res.container == port.encode_array(
         img, payload, cfg, bits_stored=12, device="cpu").container
     dec = tile.decode_container_tiled(res.container, mesh)
-    assert set(rk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}
     assert dec.payload == payload
     np.testing.assert_array_equal(dec.original, img)
 
@@ -942,10 +941,10 @@ def test_gpu_dp_batch_equals_unsharded(cuda, strategy):
     imgs, pays = _dp_batch()
     cfg = port.EncodeConfig(strategy=strategy)
     mesh = make_mesh(devices=["cuda:0"] * 4, axes=("dp",))
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = batch.encode_batch_containers(imgs, pays, cfg, mesh,
                                         bits_stored=12)
-    launched = dict(rk.LAUNCHES)
+    launched = dict(profiling.launches(rk.KERNELS))
     want = batch.encode_batch_containers(imgs, pays, cfg, bits_stored=12)
     assert res.containers == want.containers == batch.encode_batch_containers(
         imgs, pays, cfg, bits_stored=12, device="cpu").containers
@@ -953,9 +952,9 @@ def test_gpu_dp_batch_equals_unsharded(cuda, strategy):
     assert launched == {**{k: 0 for k in launched},
                         "raster_embed_batch": 4 if raster else 0}
     if raster:
-        rk.reset_launch_counts()
+        profiling.get_profiler().reset()
         bits = batch.extract_batch(res.stego, res.plan, mesh)
-        assert rk.LAUNCHES["raster_extract_batch"] == 4
+        assert profiling.launches(rk.KERNELS)["raster_extract_batch"] == 4
         for i, p in enumerate(pays):
             np.testing.assert_array_equal(bits[i, :p.size], p)
     decs = batch.decode_batch_containers(res.containers, mesh)
@@ -983,9 +982,9 @@ def test_gpu_dp_pee_batch_and_volume_equal_unsharded(cuda):
     cfg = port.EncodeConfig(strategy="pee")
     mesh = make_mesh(devices=["cuda:0"] * 4, axes=("dp", "tile"),
                      shape=(2, 2))
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     res = batch_pee.encode_pee_batch(imgs, pays, cfg, mesh, bits_stored=12)
-    embeds = pk.LAUNCHES["pee_embed"]
+    embeds = profiling.launches(pk.KERNELS)["pee_embed"]
     want = batch_pee.encode_pee_batch(imgs, pays, cfg, bits_stored=12,
                                       device="cpu")
     assert res.containers == want.containers
@@ -1000,15 +999,15 @@ def test_gpu_dp_pee_batch_and_volume_equal_unsharded(cuda):
         np.uint16)
     dp4 = make_mesh(devices=["cuda:0"] * 4, axes=("dp",))
     vcfg = port.EncodeConfig(strategy="hybrid")
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     vres = volume.encode_volume(vol, "a dp volume", vcfg, dp4)
-    assert rk.LAUNCHES["raster_embed_batch"] == 4
+    assert profiling.launches(rk.KERNELS)["raster_embed_batch"] == 4
     blob = volume.pack_volume(vol, vres, vcfg)
     cpu = volume.encode_volume(vol, "a dp volume", vcfg, device="cpu")
     assert blob == volume.pack_volume(vol, cpu, vcfg, device="cpu")
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     bits = volume.extract_volume(vres.stego, vres.plan, dp4)
-    assert rk.LAUNCHES["raster_extract_batch"] == 4
+    assert profiling.launches(rk.KERNELS)["raster_extract_batch"] == 4
     assert bytes(np.packbits(bits)) == b"a dp volume"
 
 
@@ -1108,3 +1107,44 @@ def test_gpu_serve_daemon_matches_fixture(native, tmp_path):
         serve.request(sock, {"op": "shutdown"})
         thread.join(timeout=60)
     assert rc == [0]
+
+
+def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
+    """One 512x512 u16 encode + decode on the card: the copy counters and
+    each stage's span hold exactly the bytes its shapes give. Up: the
+    image, the message bits, the stego for K2. Down: the int64 value
+    histogram, the int32 plane-0 tile popcounts of the hybrid scan, the
+    stego, the packed maps of planes 0..s-1, the twelve float32 moments
+    and K2's bit row."""
+    rng = np.random.default_rng(17)
+    img = np.clip(rng.normal(2000, 300, (512, 512)), 0, 4095).astype(np.uint16)
+    bits = rng.integers(0, 2, 304).astype(np.uint8)
+    n = img.size
+    prof = profiling.get_profiler()
+    prof.reset()
+    profiling.enable()
+    try:
+        res = port.encode_array(img, bits, bits_stored=12, device=cuda)
+        dec = port.decode_container(res.container, device=cuda)
+    finally:
+        profiling.disable()
+    np.testing.assert_array_equal(dec.payload_bits, bits)
+    block = port.EncodeConfig().search_block_size
+    expected = {
+        "image_upload": (img.nbytes, 0),
+        "decompose": (0, 65536 * 8),
+        "block_scan": (0, (512 // block) * (512 // block) * 4),
+        "embed": (bits.size, img.nbytes + res.s * n // 8 + 12 * 4),
+        "extract": (img.nbytes, bits.size),
+    }
+    report = prof.report()
+    for name, row in report.items():
+        assert (row["h2d_bytes"], row["d2h_bytes"]) == expected.get(
+            name, (0, 0)), name
+    counters = profiling.counters()
+    assert counters["h2d_bytes"] == sum(up for up, _ in expected.values())
+    assert counters["d2h_bytes"] == sum(down for _, down in expected.values())
+    for span in prof.spans:
+        assert (span.h2d_bytes, span.d2h_bytes) == expected.get(
+            span.name, (0, 0)), span.name
+    prof.reset()

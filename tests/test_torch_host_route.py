@@ -13,6 +13,7 @@ import codec_tcc_tpu as jax_pkg
 from codec_tcc_tpu.ops import host_embed as jax_host_embed
 from codec_tcc_tpu.ops.segments import usable_capacity_bits
 from codec_tcc_tpu.parallel import batch as jax_batch
+from codec_tcc_tpu_torch import profiling
 import codec_tcc_tpu_torch as port
 from codec_tcc_tpu_torch import pipeline as port_pipeline
 from codec_tcc_tpu_torch.ops import blocks as block_ops
@@ -112,7 +113,7 @@ def test_host_route_containers_match_jax_and_device_route(
 def test_auto_without_metrics_takes_the_host_route(spies, strategy):
     img = _image(64, 48, np.uint16, seed=3)
     cfg = dict(strategy=strategy, compute_metrics=False)
-    raster_kernels.reset_launch_counts()
+    profiling.get_profiler().reset()
     res_p = port.encode_array(img, TEXT, port.EncodeConfig(**cfg),
                               bits_stored=12, device="cpu")
     res_j = jax_pkg.encode_array(img, TEXT, jax_pkg.EncodeConfig(**cfg),
@@ -120,7 +121,7 @@ def test_auto_without_metrics_takes_the_host_route(spies, strategy):
     assert res_p.metrics is None and res_j.metrics is None
     assert res_p.container == res_j.container
     assert spies == {"jax_host": 1, "port_host": 1, "k1": 0}
-    assert raster_kernels.LAUNCHES["raster_embed"] == 0
+    assert profiling.launches(raster_kernels.KERNELS)["raster_embed"] == 0
     assert port.decode_container(res_p.container, device="cpu").message == TEXT
 
 

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 
 from codec_tcc_tpu.ops import pallas_pee as pp
 from codec_tcc_tpu.ops import pee as jax_pee
+from codec_tcc_tpu_torch import profiling
 from codec_tcc_tpu_torch.ops import pee as torch_pee
 from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
@@ -392,7 +393,7 @@ def test_band_wrappers_refuse_bad_arguments(bad):
 
 
 def test_plain_runs_count_no_launch():
-    pk.reset_launch_counts()
+    profiling.get_profiler().reset()
     imgs = _carriers(np.random.default_rng(0), 2, 16, 16, np.uint8, 255)
     msgs = np.zeros((2, 8), dtype=np.uint8)
     _port_two_pass(imgs, msgs, [5, 9], 2, 255)
@@ -403,4 +404,4 @@ def test_plain_runs_count_no_launch():
     over = torch.zeros_like(band)
     pk.pee_extract_count_band(band, row, row, 4, 16, over, 9, 0, 2)
     pk.pee_extract_band(band, row, row, 4, 16, over, 9, 0, 2, 8)
-    assert set(pk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(pk.KERNELS).values()) == {0}

@@ -21,6 +21,7 @@ from codec_tcc_tpu.ops import embed as jax_embed
 from codec_tcc_tpu.ops import host_extract
 from codec_tcc_tpu.ops import pallas_embed as pe
 from codec_tcc_tpu.ops import segments as jax_segments
+from codec_tcc_tpu_torch import profiling
 from codec_tcc_tpu_torch.ops import embed as torch_embed
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
@@ -356,7 +357,7 @@ def test_k2_segments_fit_the_table_at_worst():
 
 
 def test_wrappers_on_cpu_run_plain_and_count_no_launch():
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     rng = np.random.default_rng(9)
     img = torch.from_numpy(_image(rng, 32, 128, np.uint16))
     msg = torch.from_numpy(rng.integers(0, 2, 5000).astype(np.uint8))
@@ -367,7 +368,7 @@ def test_wrappers_on_cpu_run_plain_and_count_no_launch():
     assert maps.shape == (1, img.numel() // 8) and maps.dtype == torch.uint8
     bits = rk.raster_extract(stego, *plan, 1, 1000)
     assert torch.equal(bits, msg[:1000])
-    assert set(rk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}
 
 
 def test_wrappers_reject_other_devices_and_bad_plans():
@@ -540,7 +541,7 @@ def test_k2_batch_matches_pallas_extract_raster_batch(dtype):
 
 
 def test_batch_wrappers_on_cpu_run_plain_and_check_plans():
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     imgs, msgs, starts, lens, offs, svals = _batch_case(14, 2, 16, 16,
                                                         np.uint16)
     timgs, tmsgs = torch.from_numpy(imgs), torch.from_numpy(msgs)
@@ -552,7 +553,7 @@ def test_batch_wrappers_on_cpu_run_plain_and_check_plans():
     assert mp.shape == (2, int(svals.max()), 32)
     bits = rk.raster_extract_batch(st, starts, lens, offs, svals, 64)
     assert bits.shape == (2, 64) and bits.dtype == torch.uint8
-    assert set(rk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}
     with pytest.raises(ValueError, match=r"\(B, NP\)"):
         rk.raster_embed_batch(timgs, tmsgs, starts[:1], lens[:1], offs[:1],
                               svals[:1], emit_maps=False)

@@ -18,6 +18,7 @@ from codec_tcc_tpu.ops import embed as jax_embed
 from codec_tcc_tpu.ops import segments as jax_segments
 from codec_tcc_tpu.parallel import mesh as jax_mesh
 from codec_tcc_tpu.parallel import tile as jax_tile
+from codec_tcc_tpu_torch import profiling
 import codec_tcc_tpu_torch as port
 from codec_tcc_tpu_torch.io import container as container_io
 from codec_tcc_tpu_torch.io.codecs import get as get_codec
@@ -128,12 +129,12 @@ def test_tiled_u8_and_more_bands_than_rows(jax_tile_mesh):
 def test_tiled_encode_runs_no_kernel():
     """The tiled raster bodies are torch ops on each band's device (XLA in
     the JAX package): no K1/K2 launch or call."""
-    rk.reset_launch_counts()
+    profiling.get_profiler().reset()
     img = _image(64, 64, seed=2)
     res = port_tile.encode_array_tiled(img, "x", port.EncodeConfig(),
                                        _cpu_mesh(2))
     port_tile.decode_container_tiled(res.container, _cpu_mesh(2))
-    assert set(rk.LAUNCHES.values()) == {0}
+    assert set(profiling.launches(rk.KERNELS).values()) == {0}
 
 
 def test_tiled_refusals():

@@ -313,7 +313,8 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("name", ["unpack_volume", "extract_volume"])
 def test_copies_are_the_jax_code_but_for_device(name):
-    assert same_code_but_device(getattr(pv, name), getattr(jv, name))
+    assert same_code_but_device(getattr(pv, name), getattr(jv, name),
+                                spans=True)
 
 
 @pytest.mark.parametrize("port_obj,jax_obj", [

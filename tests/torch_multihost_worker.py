@@ -34,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from codec_tcc_tpu_torch import profiling
 from codec_tcc_tpu_torch.config import EncodeConfig
 from codec_tcc_tpu_torch.ops import decompose as decompose_ops
 from codec_tcc_tpu_torch.ops import kernel_library
@@ -87,16 +88,15 @@ dec = decompose_ops.decompose(
     np.broadcast_to(np.zeros((), np.uint16), (n_global * 32, 32)),
     beta=0.4, nbits=16, histogram_counts=total.numpy())
 
-rk.reset_launch_counts()
-pk.reset_launch_counts()
+profiling.get_profiler().reset()
 stego = batch_par.encode_batch(mine, my_plan, mesh, device=device)
 aligned = batch_par.extract_aligned_batch(stego, my_plan, mesh,
                                           device=device)
 checks = torch.tensor([int(stego.to(torch.int64).sum()),
                        int(aligned.to(torch.int64).sum())],
                       dtype=torch.int64)
-launches = ",".join(f"{k}:{v}" for k, v in {**rk.LAUNCHES,
-                                             **pk.LAUNCHES}.items())
+launches = ",".join(f"{k}:{v}" for k, v in
+                    profiling.launches(rk.KERNELS + pk.KERNELS).items())
 dist.all_reduce(checks)
 devices = torch.tensor([mesh.size], dtype=torch.int64)
 dist.all_reduce(devices)
