@@ -29,6 +29,7 @@ from ..device import download, upload
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
+from ..ops import deflate_rle
 from ..ops import embed as embed_ops
 from ..ops import metrics as metric_ops
 from ..ops import pee as pee_ops
@@ -158,8 +159,10 @@ def encode_pee_array(
         stego_np = download(stego[0])
 
     with stage("transport_codec"):
+        stego_bytes = deflate_rle.transport_encode(
+            get_codec(config.codec), stego_np, stego[0])
         map_blob = zlib.compress(packed_over.tobytes())
-        stego_blob = get_codec(config.codec).encode(stego_np)
+        stego_blob = stego_bytes()
     ext = _pack_ext(t, passes, nproc0, nproc1, used0, used1)
     meta = container_io.ContainerMeta(
         version=2,

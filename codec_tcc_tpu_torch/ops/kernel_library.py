@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("raster_embed.cu", "raster_extract.cu", "pee_embed.cu",
-           "pee_extract.cu")
+           "pee_extract.cu", "deflate_rle.cu")
 HEADERS = ("raster_common.cuh", "pee_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -142,6 +142,9 @@ def library() -> ctypes.CDLL:
         # lh, h, w, parity, t, row_len, restored, bits, nbits, stream
         "pee_extract_band": [ptr, ptr, i32, ptr, ptr, i32, ptr, i32, i32, i32,
                              i32, i32, i32, i64, ptr, ptr, ptr, ptr],
+        # image, pixels, h, w, buffer (workspace, then the result), its
+        # bytes, stream
+        "deflate_rle": [ptr, i64, i32, i32, ptr, i64, ptr],
     }
     for name, argtypes in signatures.items():
         for dt in ("u8", "u16"):
@@ -153,6 +156,11 @@ def library() -> ctypes.CDLL:
     for name in ("pee_embed_scratch_ints", "pee_extract_scratch_bytes"):
         getattr(lib, name).argtypes = [i32, i32, i32]
         getattr(lib, name).restype = i64
+    for name in ("deflate_rle_buffer_bytes", "deflate_rle_out_offset"):
+        getattr(lib, name).argtypes = [i64, i32]
+        getattr(lib, name).restype = i64
+    lib.deflate_rle_max_stream.argtypes = []
+    lib.deflate_rle_max_stream.restype = i64
     lib.codec_kernels_error_string.argtypes = [i32]
     lib.codec_kernels_error_string.restype = ctypes.c_char_p
     return lib

@@ -49,6 +49,7 @@ from .io import dicom
 from .io.codecs import get as get_codec
 from .ops import blocks as block_ops
 from .ops import decompose as decompose_ops
+from .ops import deflate_rle
 from .ops import embed as embed_ops
 from .ops import host_extract
 from .ops import metrics as metric_ops
@@ -141,7 +142,8 @@ def _block_bases(
 
 # Each embed route returns (stego, packed XOR maps or None, pair_stats
 # moments or None); the maps come back only when the container stores them
-# packed.
+# packed. The device routes return the stego as the device tensor, which the
+# transport codec may compress there; encode_array downloads it.
 
 
 def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
@@ -152,7 +154,7 @@ def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
     )
     stats = metric_ops.pair_stats(image_dev, stego_dev) if with_stats else None
     packed = None if packed_dev is None else download(packed_dev)
-    return download(stego_dev), packed, stats
+    return stego_dev, packed, stats
 
 
 def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
@@ -172,7 +174,7 @@ def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
         packed = download(embed_ops.xor_maps_packed_batch(
             image_dev[None], stego_dev[None], s
         )[0])
-    return download(stego_dev), packed, stats
+    return stego_dev, packed, stats
 
 
 def _embed_host(image, msg_bits, pp, s, with_stats, dev):
@@ -310,13 +312,17 @@ def encode_array(
                 image_t, msg_bits, pp, s, bitmaps_packed,
                 config.compute_metrics,
             )
+        stego_dev = stego if isinstance(stego, torch.Tensor) else None
+        if stego_dev is not None:
+            stego = download(stego_dev)
         metrics = None if stats is None else metric_ops.quality_report(
             {k: download(v) for k, v in stats.items()})
 
-    # 5. transport codec + container
+    # 5. transport codec + container (deflate of a device stego runs on
+    # the card, ops/deflate_rle.py, while the host packs the maps)
     with stage("transport_codec"):
-        codec = get_codec(config.codec)
-        stego_blob = codec.encode(stego)
+        stego_bytes = deflate_rle.transport_encode(
+            get_codec(config.codec), stego, stego_dev)
         if not config.store_bitmaps:
             bitmaps_blob = b""
         elif bitmaps_packed:
@@ -325,6 +331,7 @@ def encode_array(
             bitmaps_blob = container_io.compress_bitmaps(
                 _host_xor_maps(image, stego, s)
             )
+        stego_blob = stego_bytes()
 
     ext = b""
     if config.strategy == "block_adaptive":

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a GPU: K1-K4, the batch forms of K1/K2 and
-the band launches of K3/K4 against their plain versions; the raster, PEE,
-block_adaptive, container batch, tiled (one image across a mesh of the
-card repeated) and ``dp`` (a batch split over such a mesh) encode paths
-against the CPU path; the device block
+the band launches of K3/K4 against their plain versions; the deflate
+kernels against host zlib, and the single-image encodes' use of them; the
+raster, PEE, block_adaptive, container batch, tiled (one image across a
+mesh of the card repeated) and ``dp`` (a batch split over such a mesh)
+encode paths against the CPU path; the device block
 extract against its host twin; the host embed route with no K1; the
 ``jls`` codec, v1 containers and the serving daemon against the parity
 fixture. Marked ``cuda``: they skip where no GPU is present and run on the
@@ -18,7 +19,10 @@ import torch
 
 from codec_tcc_tpu_torch import profiling
 import codec_tcc_tpu_torch as port
+import torch_deflate_cases as dc
 import torch_pee_stress as stress
+from codec_tcc_tpu_torch.io.codecs import get as get_codec
+from codec_tcc_tpu_torch.ops import deflate_rle as dfl
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
 pytestmark = pytest.mark.cuda
@@ -1114,12 +1118,13 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
     each stage's span hold exactly the bytes its shapes give. Up: the
     image, the message bits, the stego for K2. Down: the int64 value
     histogram, the int32 plane-0 tile popcounts of the hybrid scan, the
-    stego, the packed maps of planes 0..s-1, the twelve float32 moments
-    and K2's bit row."""
+    stego, the packed maps of planes 0..s-1, the twelve float32 moments,
+    the deflate kernels' length and stream, and K2's bit row."""
     rng = np.random.default_rng(17)
     img = np.clip(rng.normal(2000, 300, (512, 512)), 0, 4095).astype(np.uint16)
     bits = rng.integers(0, 2, 304).astype(np.uint8)
     n = img.size
+    assert dfl.device_route_ok(cuda)   # the probe's copies come before
     prof = profiling.get_profiler()
     prof.reset()
     profiling.enable()
@@ -1135,6 +1140,8 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
         "decompose": (0, 65536 * 8),
         "block_scan": (0, (512 // block) * (512 // block) * 4),
         "embed": (bits.size, img.nbytes + res.s * n // 8 + 12 * 4),
+        "transport_codec": (0, 8 + len(get_codec("deflate").encode(
+            res.stego))),
         "extract": (img.nbytes, bits.size),
     }
     report = prof.report()
@@ -1148,3 +1155,97 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
         assert (span.h2d_bytes, span.d2h_bytes) == expected.get(
             span.name, (0, 0)), span.name
     prof.reset()
+
+
+# ---------------------------------------------------------------------------
+# the deflate kernels (csrc/deflate_rle.cu)
+# ---------------------------------------------------------------------------
+
+
+def _deflate_images(name):
+    if name == "probe":
+        return dfl.probe_images()
+    if name == "frame_4096x3328":
+        return [dc.phantom(4096, 3328, seed=5)]
+    if name.startswith("phantom_") and name not in dc.NAMES:
+        h, w = (int(v) for v in name[len("phantom_"):].split("x"))
+        return [dc.phantom(h, w)]
+    return [dc.case(name)]
+
+
+@pytest.mark.parametrize("name", [*dc.NAMES, "probe", "phantom_512x512",
+                                  "phantom_2048x2048", "frame_4096x3328"])
+def test_deflate_kernels_give_zlibs_bytes_on_gpu(cuda, name):
+    """The kernels' stream equals host zlib's (the deflate codec's encode)
+    byte for byte on the corpus of tests/torch_deflate_cases.py, the
+    probe, the benchmark's phantoms and a 4096x3328 frame."""
+    codec = get_codec("deflate")
+    for image in _deflate_images(name):
+        got = dfl.encode_device(torch.from_numpy(image).to(cuda))
+        torch.cuda.synchronize()
+        assert got == codec.encode(image), name
+
+
+def test_deflate_kernels_repeat_on_gpu(cuda):
+    """20 encodes of one 2048x2048 phantom give the same bytes: the tiles'
+    look-backs and the atomic writes leave no trace of their order."""
+    image = dc.phantom(2048, 2048, seed=3)
+    t = torch.from_numpy(image).to(cuda)
+    outs = {dfl.encode_device(t) for _ in range(20)}
+    assert outs == {get_codec("deflate").encode(image)}
+
+
+def _counts_since(before):
+    after = profiling.counters()
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in ["codec.deflate_device", "codec.deflate_host",
+                      *("launch." + k for k in dfl.KERNELS)]}
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "pee", "block_adaptive"])
+def test_gpu_encode_deflates_the_stego_on_the_card(cuda, strategy):
+    """A single-image encode on the card compresses its stego with one
+    launch of each deflate kernel and gives the CPU path's container."""
+    assert dfl.device_route_ok(cuda)
+    rng = np.random.default_rng(23)
+    img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
+    cfg = port.EncodeConfig(strategy=strategy)
+    before = profiling.counters()
+    res_g = port.encode_array(img, "gpu", cfg, bits_stored=12, device=cuda)
+    counts = _counts_since(before)
+    assert counts == {"codec.deflate_device": 1, "codec.deflate_host": 0,
+                      **{"launch." + k: 1 for k in dfl.KERNELS}}
+    res_c = port.encode_array(img, "gpu", cfg, bits_stored=12, device="cpu")
+    assert res_g.container == res_c.container
+
+
+def test_gpu_probe_mismatch_keeps_deflate_on_the_host(cuda, monkeypatch):
+    """Where the host compressor gives other bytes than the kernels on the
+    probe (a test double stands in for it), the encode stays on the host
+    codec for the process and a WARNING says so."""
+    import logging
+
+    records = []
+    handler = logging.Handler()
+    handler.emit = records.append
+    log = logging.getLogger("codec_tcc_tpu_torch")
+    monkeypatch.setattr(dfl, "_host_encode", lambda image: b"not zlib's")
+    dfl._route_ok.cache_clear()
+    log.addHandler(handler)
+    try:
+        rng = np.random.default_rng(29)
+        img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(
+            np.uint16)
+        assert not dfl.device_route_ok(cuda)
+        before = profiling.counters()
+        res_g = port.encode_array(img, "gpu", bits_stored=12, device=cuda)
+        counts = _counts_since(before)
+    finally:
+        log.removeHandler(handler)
+        dfl._route_ok.cache_clear()
+    assert counts == {"codec.deflate_device": 0, "codec.deflate_host": 1,
+                      **{"launch." + k: 0 for k in dfl.KERNELS}}
+    res_c = port.encode_array(img, "gpu", bits_stored=12, device="cpu")
+    assert res_g.container == res_c.container
+    assert any(r.levelno == logging.WARNING and "stays on the host"
+               in r.getMessage() for r in records)
