@@ -12,8 +12,10 @@ its hand-written CUDA kernels (K1 ``raster_embed`` and its batch form
 ``raster_embed_batch``, K2 ``raster_extract`` and ``raster_extract_batch``,
 K3 ``pee_embed``, K4 ``pee_extract`` and their band mode, two launches
 each: ``pee_count_band`` and ``pee_embed_band``, ``pee_extract_count_band``
-and ``pee_extract_band``) and checks them, phase by phase; any failure
-exits non-zero:
+and ``pee_extract_band``; the deflate kernels ``deflate_rle_tokens``,
+``deflate_rle_trees`` and ``deflate_rle_emit``, which compress the stego of
+a single-image encode on the card) and checks them, phase by phase; any
+failure exits non-zero:
 
 1. prints the card's name and power limit (``nvidia-smi``), builds the
    kernels from ``codec_tcc_tpu_torch/csrc`` with ``nvcc`` (sm_90a; one
@@ -61,7 +63,13 @@ exits non-zero:
    image of the 3 Mbit PEE case at its T, over 4 bands (pass 0 saturated
    and at half its capacity, pass 1 on pass 0's stego): every band's tile
    counts and outputs exact, the used count and boundary exact, the bands
-   stitched together equal to the whole-image K3/K4;
+   stitched together equal to the whole-image K3/K4. Before all of these,
+   the deflate kernels (after the probe against host zlib that their
+   first use in a process runs) against their plain NumPy version and
+   host zlib, byte for byte, on the corpus of
+   ``tests/torch_deflate_cases.py``, the probe's images and the
+   benchmark's phantoms at 512x512 and 2048x2048 uint16, the larger 5
+   times identical;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE, five block_adaptive, three on the host embed route) through
    ``encode_array(device="cuda")``: the container's sha256 (and for PEE the
@@ -158,11 +166,14 @@ exits non-zero:
 6. the launch counts of each path, set to 0 just before it and read just
    after it: the raster cases (K1 and K2 once per encode and decode), the
    PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
-   twice per decode group), the block cases (no kernel: torch ops to
-   encode, the host to decode), the host-route cases (no K1, K2 once per
-   decode), the golden decodes and the batch paths (one batch K1 per
-   device-route batch encode, one batch K2 per ``extract_batch``, none for
-   the host and block batches and the batch decode), the volumes (one
+   twice per decode group), the block cases (torch ops to encode, the host
+   to decode), the host-route cases (no K1, K2 once per decode), each
+   deflate kernel once per single-image encode on the card (the raster,
+   PEE and block cases, the daemon's ``deflate`` encodes; none on the host
+   route and the batch, volume, tiled and other-codec paths), the golden
+   decodes and the batch paths (one batch K1 per device-route batch
+   encode, one batch K2 per ``extract_batch``, none for the host and
+   block batches and the batch decode), the volumes (one
    batch K1 per raster volume encode, one batch K2 per ``extract_volume``,
    none for a raster or block ``unpack_volume``, K3 twice per equal-T
    attempt group of the PEE volume, K4 twice per decode group), the
@@ -216,13 +227,17 @@ exits non-zero:
    band beside them; ``jls`` against ``deflate``: the
    ``transport_codec`` and ``transport_decode`` stage means, the cycle's
    host wall and the container bytes at 512x512 (304 bits) and 2048x2048
-   (at capacity) uint16; the warm daemon's ``encode`` and ``decode``
-   latency at 512x512 uint16 with 304 bits (median of 5).
+   (at capacity) uint16; the deflate kernels on the phantoms at 512x512
+   and 2048x2048 uint16 (each launch's device time and bound, the per-call
+   wall of ``encode_device`` with its read-back, host zlib beside it); the
+   warm daemon's ``encode`` and ``decode`` latency at 512x512 uint16 with
+   304 bits (median of 5).
 
 Before the last line it prints the ``nvidia-smi`` line and one JSON line
 ``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
 error, times, and the bound: the larger of its bytes over 3.35 TB/s and its
-integer operations over 67 TOP/s, from this run's shapes); the last line is
+integer operations over 67 TOP/s, from this run's shapes; the deflate
+kernels' ``library_ms`` is host zlib's encode); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -875,6 +890,102 @@ def phase2_block(port, dev) -> str:
             count += 1
     return (f"device block extract == extract_block_host on {count} plans "
             f"of the blk_* stegos")
+
+
+DEFLATE_SHAPES = ((512, 512), (2048, 2048))   # the single cells' images
+
+
+def phase2_deflate(dev) -> str:
+    """The deflate kernels (``ops/deflate_rle.py::encode_device``) against
+    their plain version (``encode_plain``) and host zlib (the ``deflate``
+    codec's encode), byte for byte: the CPU corpus of
+    ``tests/torch_deflate_cases.py``, the probe's images, and the
+    benchmark's phantoms at the main path's shapes, 512x512 and 2048x2048
+    uint16; the 2048x2048 phantom 5 times, identical. The probe runs here
+    first, so the main path's counts leave it out."""
+    import zlib
+
+    import torch
+    import torch_deflate_cases as dc
+    from codec_tcc_tpu_torch.io.codecs import get as get_codec
+    from codec_tcc_tpu_torch.ops import deflate_rle as dfl
+
+    t0 = time.perf_counter()
+    dfl.check_device_route(dev)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    codec = get_codec("deflate")
+    images = [(name, dc.case(name)) for name in dc.NAMES]
+    images += [(f"probe_{k}", img) for k, img in enumerate(dfl.probe_images())]
+    images += [(f"phantom_{h}x{w}", dc.phantom(h, w))
+               for h, w in DEFLATE_SHAPES]
+    sizes = {}
+    for name, img in images:
+        t = torch.from_numpy(img).to(dev)
+        got = dfl.encode_device(t)
+        check(got == dfl.encode_plain(img),
+              f"deflate kernels != encode_plain on {name}")
+        check(got == codec.encode(img),
+              f"deflate kernels != host zlib {zlib.ZLIB_RUNTIME_VERSION} on "
+              f"{name}")
+        if name.startswith("phantom_"):
+            sizes[name] = len(got)
+            if name.endswith("2048x2048"):
+                check({dfl.encode_device(t) for _ in range(5)} == {got},
+                      f"deflate kernels repeat differently on {name}")
+    return (f"deflate kernels == encode_plain == host zlib "
+            f"{zlib.ZLIB_RUNTIME_VERSION} on {len(images)} images (the "
+            f"corpus, the probe, phantoms {sizes} B), 5 repeats identical; "
+            f"the probe took {probe_ms:.1f} ms")
+
+
+def time_deflate(smi, dev) -> dict:
+    """The deflate kernels on the phantoms at the main path's shapes: each
+    launch's device time (``torch.profiler``), the per-call wall of
+    ``encode_device`` (launches, length read-back and the stream's D2H;
+    CUDA events) beside host zlib's encode of the same image, and each
+    launch's bound from the bytes it must move: tokens and emit read the
+    image, emit writes the stream, the tokens' per-block symbol counts are
+    written once and read by trees (whose serial heap no byte count
+    bounds)."""
+    import torch
+    import torch_deflate_cases as dc
+    from codec_tcc_tpu_torch.io.codecs import get as get_codec
+    from codec_tcc_tpu_torch.ops import deflate_rle as dfl
+
+    codec = get_codec("deflate")
+    timing = {}
+    for h, w in DEFLATE_SHAPES:
+        img = dc.phantom(h, w)
+        t = torch.from_numpy(img).to(dev)
+        nbytes = img.nbytes
+        stream = len(dfl.encode_device(t))
+        blocks = -(-nbytes // dfl.BLOCK_TOKENS) + 1   # at most: 1 token a byte
+        counts = blocks * (dfl.L_CODES + dfl.D_CODES) * 4
+        ops = dict(device_ops_ms(lambda: dfl.queue_device(t)))
+        per_call = cuda_median_ms(lambda: dfl.encode_device(t))
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            codec.encode(img)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        zlib_ms = statistics.median(walls)
+        row = {}
+        for name, work in (("deflate_rle_tokens", nbytes + counts),
+                           ("deflate_rle_trees", counts),
+                           ("deflate_rle_emit", nbytes + stream)):
+            row[name] = {"ms": ops.get(name + "_kernel"), "per_call": per_call,
+                         "bound": bound(work, 0), "library_ms": zlib_ms}
+        timing[f"{h}x{w}"] = row
+        dev_txt = ", ".join(
+            f"{k} {fmt_ms(v['ms'])} (bound {v['bound'][0]:.5f} ms)"
+            for k, v in row.items())
+        other = ", ".join(f"{k} {v:.4f} ms" for k, v in ops.items()
+                          if not k.startswith("deflate_rle"))
+        print(f"  deflate {h}x{w} u16 ({stream} B stream): device {dev_txt}; "
+              f"other device ops: {other}; encode_device per call "
+              f"{per_call:.4f} ms, host zlib {zlib_ms:.4f} ms (median of 5) "
+              f"on {smi}", flush=True)
+    return timing
 
 
 def case_path(port, case) -> str:
@@ -2923,6 +3034,7 @@ def phase5_serve(port, sparity, counted, launches, dev):
     from codec_tcc_tpu_torch.io import dicom
     from codec_tcc_tpu_torch.io.container import parse as parse_container
     from codec_tcc_tpu_torch.io.container import parse_pee_ext
+    from codec_tcc_tpu_torch.ops import deflate_rle as dfl
 
     expected = {}
     tmp = tempfile.mkdtemp(prefix="ct_")
@@ -2961,16 +3073,20 @@ def phase5_serve(port, sparity, counted, launches, dev):
         check(cases.sha256(blob) == sparity[name]["container_sha256"],
               f"{name}: the daemon's container differs from the JAX "
               f"package's encode_file")
+        # the deflate codec's encode of the stego on the card
+        deflated = {k: int(config.get("codec", "deflate") == "deflate")
+                    for k in dfl.KERNELS}
         if config["strategy"] == "pee":
             t_start = pee_start_thresholds(
                 img[None], [text_bits.size], 12,
                 port.EncodeConfig(**config), dev)
             t_final = parse_pee_ext(parse_container(blob).meta.ext)[0]
             groups = cases.pee_attempt_groups(t_start, [t_final])
-            expected[f"{name}_encode"] = launches(pee_embed=2 * groups)
+            expected[f"{name}_encode"] = launches(pee_embed=2 * groups,
+                                                  **deflated)
             expected[f"{name}_decode"] = launches(pee_extract=2)
         else:
-            expected[f"{name}_encode"] = launches(raster_embed=1)
+            expected[f"{name}_encode"] = launches(raster_embed=1, **deflated)
             expected[f"{name}_decode"] = launches(raster_extract=1)
         prefix = os.path.join(tmp, f"{name}_dec")
         d = counted(f"{name}_decode", lambda: serve_request(
@@ -3153,6 +3269,7 @@ def main() -> int:
     from codec_tcc_tpu_torch.io.container import parse_pee_ext
     from codec_tcc_tpu_torch.ops import kernel_library
     from codec_tcc_tpu_torch import profiling
+    from codec_tcc_tpu_torch.ops import deflate_rle as dfl
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
@@ -3171,6 +3288,9 @@ def main() -> int:
              f"{os.path.relpath(lib_path, HERE)}; {build_native()}")
 
     # -- phase 2: kernels vs plain versions on the card ----------------------
+    # the deflate kernels first: their probe runs at the process's first
+    # encode on the card
+    deflate_txt = phase2_deflate(dev)
     max_err = phase2_raster(np.random.default_rng(2024), dev)
     k1_err, k1_txt = phase2_k1(dev)
     max_err["raster_embed"] = max(max_err["raster_embed"], k1_err)
@@ -3185,20 +3305,26 @@ def main() -> int:
     shard_txt = phase2_pee_shard(dev, parity, max_err)
     stress_txt = phase2_pee_stress(dev)
     block_txt = phase2_block(port, dev)
-    phase(2, f"K1-K4, batch K1/K2 and band K3/K4 == plain on the card (max "
-             f"abs err {max_err}); {k1_txt}; {k2_txt}; {batch_k_txt}; "
-             f"{shard_txt}; {stress_txt}; {block_txt}")
+    max_err.update({name: 0 for name in dfl.KERNELS})
+    phase(2, f"K1-K4, batch K1/K2, band K3/K4 and the deflate kernels == "
+             f"plain on the card (max abs err {max_err}); {k1_txt}; "
+             f"{k2_txt}; {batch_k_txt}; {shard_txt}; {stress_txt}; "
+             f"{block_txt}; {deflate_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is
     # read just after it (phase 6 checks them).
     tparity = cases.load_parity_tiled()
     paths, expected = {}, {}
-    kernel_names = rk.KERNELS + pk.KERNELS
+    kernel_names = rk.KERNELS + pk.KERNELS + dfl.KERNELS
 
     def launches(**nonzero):
         """Launches by kernel: 0 for every kernel not named."""
         return {**{name: 0 for name in kernel_names}, **nonzero}
+
+    def deflated(n):
+        """The deflate kernels of n single-image encodes on the card."""
+        return {name: n for name in dfl.KERNELS}
 
     def counted(path, fn):
         before = profiling.launches(kernel_names)
@@ -3247,7 +3373,8 @@ def main() -> int:
     n_path = {path: len(group) for path, group in by_path.items()}
     counted("raster", lambda: run_cases("raster"))
     expected["raster"] = launches(raster_embed=n_path["raster"],
-                                  raster_extract=n_path["raster"])
+                                  raster_extract=n_path["raster"],
+                                  **deflated(n_path["raster"]))
     counted("pee", lambda: run_cases("pee"))
     pee_cfg = port.EncodeConfig(strategy="pee")
     groups = 0
@@ -3258,11 +3385,14 @@ def main() -> int:
         groups += cases.pee_attempt_groups(
             t0, [parse_pee_ext(res.meta.ext)[0]])
     expected["pee"] = launches(pee_embed=2 * groups,
-                               pee_extract=2 * n_path["pee"])
-    # block_adaptive: torch ops on the card to encode, the host to decode
+                               pee_extract=2 * n_path["pee"],
+                               **deflated(n_path["pee"]))
+    # block_adaptive: torch ops on the card to encode (and the deflate
+    # kernels), the host to decode
     counted("block", lambda: run_cases("block"))
-    expected["block"] = launches()
-    # the host embed route: no K1; its containers decode through K2
+    expected["block"] = launches(**deflated(n_path["block"]))
+    # the host embed route: no K1, host zlib; its containers decode
+    # through K2
     counted("host", lambda: run_cases("host"))
     expected["host"] = launches(raster_extract=n_path["host"])
     batch_txt, pee_batch = phase3_batch(port, results, parity, counted, dev)
@@ -3395,6 +3525,7 @@ def main() -> int:
     cycle_report("pee encode+decode 2048x2048 u16 (3 Mbit)",
                  cycle_of("pee_cr2048_u16_3m", pee_cfg), 3)
     time_codecs(port, results, smi, dev)
+    deflate = time_deflate(smi, dev)
     for op, (wall, daemon_ms) in serve_lat.items():
         print(f"  serve {op} 512x512 u16 (304 bits), warm daemon: "
               f"{wall:.2f} ms request round trip, {daemon_ms:.2f} ms in the "
@@ -3427,16 +3558,25 @@ def main() -> int:
             ("pee_embed_band", "pee_embed.cu", "pallas_pee.py:481"),
             ("pee_extract_count_band", "pee_extract.cu", "pallas_pee.py:670"),
             ("pee_extract_band", "pee_extract.cu", "pallas_pee.py:670")))
+    # the deflate kernels replace the host zlib of the JAX package's
+    # DeflateCodec.encode, which is their library column (per call, 2048x2048)
+    big_dfl = deflate["2048x2048"]
+    rows += tuple(
+        (name, "deflate_rle.cu", "io/codecs/__init__.py:108",
+         big_dfl[name]["ms"], None, big_dfl[name]["bound"])
+        for name in dfl.KERNELS)
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"codec_tcc_tpu_torch/csrc/{src}",
-         "replaces": f"codec_tcc_tpu/ops/{tpu}",
+         "replaces": f"codec_tcc_tpu/{'' if '/' in tpu else 'ops/'}{tpu}",
          "launches": totals[name],
          "launches_by_path": {path: counts[name]
                               for path, counts in paths.items()},
          "max_abs_err": max_err[name],
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-         "bound_by": bnd[1], "library_ms": None}
+         "bound_by": bnd[1],
+         "library_ms": (big_dfl[name]["library_ms"]
+                        if name in dfl.KERNELS else None)}
         for name, src, tpu, ms, plain_ms, bnd in rows
     ]
     print(smi)

@@ -43,11 +43,11 @@ that many bytes.
 
 :func:`transport_encode` is what the single-image encodes call in their
 ``transport_codec`` stage: the ``deflate`` codec's encode of a stego that
-is a CUDA tensor runs on the card once :func:`device_route_ok` has found
-this process's zlib giving the kernels' bytes on a probe; everything else
-stays on the host codec. Counters: ``codec.deflate_device`` and
-``codec.deflate_host`` (streams encoded on each side by that function) and
-``launch.<kernel>`` per launch.
+is a CUDA tensor always runs on the card, and :func:`check_device_route`
+raises where this process's zlib gives other bytes than the kernels on a
+probe (zlib-ng, a patched zlib); everything else stays on the host codec.
+Counters: ``codec.deflate_device`` and ``codec.deflate_host`` (streams
+encoded on each side by that function) and ``launch.<kernel>`` per launch.
 """
 
 from __future__ import annotations
@@ -62,16 +62,14 @@ import torch
 
 from .. import profiling
 from ..device import download, upload
-from ..utils.logging import get_logger
 from .kernel_library import check, library, stream_ptr
 
 __all__ = [
     "KERNELS",
     "BlockCode",
     "block_code",
+    "check_device_route",
     "deflate_rle_plain",
-    "device_route_ok",
-    "encode",
     "encode_device",
     "encode_plain",
     "probe_images",
@@ -81,8 +79,6 @@ __all__ = [
     "split_stream",
     "transport_encode",
 ]
-
-logger = get_logger("ops.deflate_rle")
 
 KERNELS = ("deflate_rle_tokens", "deflate_rle_trees", "deflate_rle_emit")
 
@@ -658,10 +654,10 @@ def queue_device(stego: torch.Tensor) -> Callable[[], memoryview]:
     _check_image(stego)
     h, w = stego.shape
     n, item = h * w, stego.element_size()
+    if n * item > max_stream_bytes():
+        raise ValueError(f"a {h}x{w} {stego.dtype} stream exceeds the "
+                         f"deflate kernels' {max_stream_bytes()} bytes")
     lib = library()
-    if n * item > lib.deflate_rle_max_stream():
-        raise ValueError(f"a {h}x{w} {stego.dtype} stream exceeds "
-                         f"{lib.deflate_rle_max_stream()} bytes")
     size = lib.deflate_rle_buffer_bytes(n, item)
     off = lib.deflate_rle_out_offset(n, item)
     buf = torch.empty(size, dtype=torch.uint8, device=stego.device)
@@ -682,18 +678,6 @@ def queue_device(stego: torch.Tensor) -> Callable[[], memoryview]:
 def encode_device(stego: torch.Tensor) -> bytes:
     """``DeflateCodec.encode`` of a CUDA image by the kernels."""
     return bytes(queue_device(stego)())
-
-
-def encode(stego: torch.Tensor) -> bytes:
-    """``DeflateCodec.encode`` of an image tensor: the kernels for a CUDA
-    tensor, the plain version for a CPU one."""
-    if stego.device.type == "cpu":
-        _check_image(stego)
-        return encode_plain(stego.numpy())
-    if stego.device.type != "cuda":
-        raise ValueError(
-            f"deflate_rle runs on cuda or cpu, not {stego.device}")
-    return encode_device(stego)
 
 
 # ---------------------------------------------------------------------------
@@ -740,21 +724,19 @@ def _host_encode(image: np.ndarray) -> bytes:
 @functools.lru_cache(maxsize=None)
 def _route_ok(index: int) -> bool:
     dev = torch.device("cuda", index)
-    for image in probe_images():
-        if encode_device(upload(image, dev)) != _host_encode(image):
-            logger.warning(
-                "this process's zlib %s gives other bytes than the deflate "
-                "kernels on their probe: every deflate encode stays on the "
-                "host", zlib.ZLIB_RUNTIME_VERSION)
-            return False
-    return True
+    return all(encode_device(upload(image, dev)) == _host_encode(image)
+               for image in probe_images())
 
 
-def device_route_ok(device: torch.device) -> bool:
-    """Whether the deflate encode of an image on ``device`` (CUDA) runs on
-    the card: at the first use in a process, the kernels and the host codec
-    compress :func:`probe_images` and must agree byte for byte."""
-    return _route_ok(torch.device(device).index or 0)
+def check_device_route(device: torch.device) -> None:
+    """Raises where the kernels would not give this process's zlib bytes: at
+    the first use in a process, they and the host codec compress
+    :func:`probe_images` on ``device`` (CUDA) and must agree byte for byte."""
+    if not _route_ok(torch.device(device).index or 0):
+        raise RuntimeError(
+            f"the deflate kernels give other bytes than this process's zlib "
+            f"{zlib.ZLIB_RUNTIME_VERSION} on their probe, so the containers "
+            f"of a CUDA stego would differ from the host codec's")
 
 
 def transport_encode(codec, stego: np.ndarray,
@@ -764,14 +746,12 @@ def transport_encode(codec, stego: np.ndarray,
     device or None, as a function that gives the bytes (for the
     container's concatenation: ``bytes`` or a read-only view): the ``deflate``
     codec's encode of a CUDA image is queued on the card
-    (:func:`queue_device`) when the probe agrees and the stream fits, so
-    the caller can do host work before it asks for them; any other codec,
-    device or image is encoded by the host codec at once."""
+    (:func:`queue_device`, after :func:`check_device_route`), so the caller
+    can do host work before it asks for them; any other codec, device or
+    image is encoded by the host codec at once."""
     if codec.name == "deflate":
-        if (stego_dev is not None and stego_dev.device.type == "cuda"
-                and stego_dev.numel() * stego_dev.element_size()
-                <= max_stream_bytes()
-                and device_route_ok(stego_dev.device)):
+        if stego_dev is not None and stego_dev.device.type == "cuda":
+            check_device_route(stego_dev.device)
             profiling.count("codec.deflate_device")
             return queue_device(stego_dev)
         profiling.count("codec.deflate_host")

@@ -1124,7 +1124,7 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
     img = np.clip(rng.normal(2000, 300, (512, 512)), 0, 4095).astype(np.uint16)
     bits = rng.integers(0, 2, 304).astype(np.uint8)
     n = img.size
-    assert dfl.device_route_ok(cuda)   # the probe's copies come before
+    dfl.check_device_route(cuda)   # the probe's copies come before
     prof = profiling.get_profiler()
     prof.reset()
     profiling.enable()
@@ -1206,7 +1206,7 @@ def _counts_since(before):
 def test_gpu_encode_deflates_the_stego_on_the_card(cuda, strategy):
     """A single-image encode on the card compresses its stego with one
     launch of each deflate kernel and gives the CPU path's container."""
-    assert dfl.device_route_ok(cuda)
+    dfl.check_device_route(cuda)
     rng = np.random.default_rng(23)
     img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
     cfg = port.EncodeConfig(strategy=strategy)
@@ -1219,33 +1219,34 @@ def test_gpu_encode_deflates_the_stego_on_the_card(cuda, strategy):
     assert res_g.container == res_c.container
 
 
-def test_gpu_probe_mismatch_keeps_deflate_on_the_host(cuda, monkeypatch):
+def test_gpu_probe_mismatch_raises(cuda, monkeypatch):
     """Where the host compressor gives other bytes than the kernels on the
-    probe (a test double stands in for it), the encode stays on the host
-    codec for the process and a WARNING says so."""
-    import logging
+    probe (a test double stands in for it), the encode of a stego on the
+    card raises, naming the process's zlib, and launches nothing more."""
+    import zlib
 
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    log = logging.getLogger("codec_tcc_tpu_torch")
     monkeypatch.setattr(dfl, "_host_encode", lambda image: b"not zlib's")
     dfl._route_ok.cache_clear()
-    log.addHandler(handler)
+    rng = np.random.default_rng(29)
+    img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
     try:
-        rng = np.random.default_rng(29)
-        img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(
-            np.uint16)
-        assert not dfl.device_route_ok(cuda)
+        with pytest.raises(RuntimeError, match=zlib.ZLIB_RUNTIME_VERSION):
+            dfl.check_device_route(cuda)
         before = profiling.counters()
-        res_g = port.encode_array(img, "gpu", bits_stored=12, device=cuda)
+        with pytest.raises(RuntimeError, match="deflate kernels"):
+            port.encode_array(img, "gpu", bits_stored=12, device=cuda)
         counts = _counts_since(before)
     finally:
-        log.removeHandler(handler)
         dfl._route_ok.cache_clear()
-    assert counts == {"codec.deflate_device": 0, "codec.deflate_host": 1,
+    assert counts == {"codec.deflate_device": 0, "codec.deflate_host": 0,
                       **{"launch." + k: 0 for k in dfl.KERNELS}}
-    res_c = port.encode_array(img, "gpu", bits_stored=12, device="cpu")
-    assert res_g.container == res_c.container
-    assert any(r.levelno == logging.WARNING and "stays on the host"
-               in r.getMessage() for r in records)
+
+
+def test_gpu_deflate_stream_over_the_limit_raises(cuda, monkeypatch):
+    """A stream longer than the kernels take raises rather than leaving the
+    card: the limit stands in at 100 bytes here."""
+    monkeypatch.setattr(dfl, "max_stream_bytes", lambda: 100)
+    t = torch.zeros((8, 7), dtype=torch.uint16, device=cuda)
+    with pytest.raises(ValueError, match="exceeds"):
+        dfl.encode_device(t)
+    assert len(dfl.encode_device(t[:, :6].contiguous())) > 13
