@@ -151,12 +151,11 @@ def encode_pee_array(
         # the overflow map is packed on the device: its bytes are the
         # container blob's zlib input
         packed_over = download(embed_ops.pack_bits_batch(over_dev)[0])
-        metrics = None
-        if config.compute_metrics:
-            metrics = metric_ops.quality_report({
-                k: download(v) for k, v in
-                metric_ops.pair_stats(image_dev[0], stego[0]).items()})
+        stats = (metric_ops.pair_stats(image_dev[0], stego[0])
+                 if config.compute_metrics else None)
         stego_np = download(stego[0])
+        metrics = None if stats is None else metric_ops.encode_report(
+            {k: download(v) for k, v in stats.items()}, image, stego_np)
 
     with stage("transport_codec"):
         stego_bytes = deflate_rle.transport_encode(

@@ -57,7 +57,7 @@ from .ops import raster_kernels
 from .ops import segments as segment_ops
 from .ops.host_embed import embed_raster_host_packed
 from .parallel.batch import hybrid_base_offsets_host
-from .profiling import entry, stage
+from .profiling import count, entry, stage
 from .utils import bits as bit_utils
 from .utils.logging import get_logger
 
@@ -146,6 +146,14 @@ def _block_bases(
 # transport codec may compress there; encode_array downloads it.
 
 
+def _count_block_fill(s: int, ntiles: int, lengths, n: int) -> None:
+    """The block fill's counters, for one side (encode or decode):
+    ``block.tiles_ranked`` the tiles of the ``s`` ranked planes,
+    ``block.bits_placed`` the payload bits their windows hold."""
+    count("block.tiles_ranked", s * ntiles)
+    count("block.bits_placed", sum(min(int(lengths[p]), n) for p in range(s)))
+
+
 def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
     """K1: stego + packed XOR maps in one launch, then the moments."""
     stego_dev, packed_dev = raster_kernels.raster_embed(
@@ -164,6 +172,7 @@ def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
     h, w = image_dev.shape
     with stage("block_rank"):
         bases = _block_bases(image_dev, nbits, s, block, h, w)
+    _count_block_fill(s, bases.shape[1], pp.lengths, h * w)
     stego_dev = embed_ops.embed_block_adaptive(
         image_dev, upload(msg_bits, image_dev.device), bases, pp.lengths,
         pp.offsets, s, nbits, block,
@@ -315,8 +324,8 @@ def encode_array(
         stego_dev = stego if isinstance(stego, torch.Tensor) else None
         if stego_dev is not None:
             stego = download(stego_dev)
-        metrics = None if stats is None else metric_ops.quality_report(
-            {k: download(v) for k, v in stats.items()})
+        metrics = None if stats is None else metric_ops.encode_report(
+            {k: download(v) for k, v in stats.items()}, image, stego)
 
     # 5. transport codec + container (deflate of a device stego runs on
     # the card, ops/deflate_rle.py, while the host packs the maps)
@@ -522,19 +531,23 @@ def decode_container(
     if meta.strategy == "block_adaptive":
         # on the host, as in the JAX package: the fill order is ranked from
         # the restored original, so the maps come first
-        diff = cont.diff(stego.dtype)
-        if diff is None:
-            raise ValueError(
-                "block_adaptive extraction requires the XOR location maps"
-            )
+        with stage("restore"):
+            diff = cont.diff(stego.dtype)
+            if diff is None:
+                raise ValueError(
+                    "block_adaptive extraction requires the XOR location maps"
+                )
+            original = stego ^ diff
         block = container_io.parse_block_ext(meta.ext)
-        original = stego ^ diff
         with stage("extract"):
-            counts = host_extract.block_counts_host(original, meta.s, block)
-            rankings = [
-                block_ops.ranking_from_counts(counts[p], h, w, block)
-                for p in range(meta.s)
-            ]
+            with stage("block_rank"):
+                counts = host_extract.block_counts_host(original, meta.s, block)
+                rankings = [
+                    block_ops.ranking_from_counts(counts[p], h, w, block)
+                    for p in range(meta.s)
+                ]
+            _count_block_fill(meta.s, counts.shape[1] * counts.shape[2],
+                              lengths, n)
             bits = host_extract.extract_block_host(
                 stego, rankings, lengths, offsets, meta.s, block, out_len,
             )[: meta.payload_bits]
