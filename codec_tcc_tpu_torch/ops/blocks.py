@@ -1,5 +1,6 @@
 # Port of codec_tcc_tpu/ops/blocks.py: the tile popcounts in torch on the
-# image's device; the exact host ranking below them is the same code.
+# image's device; the exact host ranking below them is the same code. The
+# port adds block_bases_from_counts, the base table as array operations.
 """Block texture statistics: device popcounts + exact host ranking.
 
 The reference scores ``block_size^2`` tiles of a bit plane by ``np.var``
@@ -25,6 +26,7 @@ __all__ = [
     "ranking_from_counts",
     "best_offset_from_counts",
     "block_base_offsets",
+    "block_bases_from_counts",
 ]
 
 
@@ -139,3 +141,28 @@ def block_base_offsets(
         base[t] = acc
         acc += int(sizes[t])
     return base, ranking
+
+
+def block_bases_from_counts(
+    counts: np.ndarray, h: int, w: int, block: int
+) -> np.ndarray:
+    """:func:`block_base_offsets`' ``base`` without a per-tile loop:
+    ``(ntiles,) int64`` indexed by raster tile id. The ranking is the same
+    stable sort of the same exact keys, kept as an array; each ranked
+    tile's base is the sum of the sizes of the tiles ranked before it."""
+    keys = _int_keys(counts, h, w, block)
+    if isinstance(keys, np.ndarray):
+        neg = -keys
+        if neg.size and neg.min() >= -(1 << 15):
+            # the same values, so the same stable order; NumPy sorts 16-bit
+            # integers stably by radix (block 8's keys are at most 1024)
+            neg = neg.astype(np.int16)
+        ranking = np.argsort(neg, kind="stable")
+    else:
+        ranking = np.asarray(ranking_from_counts(counts, h, w, block),
+                             dtype=np.int64)
+    bh, bw = _tile_dims(h, w, block)
+    sizes = (bh * bw).ravel().astype(np.int64)[ranking]
+    base = np.empty(sizes.size, dtype=np.int64)
+    base[ranking] = np.cumsum(sizes) - sizes
+    return base

@@ -24,8 +24,9 @@ Strategy ``block_adaptive`` (:func:`embed_block_adaptive`,
 :func:`extract_block_message_device`) fills each plane's window in
 variance-ranked tile order instead of raster order. The JAX package runs it
 as XLA one-hot matmuls, not as a Pallas kernel, so here it is torch ops;
-the encoder runs the embed on the device, the decoder extracts on the host
-(:mod:`.host_extract`), as the JAX package does.
+the single-image encoder and decoder run the embed and the extract on the
+device (the batch decode extracts on the host, :mod:`.host_extract`, as the
+JAX package does).
 """
 
 from __future__ import annotations

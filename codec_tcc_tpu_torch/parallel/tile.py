@@ -584,8 +584,9 @@ def _decode_block_tiled(
     original = stego ^ diff
     block = container_io.parse_block_ext(meta.ext)
 
-    # bases from the restored original — the SAME helper the encoder and
-    # single-image decoder use, so the ranking can never drift
+    # bases from the restored original: pipeline._block_bases, the helper
+    # that encode_array and decode_container rank with, so the three
+    # routes fill in one order
     bases = _block_bases(
         upload(original, mesh.axis_devices(axis)[0]),
         kernel_bits, meta.s, block, h, w,

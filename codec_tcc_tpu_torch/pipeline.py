@@ -13,14 +13,15 @@ and the STGC container stay host code. Decode inflates the stego on the
 host, uploads it, extracts the payload bits with kernel K2 and restores the
 original from the container's maps on the host.
 
-Strategy ``block_adaptive`` encodes on the device in torch ops (tile
-popcounts, the variance-ranked embed, the packed maps) and decodes on the
-host (:mod:`.ops.host_extract`), as the JAX package does. The host embed
-route (``device_policy="host"``, or ``"auto"`` with
-``compute_metrics=False``; ``EncodeConfig.resolve_host_route``) places a
-raster payload with numpy windows (:mod:`.ops.host_embed`) and never
-uploads the image. Strategy ``pee`` dispatches early to
-:mod:`.models.pee` (kernels K3/K4).
+Strategy ``block_adaptive`` runs in torch ops on the device both ways
+(tile popcounts, the variance-ranked embed and extract, the packed maps);
+the exact tile ranking and its base table are host array operations, and
+the decode restores the original on the host first, since the fill order
+is ranked from it. The host embed route (``device_policy="host"``, or
+``"auto"`` with ``compute_metrics=False``;
+``EncodeConfig.resolve_host_route``) places a raster payload with numpy
+windows (:mod:`.ops.host_embed`) and never uploads the image. Strategy
+``pee`` dispatches early to :mod:`.models.pee` (kernels K3/K4).
 
 Containers are byte-identical to the JAX package's for every strategy
 (``hybrid``, ``multi_plane``, ``block_adaptive``, ``pee``), every transport
@@ -51,7 +52,6 @@ from .ops import blocks as block_ops
 from .ops import decompose as decompose_ops
 from .ops import deflate_rle
 from .ops import embed as embed_ops
-from .ops import host_extract
 from .ops import metrics as metric_ops
 from .ops import raster_kernels
 from .ops import segments as segment_ops
@@ -130,13 +130,13 @@ def _block_bases(
 ) -> np.ndarray:
     """``(nbits, ntiles) int32`` tile bases of the block fill order: the
     tile popcounts of planes ``0..s-1`` on the image's device, ranked on the
-    host; rows at and past ``s`` are zero."""
+    host; rows at and past ``s`` are zero. The encode ranks the image, the
+    decode the restored original, so both fill in one order."""
     ntiles = (-(-h // block)) * (-(-w // block))
     base = np.zeros((nbits, ntiles), dtype=np.int32)
     counts = download(block_ops.block_bit_counts_all(image, s, block))
     for p in range(s):
-        b, _ = block_ops.block_base_offsets(counts[p], h, w, block)
-        base[p] = b
+        base[p] = block_ops.block_bases_from_counts(counts[p], h, w, block)
     return base
 
 
@@ -529,8 +529,9 @@ def decode_container(
     out_len = max(int(meta.payload_bits), 1)
 
     if meta.strategy == "block_adaptive":
-        # on the host, as in the JAX package: the fill order is ranked from
-        # the restored original, so the maps come first
+        # the fill order is ranked from the restored original, so the maps
+        # come first; the bits are then read on the device through the same
+        # base table the encode wrote through
         with stage("restore"):
             diff = cont.diff(stego.dtype)
             if diff is None:
@@ -541,16 +542,15 @@ def decode_container(
         block = container_io.parse_block_ext(meta.ext)
         with stage("extract"):
             with stage("block_rank"):
-                counts = host_extract.block_counts_host(original, meta.s, block)
-                rankings = [
-                    block_ops.ranking_from_counts(counts[p], h, w, block)
-                    for p in range(meta.s)
-                ]
-            _count_block_fill(meta.s, counts.shape[1] * counts.shape[2],
-                              lengths, n)
-            bits = host_extract.extract_block_host(
-                stego, rankings, lengths, offsets, meta.s, block, out_len,
-            )[: meta.payload_bits]
+                bases = _block_bases(upload(original, dev), kernel_bits,
+                                     meta.s, block, h, w)
+            _count_block_fill(meta.s, bases.shape[1], lengths, n)
+            if dev.type == "cuda":
+                count("block.decode_device")
+            bits = download(embed_ops.extract_block_message_device(
+                upload(stego, dev), bases, lengths, offsets, meta.s,
+                kernel_bits, block, out_len,
+            ))[: meta.payload_bits]
         return DecodeResult(
             bits, stego, meta, original if restore_original else None
         )

@@ -16,8 +16,9 @@
 * ``count(name, n)`` / ``counters()`` — the process-global counter
   registry: ``launch.<kernel>`` per kernel launch, ``h2d_bytes`` and
   ``d2h_bytes`` per copy (:mod:`.device` counts them), ``spans_dropped``,
-  and per block fill ``block.tiles_ranked`` and ``block.bits_placed``
-  (:mod:`.pipeline`);
+  per block fill ``block.tiles_ranked`` and ``block.bits_placed``, and
+  ``block.decode_device`` per single-image block decode whose fill runs on
+  a CUDA device (:mod:`.pipeline`);
 * ``Profiler`` — per-name wall, self time, calls and copy bytes, always
   on; ``reset()`` zeroes them with the counters and the span log;
 * ``trace_to(dir)`` — captures a ``torch.profiler`` trace (CPU, and CUDA

@@ -17,6 +17,9 @@ from codec_tcc_tpu.ops import embed as jax_embed
 from codec_tcc_tpu.ops import host_embed as jax_host_embed
 from codec_tcc_tpu.ops import host_extract as jax_host_extract
 from codec_tcc_tpu.parallel import batch as jax_batch
+from codec_tcc_tpu_torch import pipeline
+from codec_tcc_tpu_torch.io import container as container_io
+from codec_tcc_tpu_torch.io.codecs import get as get_codec
 from codec_tcc_tpu_torch.ops import blocks as block_ops
 from codec_tcc_tpu_torch.ops import embed as torch_embed
 from codec_tcc_tpu_torch.ops import host_embed as torch_host_embed
@@ -236,3 +239,125 @@ def test_block_embed_then_device_extract_round_trips(h, w, block, dtype):
     got = torch_embed.extract_block_message_device(
         stego, base, pp.lengths, pp.offsets, s, nbits, block, total)
     np.testing.assert_array_equal(got.numpy(), msg)
+
+
+@pytest.mark.parametrize("h,w,block,dtype,s", GRID)
+def test_block_bases_from_counts_equals_block_base_offsets(h, w, block, dtype,
+                                                           s):
+    """The loop-free base table equals ``block_base_offsets`` row for row
+    (edge tiles, block 12 and a tile larger than the image among the
+    geometries), and the pipeline's table is built from it."""
+    rng = np.random.default_rng(11 * h * w + s)
+    img = _image(rng, h, w, dtype)
+    counts = torch_host_extract.block_counts_host(img, max(s, 1), block)
+    for p in range(counts.shape[0]):
+        got = block_ops.block_bases_from_counts(counts[p], h, w, block)
+        want, _ = block_ops.block_base_offsets(counts[p], h, w, block)
+        assert got.dtype == np.int64
+        np.testing.assert_array_equal(got, want, err_msg=f"plane {p}")
+    nbits = _plane_bucket(s, 8 * np.dtype(dtype).itemsize)
+    got = pipeline._block_bases(torch.from_numpy(img), nbits, s, block, h, w)
+    np.testing.assert_array_equal(got, _bases(img, nbits, s, block)[0])
+
+
+# (h, w, block) whose exact keys take each of _int_keys' three forms: raw
+# products too wide for the 16-bit sort (block 32), the lcm-scaled int64
+# products (edge tiles at block 32), and Python ints (blocks of 100 with
+# coprime edges: the squared lcm overflows int64)
+KEY_FORMS = {"raw_int64": (96, 64, 32), "lcm_int64": (70, 45, 32),
+             "python_ints": (197, 193, 100)}
+
+
+@pytest.mark.parametrize("form", sorted(KEY_FORMS))
+def test_block_bases_from_counts_on_each_key_form(form):
+    h, w, block = KEY_FORMS[form]
+    bh, bw = block_ops._tile_dims(h, w, block)
+    k = bh * bw
+    rng = np.random.default_rng(len(form))
+    for counts in (rng.integers(0, k + 1), k // 2, k - k // 3):
+        counts = np.broadcast_to(counts, k.shape).astype(np.int32)
+        keys = block_ops._int_keys(counts, h, w, block)
+        assert isinstance(keys, list) == (form == "python_ints")
+        if form != "python_ints":
+            assert int(np.max(keys)) >= 1 << 15
+        got = block_ops.block_bases_from_counts(counts, h, w, block)
+        want, _ = block_ops.block_base_offsets(counts, h, w, block)
+        np.testing.assert_array_equal(got, want)
+
+
+def _block_container(original, stego, s, payload_bits, block):
+    """A v2 block_adaptive container of ``stego`` with the XOR maps back to
+    ``original`` and the encoder's segment plan for ``payload_bits``
+    (packed maps where ``H*W`` packs)."""
+    h, w = stego.shape
+    n = h * w
+    nbits = _plane_bucket(s, 8 * stego.dtype.itemsize)
+    if s:
+        plan = segment_ops.distribute_segments(s, payload_bits, 42)
+        pp = segment_ops.raster_plane_plan(plan, n, nbits, 0, True)
+        sizes, indices = tuple(plan.sizes), tuple(plan.indices)
+        lengths = tuple(int(v) for v in pp.lengths[:s])
+    else:
+        sizes = indices = lengths = ()
+    maps = pipeline._host_xor_maps(original, stego, s).reshape(s, n)
+    packed = n % 8 == 0
+    maps_blob = (
+        container_io.compress_bitmaps_packed(np.packbits(maps, axis=1))
+        if packed else container_io.compress_bitmaps(maps))
+    meta = container_io.ContainerMeta(
+        version=2, codec="deflate", strategy="block_adaptive", s=s,
+        nbits=8 * stego.dtype.itemsize, bits_stored=8 * stego.dtype.itemsize,
+        dtype=stego.dtype, width=w, height=h, start_offset=0, seed=42,
+        payload_bits=payload_bits, align_across_planes=True,
+        has_bitmaps=True, bitmaps_packed=packed, sizes=sizes,
+        indices=indices, eff_lengths=lengths, plane_starts=(0,) * s,
+        ext=container_io.pack_block_ext(block))
+    return container_io.pack(meta, maps_blob,
+                             get_codec("deflate").encode(stego))
+
+
+@pytest.mark.parametrize("h,w,block,dtype,s", GRID)
+def test_decode_container_equals_extract_block_host(monkeypatch, h, w, block,
+                                                    dtype, s):
+    """``decode_container`` on the CPU reads a block container's payload
+    through the base table and the device extract: the same bits as
+    ``extract_block_host`` over ``ranking_from_counts`` of the restored
+    original, at the three ``OUT_LEN`` lengths, and with a plane past ``s``
+    given a nonzero length over an earlier plane's window."""
+    rng = np.random.default_rng(13 * h * w + s)
+    original = _image(rng, h, w, dtype)
+    flips = rng.integers(0, 1 << s, (h, w)) if s else 0
+    stego = (original ^ flips).astype(dtype)
+    nbits = _plane_bucket(s, 8 * np.dtype(dtype).itemsize)
+    real_plan = pipeline._plane_plan_from_meta
+    for past_s in (False, True):
+        def plan(meta, n, kernel_bits):
+            starts, lengths, offsets = real_plan(meta, n, kernel_bits)
+            if past_s and s < kernel_bits:
+                lengths[s], offsets[s] = n, 3
+            return starts, lengths, offsets
+
+        monkeypatch.setattr(pipeline, "_plane_plan_from_meta", plan)
+        for out_len in sorted(set(OUT_LEN.values())):
+            blob = _block_container(original, stego, s, out_len, block)
+            if s == 0 and (h * w) % 8:
+                # raw maps of no plane do not parse (Container.diff, the
+                # JAX package's code), on any route
+                with pytest.raises(ValueError, match="reshape"):
+                    pipeline.decode_container(blob, device="cpu")
+                continue
+            dec = pipeline.decode_container(blob, device="cpu")
+            meta = container_io.parse(blob).meta
+            _, lengths, offsets = plan(meta, h * w, nbits)
+            if past_s and s < nbits:
+                assert lengths[s] > 0
+            counts = torch_host_extract.block_counts_host(original, s, block)
+            rankings = [block_ops.ranking_from_counts(counts[p], h, w, block)
+                        for p in range(s)]
+            want = torch_host_extract.extract_block_host(
+                stego, rankings, lengths, offsets, s, block, out_len)
+            what = f"past_s={past_s} out_len={out_len}"
+            np.testing.assert_array_equal(dec.payload_bits, want,
+                                          err_msg=what)
+            np.testing.assert_array_equal(dec.original, original,
+                                          err_msg=what)

@@ -85,6 +85,26 @@ def test_reverse_raster_ties_are_caught(monkeypatch):
     assert out["stego_px"] > 0 or out["payload_bits"] > 0, out
 
 
+def test_block_decode_with_a_payload_bit_altered_is_caught(monkeypatch):
+    """The decode reads the payload through ``extract_block_message_device``;
+    a bit flipped there is a payload bit the judge counts."""
+    from codec_tcc_tpu_torch.ops import embed as embed_ops
+
+    real = embed_ops.extract_block_message_device
+
+    def flipped(*a, **k):
+        bits = real(*a, **k).clone()
+        bits[0] ^= 1
+        return bits
+
+    monkeypatch.setattr(embed_ops, "extract_block_message_device", flipped)
+    img = generator.images(64, 64, "uint16", 12, 1, 2**31 + 64)[0]
+    cfg = _cfg("uint16", 8)
+    out = _judge(img, _payload(img, cfg, "half"), cfg)
+    assert out["payload_bits"] > 0, out
+    assert out["stego_px"] == 0 and out["restored_px"] == 0, out
+
+
 def test_spans_and_counters_of_the_block_fill():
     img = generator.images(64, 64, "uint16", 12, 1, 2**31 + 7)[0]
     cfg = _cfg("uint16", 8)

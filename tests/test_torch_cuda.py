@@ -444,7 +444,7 @@ def test_gpu_pee_batch_equals_cpu_batch(cuda):
 
 def test_gpu_block_encode_equals_cpu_encode(cuda):
     """block_adaptive on the card: the CPU's container, no kernel launched
-    (its device work is torch ops), decoded on the host."""
+    (its device work is torch ops), decoded on the card."""
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
 
     rng = np.random.default_rng(3)
@@ -501,6 +501,44 @@ def test_gpu_block_extract_equals_host_extract(cuda, h, w, block, dtype):
     got = embed_ops.extract_block_message_device(
         stego, base, pp.lengths, pp.offsets, s, nbits, block, total)
     np.testing.assert_array_equal(got.cpu().numpy(), msg)
+
+
+def test_gpu_block_decode_2048_equals_host_twin(cuda):
+    """A 2048x2048 u16 container of 3 Mbit, encoded by ``encode_array`` on
+    the card, decodes there through the base table: the payload and the
+    original of the host twin (``extract_block_host`` over
+    ``ranking_from_counts`` of the restored original), and one
+    ``block.decode_device`` per decode."""
+    from codec_tcc_tpu_torch import pipeline
+    from codec_tcc_tpu_torch.io import container as container_io
+    from codec_tcc_tpu_torch.ops import blocks as block_ops
+    from codec_tcc_tpu_torch.ops import host_extract
+
+    rng = np.random.default_rng(2048)
+    h = w = 2048
+    img = np.clip(rng.normal(2000, 300, (h, w)), 0, 4095).astype(np.uint16)
+    bits = rng.integers(0, 2, 3_000_000).astype(np.uint8)
+    cfg = port.EncodeConfig(strategy="block_adaptive")
+    res = port.encode_array(img, bits, cfg, bits_stored=12, device=cuda)
+    profiling.get_profiler().reset()
+    decs = [port.decode_container(res.container, device=cuda)
+            for _ in range(2)]
+    assert profiling.counters().get("block.decode_device") == 2
+    s, block = res.meta.s, cfg.block_size
+    _, lengths, offsets = pipeline._plane_plan_from_meta(
+        res.meta, h * w, pipeline._plane_bucket(s, 16))
+    cont = container_io.parse(res.container)
+    original = res.stego ^ cont.diff(res.stego.dtype)
+    counts = host_extract.block_counts_host(original, s, block)
+    rankings = [block_ops.ranking_from_counts(counts[p], h, w, block)
+                for p in range(s)]
+    want = host_extract.extract_block_host(
+        res.stego, rankings, lengths, offsets, s, block, bits.size)
+    np.testing.assert_array_equal(want, bits)
+    for dec in decs:
+        np.testing.assert_array_equal(dec.payload_bits, want)
+        np.testing.assert_array_equal(dec.original, img)
+    profiling.get_profiler().reset()
 
 
 def test_gpu_host_route_launches_no_k1_and_matches_fixture(cuda):
