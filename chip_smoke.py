@@ -166,8 +166,8 @@ failure exits non-zero:
 6. the launch counts of each path, set to 0 just before it and read just
    after it: the raster cases (K1 and K2 once per encode and decode), the
    PEE cases and the PEE batch (K3 twice per equal-T attempt group, K4
-   twice per decode group), the block cases (torch ops to encode, the host
-   to decode), the host-route cases (no K1, K2 once per decode), each
+   twice per decode group), the block cases (torch ops both ways, no
+   launch), the host-route cases (no K1, K2 once per decode), each
    deflate kernel once per single-image encode on the card (the raster,
    PEE and block cases, the daemon's ``deflate`` encodes; none on the host
    route and the batch, volume, tiled and other-codec paths), the golden
@@ -869,8 +869,7 @@ def phase2_block(port, dev) -> str:
         kbits = pipeline._plane_bucket(s, 8 * img.itemsize)
         _, lens, offs = pipeline._plane_plan_from_meta(meta, img.size, kbits)
         # the decoder's view: bases and rankings from the original's planes
-        bases = pipeline._block_bases(torch.from_numpy(img), kbits, s, block,
-                                      h, w)
+        bases = block_ops.block_bases(torch.from_numpy(img), s, kbits, block)
         counts = host_extract.block_counts_host(img, s, block)
         rankings = [block_ops.ranking_from_counts(counts[p], h, w, block)
                     for p in range(s)]
@@ -1108,7 +1107,8 @@ def phase3_raster_batch(port, parity, counted, launches):
     ``encode_array`` container on the card and, for the parity cases in
     the batch, to the JAX package's; ``extract_batch`` on each device batch
     (one K2 launch) gives the payloads back; ``decode_batch_containers``
-    over all of them mixed (host decode, no launch) gives the payloads and
+    over all of them mixed (raster on the host, block in torch ops: no
+    launch) gives the payloads and
     originals back. Returns (text for phase 3, the launches each path must
     make, the device batches for phase 7)."""
     import numpy as np
@@ -1271,7 +1271,7 @@ def phase3_volumes(port, vparity, counted, launches, dev, max_err):
             raster = vcase.strategy != "block_adaptive"
             expected[f"{tag}_encode"] = launches(
                 raster_embed_batch=int(raster))
-            # raster and block slices decode on the host
+            # raster slices decode on the host, block slices in torch ops
             expected[f"{tag}_unpack"] = launches()
         if vcase.strategy in ("hybrid", "multi_plane"):
             got = counted(f"{tag}_extract", lambda: pv.extract_volume(
@@ -1311,7 +1311,7 @@ def phase3_volumes(port, vparity, counted, launches, dev, max_err):
               f"payload={bits.size} bits STGV={len(blob)} B sha256 ok, "
               f"unpack ok", flush=True)
 
-    # the committed golden block_adaptive volume (host decode: no launch)
+    # the committed golden block_adaptive volume (torch ops: no launch)
     data = os.path.join(HERE, "tests", "data")
     with open(os.path.join(data, "golden_block_volume.stgv"), "rb") as f:
         golden = f.read()
@@ -1744,7 +1744,7 @@ def time_block(results, dev) -> None:
     _, lens, offs = pipeline._plane_plan_from_meta(res.meta, n, kbits)
     img_d = torch.from_numpy(img).to(dev)
     msg_d = torch.from_numpy(bits).to(dev)
-    bases = pipeline._block_bases(img_d, kbits, s, block, h, w)
+    bases = block_ops.block_bases(img_d, s, kbits, block)
     stego_d = embed_ops.embed_block_adaptive(img_d, msg_d, bases, lens, offs,
                                              s, kbits, block)
     check(torch.equal(stego_d.cpu(), torch.from_numpy(res.stego)),

@@ -1,6 +1,8 @@
 # Port of codec_tcc_tpu/ops/blocks.py: the tile popcounts in torch on the
 # image's device; the exact host ranking below them is the same code. The
-# port adds block_bases_from_counts, the base table as array operations.
+# port adds block_bases_from_counts, the base table as array operations,
+# and block_bases, the table of an image or a batch that every
+# block_adaptive route ranks with.
 """Block texture statistics: device popcounts + exact host ranking.
 
 The reference scores ``block_size^2`` tiles of a bit plane by ``np.var``
@@ -20,6 +22,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..device import download
+
 __all__ = [
     "block_bit_counts",
     "block_bit_counts_all",
@@ -27,6 +31,7 @@ __all__ = [
     "best_offset_from_counts",
     "block_base_offsets",
     "block_bases_from_counts",
+    "block_bases",
 ]
 
 
@@ -159,10 +164,41 @@ def block_bases_from_counts(
             neg = neg.astype(np.int16)
         ranking = np.argsort(neg, kind="stable")
     else:
-        ranking = np.asarray(ranking_from_counts(counts, h, w, block),
+        # Python-int keys (enormous blocks): ranking_from_counts' order, on
+        # the keys already computed
+        ranking = np.asarray(sorted(range(len(keys)),
+                                    key=lambda i: (-keys[i], i)),
                              dtype=np.int64)
     bh, bw = _tile_dims(h, w, block)
     sizes = (bh * bw).ravel().astype(np.int64)[ranking]
     base = np.empty(sizes.size, dtype=np.int64)
     base[ranking] = np.cumsum(sizes) - sizes
     return base
+
+
+def block_bases(images: torch.Tensor, s, nbits: int, block: int) -> np.ndarray:
+    """The base table of the block fill order of an image ``(H, W)`` or a
+    batch ``(B, H, W)`` on its device: ``(nbits, ntiles)`` or ``(B, nbits,
+    ntiles)`` int32 (a base is a pixel index, as in the plans' int32
+    arrays, and the table goes to the device as it is), where plane
+    ``p``'s pixel at within-tile raster position ``r`` of tile ``t`` takes
+    fill rank ``base[p, t] + r``
+    (:func:`codec_tcc_tpu_torch.ops.embed.embed_block_adaptive`).
+
+    One popcount pass over the planes below the largest cut point ``s`` (an
+    int, or one per image), then :func:`block_bases_from_counts` per (image,
+    plane < s); rows at and past each image's ``s`` are zero. The encode
+    ranks the image, the decode the restored original, so both fill in one
+    order."""
+    batch = images.ndim == 3
+    imgs = images if batch else images[None]
+    b, h, w = imgs.shape
+    s_arr = np.broadcast_to(np.asarray(s, dtype=np.int64), (b,))
+    ntiles = (-(-h // block)) * (-(-w // block))
+    bases = np.zeros((b, nbits, ntiles), dtype=np.int32)
+    counts = download(block_bit_counts_all(imgs, int(s_arr.max(initial=0)),
+                                           block))
+    for i in range(b):
+        for p in range(int(s_arr[i])):
+            bases[i, p] = block_bases_from_counts(counts[i, p], h, w, block)
+    return bases if batch else bases[0]

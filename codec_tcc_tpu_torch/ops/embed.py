@@ -23,20 +23,22 @@ on any device. ``uint16`` has no shifts in torch, so pixels are widened to
 Strategy ``block_adaptive`` (:func:`embed_block_adaptive`,
 :func:`extract_block_message_device`) fills each plane's window in
 variance-ranked tile order instead of raster order. The JAX package runs it
-as XLA one-hot matmuls, not as a Pallas kernel, so here it is torch ops;
-the single-image encoder and decoder run the embed and the extract on the
-device (the batch decode extracts on the host, :mod:`.host_extract`, as the
-JAX package does).
+as XLA one-hot matmuls, not as a Pallas kernel, so here it is torch ops.
+Every route (single image, container batch, volume, tiled) ranks through
+:func:`rank_block_fill`, embeds through :func:`embed_block_adaptive` and
+decodes through :func:`extract_block_message`, on the device.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Sequence
 
 import numpy as np
 import torch
 
 from ..device import to_device
+from ..profiling import count, stage
+from . import blocks as block_ops
 
 __all__ = [
     "embed",
@@ -45,8 +47,11 @@ __all__ = [
     "assemble_message_device",
     "extract_message_device",
     "embed_block_adaptive",
+    "embed_block_batch",
+    "rank_block_fill",
     "extract_block_aligned",
     "extract_block_message_device",
+    "extract_block_message",
     "xor_maps_packed_batch",
     "pack_bits_batch",
     "restore_original",
@@ -227,25 +232,28 @@ def restore_original(
     return (stego.to(torch.int32) ^ diff).to(stego.dtype)
 
 
-def _block_fill_rank(
-    h: int, w: int, block: int, device: torch.device
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Tile id and within-tile raster rank of every pixel, ``(N,) int64``
-    each, in raster order. A plane with per-tile base offsets ``base``
-    (:func:`codec_tcc_tpu_torch.ops.blocks.block_base_offsets`) fills pixel
-    ``i`` at rank ``base[tile[i]] + r[i]``: tiles in variance order, raster
-    within a tile. Edge tiles are narrower (``bw_real = min(block, w -
-    x0)``), so ``r`` counts within the tile's real width."""
-    y = torch.arange(h, dtype=torch.int64, device=device)[:, None]
-    x = torch.arange(w, dtype=torch.int64, device=device)[None, :]
+def _block_fill_rank(base, seg_len, s, nbits, h, w, block, row0=0):
+    """Yield ``(p, rank)`` for each plane ``p < s`` with a nonempty window:
+    ``rank`` is the ``(h*w,) int64`` fill rank of every pixel of rows
+    ``row0 .. row0+h-1`` of an image ``w`` wide, in raster order. Pixel
+    ``i`` of tile ``t`` at within-tile raster position ``r`` fills at rank
+    ``base[p][t] + r``: tiles in variance order, raster within a tile. Edge
+    tiles are narrower (``bw_real = min(block, w - x0)``), so ``r`` counts
+    within the tile's real width. ``base`` is the ``(nbits, ntiles)`` table
+    of :func:`codec_tcc_tpu_torch.ops.blocks.block_bases` on the device."""
+    dev = base.device
+    y = torch.arange(row0, row0 + h, dtype=torch.int64, device=dev)[:, None]
+    x = torch.arange(w, dtype=torch.int64, device=dev)[None, :]
     nw = -(-w // block)
     ty = y // block
     tx = x // block
     x0 = tx * block
     bw_real = torch.clamp(w - x0, max=block)
-    tile = ty * nw + tx
-    r = (y - ty * block) * bw_real + (x - x0)
-    return tile.reshape(-1), r.reshape(-1)
+    tile = (ty * nw + tx).reshape(-1)
+    r = ((y - ty * block) * bw_real + (x - x0)).reshape(-1)
+    for p in range(min(s, nbits)):
+        if int(seg_len[p]) > 0:
+            yield p, base[p][tile] + r
 
 
 def _base_table(base_offsets, device: torch.device) -> torch.Tensor:
@@ -254,7 +262,7 @@ def _base_table(base_offsets, device: torch.device) -> torch.Tensor:
 
 
 def embed_block_adaptive(
-    image: torch.Tensor,          # (H, W) uint8/uint16
+    image: torch.Tensor,          # (H, W) uint8/uint16, or a band of rows
     msg_bits: torch.Tensor,       # (L,) uint8 0/1 on the image's device
     base_offsets,                 # (nbits, ntiles) per-plane tile bases
     seg_len: Sequence[int],       # (nbits,) embedded bits per plane
@@ -262,6 +270,7 @@ def embed_block_adaptive(
     s: int,                       # runtime cut point
     nbits: int,
     block: int,
+    row0: int = 0,                # global row of a band's first row
 ) -> torch.Tensor:
     """Strategy ``block_adaptive``: variance-ranked block fill, bit-exact
     with the JAX package's ``embed_block_adaptive``.
@@ -270,30 +279,66 @@ def embed_block_adaptive(
     fill rank ``rank = base_p[tile] + r`` below ``len_p`` gets bit ``p`` set
     to ``msg[off_p + rank]``; bits past ``L`` read as 0. The JAX package
     has two routes for this function (a one-hot matmul permutation for
-    uniform tilings and a clipped gather for edge tiles); on a message
+    uniform tilings and a clipped gather for edge tilings); on a message
     padded by :func:`pad_message` both equal this one. The only indexed
-    reads are of the int64 base table and of the message."""
+    reads are of the int64 base table and of the message. A band of the
+    image's rows from global row ``row0`` embeds on its own: a pixel's
+    rank depends only on its own tile's base."""
     h, w = image.shape
     n = h * w
     dev = image.device
-    tile, r = _block_fill_rank(h, w, block, dev)
     base = _base_table(base_offsets, dev)
     acc = image.reshape(n).to(torch.int32)
     msg = msg_bits.to(device=dev, dtype=torch.int32)
     L = msg.numel()
-    for p in range(nbits):
-        ln = int(seg_len[p])
-        if p >= s or ln <= 0:
-            continue                      # no pixel of the plane is active
-        rank = base[p][tile] + r
+    for p, rank in _block_fill_rank(base, seg_len, s, nbits, h, w, block,
+                                    row0):
         idx = int(msg_off[p]) + rank
         if L:
             bits = torch.where(idx < L, msg[idx.clamp(0, L - 1)], 0)
         else:
             bits = torch.zeros_like(acc)
         newv = (acc & ~(1 << p)) | (bits << p)
-        acc = torch.where(rank < ln, newv, acc)
+        acc = torch.where(rank < int(seg_len[p]), newv, acc)
     return acc.to(image.dtype).reshape(h, w)
+
+
+def rank_block_fill(images, s, seg_len, nbits: int, block: int,
+                    device: torch.device) -> np.ndarray:
+    """The base table of the block fill of an image or a batch (a host
+    array or a tensor), ranked on ``device`` inside the span
+    ``block_rank`` (:func:`codec_tcc_tpu_torch.ops.blocks.block_bases`;
+    ``s`` and ``seg_len`` per image for a batch), and the fill's counters
+    for each image: ``block.tiles_ranked`` the tiles of its ``s`` ranked
+    planes, ``block.bits_placed`` the payload bits their windows hold. The
+    encode ranks the image, the decode the restored original."""
+    with stage("block_rank"):
+        bases = block_ops.block_bases(to_device(images, device), s, nbits,
+                                      block)
+    n = images.shape[-2] * images.shape[-1]
+    s_all = np.atleast_1d(s)
+    for s_i, len_i in zip(s_all, np.reshape(seg_len, (s_all.size, -1))):
+        count("block.tiles_ranked", int(s_i) * bases.shape[-1])
+        count("block.bits_placed",
+              sum(min(int(len_i[p]), n) for p in range(int(s_i))))
+    return bases
+
+
+def embed_block_batch(images: torch.Tensor, msgs, seg_len, msg_off, s,
+                      nbits: int, block: int) -> torch.Tensor:
+    """``(B, H, W)`` stegos of the block fill of a batch on its device (the
+    container batch's shards and the volume's slices): one base table for
+    the batch (:func:`rank_block_fill`), then :func:`embed_block_adaptive`
+    per image with its row of ``msgs``, ``seg_len``, ``msg_off`` and
+    ``s``."""
+    dev = images.device
+    bases = rank_block_fill(images, s, seg_len, nbits, block, dev)
+    msgs = to_device(msgs, dev)
+    return torch.stack([
+        embed_block_adaptive(images[i], msgs[i], bases[i], seg_len[i],
+                             msg_off[i], int(s[i]), nbits, block)
+        for i in range(images.shape[0])
+    ])
 
 
 def extract_block_aligned(
@@ -311,24 +356,20 @@ def extract_block_aligned(
 
     Each plane's bits are scattered to their fill ranks. The base rows of
     the planes below ``s`` must come from
-    :func:`~codec_tcc_tpu_torch.ops.blocks.block_base_offsets` over the
-    restored original's planes, so that the ranks are a permutation of
-    ``0..N-1``, as the encoder's were."""
+    :func:`~codec_tcc_tpu_torch.ops.blocks.block_bases` over the restored
+    original, so that the ranks are a permutation of ``0..N-1``, as the
+    encoder's were."""
     h, w = stego.shape
     n = h * w
     dev = stego.device
     flat = stego.reshape(n).to(torch.int32)
-    tile, r = _block_fill_rank(h, w, block, dev)
     base = _base_table(base_offsets, dev)
     iota = torch.arange(n, dtype=torch.int64, device=dev)
     rows = torch.zeros((nbits, n), dtype=torch.uint8, device=dev)
-    for p in range(nbits):
-        ln = int(seg_len[p])
-        if p >= s or ln <= 0:
-            continue                      # masked: the row stays zero
+    for p, rank in _block_fill_rank(base, seg_len, s, nbits, h, w, block):
         fill = torch.empty(n, dtype=torch.uint8, device=dev)
-        fill[base[p][tile] + r] = ((flat >> p) & 1).to(torch.uint8)
-        rows[p] = torch.where(iota < ln, fill, 0)
+        fill[rank] = ((flat >> p) & 1).to(torch.uint8)
+        rows[p] = torch.where(iota < int(seg_len[p]), fill, 0)
     return rows
 
 
@@ -350,6 +391,22 @@ def extract_block_message_device(
     aligned = extract_block_aligned(stego, base_offsets, seg_len, s, nbits,
                                     block)
     return assemble_message_device(aligned, msg_off, seg_len, out_len)
+
+
+def extract_block_message(stego, original, seg_len, msg_off, s: int,
+                          nbits: int, block: int, out_len: int,
+                          device: torch.device) -> torch.Tensor:
+    """The ``(out_len,)`` payload bits of a block_adaptive stego (a host
+    array or a tensor) on ``device``: the restored ``original`` ranked
+    there (:func:`rank_block_fill`), then
+    :func:`extract_block_message_device` through that base table. Every
+    block decode route reads its payload through this function."""
+    bases = rank_block_fill(original, s, seg_len, nbits, block, device)
+    if device.type == "cuda":
+        count("block.decode_device")
+    return extract_block_message_device(
+        to_device(stego, device), bases, seg_len, msg_off, s, nbits, block,
+        out_len)
 
 
 def pad_message(msg_bits, n_pixels: int, max_offset: int):

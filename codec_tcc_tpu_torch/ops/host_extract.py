@@ -10,9 +10,12 @@ is a handful of numpy slice gathers.
 These functions compute exactly what the device formulations in
 :mod:`codec_tcc_tpu_torch.ops.embed` compute (same window clamps, same
 later-plane-overwrites-earlier assembly as ``assemble_message_device``).
-The port decodes ``block_adaptive`` containers with
-:func:`extract_block_host`, as the JAX package does; ``chip_smoke.py`` and
-``tests/test_torch_block.py`` hold the device block extract against it.
+The batch decode of raster containers runs :func:`extract_raster_host`.
+No route of the port calls the block functions: every ``block_adaptive``
+decode reads its payload on the device
+(:func:`codec_tcc_tpu_torch.ops.embed.extract_block_message`), and
+``chip_smoke.py`` and the tests hold the device block extract against
+:func:`extract_block_host`.
 """
 
 from __future__ import annotations

@@ -1,15 +1,16 @@
 # Port of codec_tcc_tpu/parallel/batch.py on one device. The same code:
 # BatchPlan, plan_batch, _msg_prefix, hybrid_base_offsets_host,
-# BatchEncodeResult, _pack_batch_result, _group_decode_stegos,
-# _decode_block_group and _decode_raster_group. Torch: batched_histograms,
-# encode_batch, extract_aligned_batch, extract_batch, the block batch
-# (_batch_block_bases, _block_embed_batch, _block_extract_batch; the
-# popcounts are ops.blocks.block_bit_counts_all over the batch),
-# _batch_quality_reports, hybrid_base_offsets,
-# encode_batch_containers and decode_batch_containers. The JAX package's
-# kernel tiers (_pick_pallas_backend, the packed and preplaced layouts) are
-# one kernel here: K1 raster_embed_batch and K2 raster_extract_batch, one
-# launch per batch, or per `dp` shard of a mesh (mesh.dp_shards).
+# BatchEncodeResult, _pack_batch_result, _group_decode_stegos and
+# _decode_raster_group. Torch: batched_histograms, encode_batch,
+# extract_aligned_batch, extract_batch, _batch_quality_reports,
+# hybrid_base_offsets, encode_batch_containers and decode_batch_containers;
+# the block batch embeds through ops.embed.embed_block_batch, and
+# _decode_block_group decodes each block container on the device through
+# pipeline._decode_block, where the JAX package extracts on the host. The
+# JAX package's kernel tiers (_pick_pallas_backend, the packed and
+# preplaced layouts) are one kernel here: K1 raster_embed_batch and K2
+# raster_extract_batch, one launch per batch, or per `dp` shard of a mesh
+# (mesh.dp_shards).
 """Batched raster encode/extract and the container-level batch pipeline.
 
 A batch of images is a ``(B, H, W)`` array of one geometry and dtype. Per-
@@ -204,55 +205,6 @@ def plan_batch(
     )
 
 
-def _batch_block_bases(
-    imgs_dev, nbits: int, s_arr: np.ndarray, block: int, h: int, w: int
-) -> np.ndarray:
-    """Per-image, per-plane variance-ranked tile base offsets for the
-    block_adaptive batch: one popcount pass over every (image, plane) on
-    the device, then the exact integer-key host ranking per plane. Rows for
-    planes >= s_i stay zero (their segment lengths are zero)."""
-    from ..ops import blocks as block_ops
-
-    b = imgs_dev.shape[0]
-    max_s = max(int(s_arr.max(initial=1)), 1)
-    counts = download(block_ops.block_bit_counts_all(imgs_dev, max_s,
-                                                     block))
-    ntiles = (-(-h // block)) * (-(-w // block))
-    bases = np.zeros((b, nbits, ntiles), dtype=np.int32)
-    for i in range(b):
-        for p in range(int(s_arr[i])):
-            bases[i, p] = block_ops.block_base_offsets(
-                counts[i, p], h, w, block
-            )[0]
-    return bases
-
-
-def _block_embed_batch(imgs, msgs, bases, lengths, offsets, s, nbits: int,
-                       block: int) -> torch.Tensor:
-    """The variance-ranked block embed of every image of the batch, on its
-    device: :func:`..ops.embed.embed_block_adaptive` per image."""
-    return torch.stack([
-        embed_ops.embed_block_adaptive(
-            imgs[i], msgs[i], bases[i], lengths[i], offsets[i], int(s[i]),
-            nbits, block,
-        )
-        for i in range(imgs.shape[0])
-    ])
-
-
-def _block_extract_batch(stegos, bases, lengths, offsets, s, nbits: int,
-                         block: int, out_len: int) -> torch.Tensor:
-    """``(B, out_len)`` payload bits of a block_adaptive batch on its
-    device: :func:`..ops.embed.extract_block_message_device` per image."""
-    return torch.stack([
-        embed_ops.extract_block_message_device(
-            stegos[i], bases[i], lengths[i], offsets[i], int(s[i]), nbits,
-            block, out_len,
-        )
-        for i in range(stegos.shape[0])
-    ])
-
-
 def _msg_prefix(plan: "BatchPlan") -> np.ndarray:
     """Payload-covering prefix of ``plan.msgs``: ``plan.msgs`` carries +N
     window slack, but the kernels read message bits past a row's end as 0,
@@ -284,22 +236,6 @@ def _raster_embed_shard(imgs_dev, msgs: np.ndarray, plan: BatchPlan,
         return raster_kernels.raster_embed_batch(
             imgs_dev, to_device(msgs[rows], dev), plan.starts[rows],
             plan.lengths[rows], plan.offsets[rows], plan.s[rows], **kwargs,
-        )
-
-
-def _block_embed_shard(imgs_dev, msgs: np.ndarray, plan: BatchPlan,
-                       rows: slice, block: int) -> torch.Tensor:
-    """The block batch over one shard's images on their device:
-    variance-ranked tile bases (one popcount pass + exact host ranking),
-    then the block embed per image."""
-    dev = imgs_dev.device
-    h, w = imgs_dev.shape[1:]
-    with device_guard(dev):
-        bases = _batch_block_bases(imgs_dev, plan.nbits, plan.s[rows],
-                                   block, h, w)
-        return _block_embed_batch(
-            imgs_dev, to_device(msgs[rows], dev), bases, plan.lengths[rows],
-            plan.offsets[rows], plan.s[rows], plan.nbits, block,
         )
 
 
@@ -607,8 +543,10 @@ def encode_batch_containers(
         for k, (_, rows) in enumerate(shards):
             if config.strategy == "block_adaptive":
                 # variance-ranked placement per image of the shard
-                stego_dev.append(_block_embed_shard(
-                    imgs_dev[k], msgs, plan, rows, config.block_size))
+                stego_dev.append(embed_ops.embed_block_batch(
+                    imgs_dev[k], msgs[rows], plan.lengths[rows],
+                    plan.offsets[rows], plan.s[rows], plan.nbits,
+                    config.block_size))
             else:
                 # K1: every stego of the shard and, where the geometry
                 # packs, its maps over the batch's max_s planes, in one
@@ -744,16 +682,18 @@ def decode_batch_containers(
 ) -> List:
     """Batched decode: containers group by ``(geometry, dtype, codec,
     version, strategy)``. PEE groups decode through
-    :func:`.batch_pee.decode_pee_batch` (K4); raster and block_adaptive
-    groups on the host, as in the JAX package (the stego batch is
-    host-resident straight out of the transport codec, and only payload
-    bits would come back from the device); every transport codec. Other
-    groups (v1, bitmap-less block_adaptive) go through
-    ``pipeline.decode_container`` per item, which raises what the
-    single-image decoder raises. Returns ``pipeline.DecodeResult`` objects
-    in input order. With a ``mesh``, the device work runs on its first
-    ``dp`` device: the JAX package passes the PEE and per-item decoders no
-    mesh, and its raster groups run here on the host."""
+    :func:`.batch_pee.decode_pee_batch` (K4); raster groups on the host,
+    as in the JAX package (the stego batch is host-resident straight out
+    of the transport codec, and only payload bits would come back from the
+    device); block_adaptive groups on the device, each container through
+    the single-image decoder's block decode (the JAX package extracts them
+    on the host); every transport codec. Other groups (v1, bitmap-less
+    block_adaptive) go through ``pipeline.decode_container`` per item,
+    which raises what the single-image decoder raises. Returns
+    ``pipeline.DecodeResult`` objects in input order. With a ``mesh``, the
+    device work runs on its first ``dp`` device: the JAX package passes the
+    PEE and per-item decoders no mesh, and its raster groups run here on
+    the host."""
     from ..io import container as container_io
     from ..pipeline import decode_container
 
@@ -786,7 +726,8 @@ def decode_batch_containers(
               and all(c.meta.has_bitmaps for c in sub)):
             # (missing bitmaps -> the per-item path below raises the
             # single-image decoder's descriptive error)
-            outs = _decode_block_group(sub, restore_original)
+            with device_guard(dev):
+                outs = _decode_block_group(sub, restore_original, dev)
         else:
             with device_guard(dev):
                 outs = [
@@ -827,47 +768,20 @@ def _group_decode_stegos(conts: List) -> np.ndarray:
     return np.stack(stegos)
 
 
-def _decode_block_group(conts: List, restore_original: bool) -> List:
+def _decode_block_group(conts: List, restore_original: bool,
+                        dev: torch.device) -> List:
     """Batched decode for a same-key group of v2 block_adaptive containers:
-    per-image original from the XOR maps (host LUT), then host extraction
-    (tile popcounts + exact integer ranking + O(payload) fill-position
-    gathers, ``ops.host_extract``). Bit-identical to
+    the group's threaded transport decode, then each container's block
+    decode on ``dev`` (``pipeline._decode_block``: the original from its
+    XOR maps, ranked and read on the device). Bit-identical to
     ``pipeline.decode_container`` per item."""
-    from ..io import container as container_io
-    from ..ops import host_extract
-    from ..ops import blocks as block_ops
-    from ..pipeline import DecodeResult, _plane_plan_from_meta
+    from ..pipeline import _decode_block
     from ..profiling import stage
 
-    meta0 = conts[0].meta
     stego = _group_decode_stegos(conts)
-    diffs = np.stack([c.diff(stego.dtype) for c in conts])
-    original = stego ^ diffs
-
-    h, w = meta0.height, meta0.width
-    results: List = [None] * len(conts)
     with stage("batch_extract"):
-        for i, c in enumerate(conts):
-            meta = c.meta
-            s = int(meta.s)
-            block = container_io.parse_block_ext(meta.ext)
-            _, lengths, offsets = _plane_plan_from_meta(meta, h * w, max(s, 1))
-            counts = host_extract.block_counts_host(original[i], s, block)
-            rankings = [
-                block_ops.ranking_from_counts(counts[p], h, w, block)
-                for p in range(s)
-            ]
-            bits = host_extract.extract_block_host(
-                stego[i], rankings, lengths, offsets, s, block,
-                max(int(meta.payload_bits), 1),
-            )[: int(meta.payload_bits)]
-            results[i] = DecodeResult(
-                payload_bits=bits,
-                stego=stego[i],
-                meta=meta,
-                original=original[i] if restore_original else None,
-            )
-    return results
+        return [_decode_block(c, stego[i], restore_original, dev)
+                for i, c in enumerate(conts)]
 
 
 def _decode_raster_group(

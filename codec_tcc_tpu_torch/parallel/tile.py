@@ -1,10 +1,12 @@
 # Port of codec_tcc_tpu/parallel/tile.py on a mesh of torch devices.
-# TileParams, shard_windows, shard_rows, assemble_tiled and
-# _host_block_geometry are copies of the originals; the per-band embed and
-# extract (XLA in the JAX package, no Pallas) are torch ops on the band's
-# device. Rows split as the JAX package's do (shard_rows), but the last
-# bands are shorter or empty instead of zero-padded: no pixel, window or
-# byte depends on the padding.
+# TileParams, shard_windows, shard_rows and assemble_tiled are copies of the
+# originals; the per-band embed and extract (XLA in the JAX package, no
+# Pallas) are torch ops on the band's device. Rows split as the JAX
+# package's do (shard_rows), but the last bands are shorter or empty
+# instead of zero-padded: no pixel, window or byte depends on the padding.
+# block_adaptive ranks and decodes through the single-image route's
+# functions on the axis' first device, and embeds each band through
+# ops.embed.embed_block_adaptive at the band's global rows.
 """Spatial (``tile``) sharding: one large image split across the mesh.
 
 The rows of one image split over the mesh's ``tile`` axis, band ``k``
@@ -216,53 +218,6 @@ def _extract_block(block, plane_id, starts, lens):
     return rows
 
 
-def _block_embed_band(band, msg, bases, seg_len, moffs, s, row0, nbits, block):
-    """Variance-ranked block embed on one band: the same per-pixel rank
-    compare as :func:`..ops.embed.embed_block_adaptive`, with the rank
-    formula evaluated at GLOBAL row coordinates (``row0`` = the band's
-    first global row). ``bases`` (per-plane tile base offsets) and ``msg``
-    are whole: the rank of a band pixel depends only on its own tile's
-    base, so no band reads another."""
-    hh, ww = band.shape
-    dev = band.device
-    lpad = msg.shape[0]
-    y = torch.arange(hh, dtype=torch.int64, device=dev)[:, None] + row0
-    x = torch.arange(ww, dtype=torch.int64, device=dev)[None, :]
-    nw = -(-ww // block)
-    ty = y // block
-    tx = x // block
-    tile_id = ty * nw + tx
-    x0 = tx * block
-    bw_real = torch.clamp(ww - x0, max=block)
-    r = (y - ty * block) * bw_real + (x - x0)
-    base = to_device(np.asarray(bases), dev).to(torch.int64)
-    acc = band.to(torch.int32)
-    for p in range(nbits):
-        if p >= s or int(seg_len[p]) <= 0:
-            continue                      # no pixel of the plane is active
-        rank = base[p][tile_id] + r
-        midx = (int(moffs[p]) + rank).clamp(0, lpad - 1)
-        bits = msg[midx].to(torch.int32)
-        newv = (acc & ~(1 << p)) | (bits << p)
-        acc = torch.where(rank < int(seg_len[p]), newv, acc)
-    return acc.to(band.dtype)
-
-
-# Copy of codec_tcc_tpu/parallel/tile.py::_host_block_geometry (numpy only).
-def _host_block_geometry(h: int, w: int, block: int):
-    """Plane-invariant half of ``ops.embed._block_fill_rank`` on host:
-    ``(tile_id, r)`` flat arrays — per plane, ``rank = base[tile_id] + r``.
-    Computed once per decode (the geometry does not depend on the plane),
-    so the per-plane cost is one gather + one O(n) inverse permutation."""
-    yy, xx = np.mgrid[0:h, 0:w]
-    nw = -(-w // block)
-    ty, tx = yy // block, xx // block
-    x0 = tx * block
-    bw = np.minimum(block, w - x0)
-    r = (yy - ty * block) * bw + (xx - x0)
-    return (ty * nw + tx).reshape(h * w), r.reshape(h * w)
-
-
 def embed_tiled(
     image, msg_pad: np.ndarray, tp: TileParams, mesh: Mesh,
     axis: str = "tile",
@@ -364,8 +319,7 @@ def encode_array_tiled(
     math, same container bytes — only the embed runs per band. Any
     geometry tiles over any mesh."""
     from ..pipeline import (
-        EncodeResult, _as_payload_bits, _block_bases, _host_xor_maps,
-        _plane_bucket,
+        EncodeResult, _as_payload_bits, _host_xor_maps, _plane_bucket,
     )
     from ..ops import blocks as block_ops
 
@@ -426,26 +380,20 @@ def encode_array_tiled(
         pp = segment_ops.raster_plane_plan(plan, n, kernel_bits, 0, True)
 
     if config.strategy == "block_adaptive":
-        # variance-ranked placement: bases from one popcount pass over the
-        # whole image (plan-time work, as the hybrid start search above),
-        # then the per-band rank-compare embed
-        bases = _block_bases(
-            upload(image, plan_dev), kernel_bits, s,
-            config.block_size, h, w,
-        )
-        msg_pad = embed_ops.pad_message(
-            msg_bits, n, int(pp.offsets.max(initial=0))
-        )
-        msgs = _on_devices(msg_pad, bands)
+        # variance-ranked placement: the base table from one popcount pass
+        # over the whole image (plan-time work, as the hybrid start search
+        # above), then the block embed of each band at its global rows
+        bases = embed_ops.rank_block_fill(image, s, pp.lengths, kernel_bits,
+                                          config.block_size, plan_dev)
+        msgs = _on_devices(msg_bits, bands)
         lh = shard_rows(h, n_shards)
-        stego_bands = list(bands)
-        for k, band in enumerate(bands):
-            if band.numel():
-                with device_guard(band.device):
-                    stego_bands[k] = _block_embed_band(
-                        band, msgs[band.device], bases, pp.lengths,
-                        pp.offsets, s, k * lh, kernel_bits,
-                        config.block_size)
+        stego_bands = [
+            embed_ops.embed_block_adaptive(
+                band, msgs[band.device], bases, pp.lengths, pp.offsets, s,
+                kernel_bits, config.block_size, row0=k * lh)
+            if band.numel() else band
+            for k, band in enumerate(bands)
+        ]
     else:
         tp = shard_windows(pp, n, n_shards, shard_rows(h, n_shards) * w)
         msg_pad = embed_ops.pad_message(
@@ -508,10 +456,13 @@ def decode_container_tiled(
     *,
     restore_original: bool = True,
 ):
-    """Tile-sharded decode for raster-strategy containers: the stego image
-    is row-split, each band extracts only its windows, assembly is host
-    work."""
-    from ..pipeline import DecodeResult, _plane_bucket, _plane_plan_from_meta
+    """Tile-sharded decode: for the raster strategies the stego image is
+    row-split, each band extracts only its windows, and assembly is host
+    work; a block_adaptive container, whose fill order is ranked from the
+    whole restored original, decodes on the axis' first device."""
+    from ..pipeline import (
+        DecodeResult, _decode_block, _plane_bucket, _plane_plan_from_meta,
+    )
 
     cont = container_io.parse(data) if isinstance(data, (bytes, bytearray)) else data
     meta = cont.meta
@@ -531,16 +482,15 @@ def decode_container_tiled(
             f"Invalid file: decoded stego shape {stego.shape} != header "
             f"{(meta.height, meta.width)}"
         )
+    if meta.strategy == "block_adaptive":
+        # the fill order is ranked from the whole restored original: the
+        # single-image block decode on the axis' first device
+        return _decode_block(cont, stego, restore_original,
+                             mesh.axis_devices(axis)[0])
     h, w = meta.height, meta.width
     n = h * w
     kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
     starts, lengths, offsets = _plane_plan_from_meta(meta, n, kernel_bits)
-
-    if meta.strategy == "block_adaptive":
-        return _decode_block_tiled(
-            cont, stego, lengths, offsets, kernel_bits, mesh, axis,
-            restore_original,
-        )
     pp = segment_ops.PlanePlan(
         nbits=kernel_bits, s=meta.s, total_bits=meta.payload_bits,
         starts=starts, lengths=lengths, offsets=offsets,
@@ -561,65 +511,3 @@ def decode_container_tiled(
         if diff is not None:
             original = stego ^ diff
     return DecodeResult(bits, stego, meta, original)
-
-
-def _decode_block_tiled(
-    cont, stego: np.ndarray, lengths: np.ndarray, offsets: np.ndarray,
-    kernel_bits: int, mesh: Mesh, axis: str, restore_original: bool,
-):
-    """Tiled decode of a block_adaptive container: each band returns its
-    raw plane bits, and the host places them at message positions via the
-    rank permutation — ranks are a pure function of the restored
-    original's tile bases, so nothing but plane bits leaves the devices."""
-    from ..pipeline import DecodeResult, _block_bases
-
-    meta = cont.meta
-    h, w = meta.height, meta.width
-    n = h * w
-    diff = cont.diff(stego.dtype)
-    if diff is None:
-        raise ValueError(
-            "block_adaptive extraction requires the XOR location maps"
-        )
-    original = stego ^ diff
-    block = container_io.parse_block_ext(meta.ext)
-
-    # bases from the restored original: pipeline._block_bases, the helper
-    # that encode_array and decode_container rank with, so the three
-    # routes fill in one order
-    bases = _block_bases(
-        upload(original, mesh.axis_devices(axis)[0]),
-        kernel_bits, meta.s, block, h, w,
-    )
-
-    # full-band windows: plane p over each band's whole range, in band
-    # order, so the raw plane bits of the image come back in raster order
-    nplanes = min(meta.s, kernel_bits)  # only embedded planes leave a band
-    plane_id = np.arange(nplanes, dtype=np.int32)
-    zeros = np.zeros(nplanes, dtype=np.int32)
-    planes = np.concatenate([
-        download(_extract_block(band, plane_id, zeros,
-                                np.full(nplanes, band.numel(), np.int32)))
-        for band in split_rows(stego, mesh, axis) if band.numel()
-    ], axis=1)  # (nplanes, n): raw plane bits, raster order
-
-    out = np.zeros(max(int(meta.payload_bits), 1), dtype=np.uint8)
-    tile_id, r = _host_block_geometry(h, w, block)
-    order = np.empty(n, dtype=np.intp)
-    for p in range(nplanes):
-        ln = int(lengths[p])
-        if ln <= 0:
-            continue
-        rank = bases[p][tile_id] + r
-        # rank is a bijection onto 0..n-1, so its inverse is an O(n)
-        # assignment, not an argsort (the tile layer exists for images
-        # where n log n host sorts are seconds on the serving core)
-        order[rank] = np.arange(n, dtype=np.intp)
-        mo = int(offsets[p])
-        take = min(ln, out.size - mo)
-        if take > 0:
-            out[mo : mo + take] = planes[p][order[:take]]
-    bits = out[: meta.payload_bits]
-    return DecodeResult(
-        bits, stego, meta, original if restore_original else None
-    )

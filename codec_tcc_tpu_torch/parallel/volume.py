@@ -50,6 +50,7 @@ from ..device import download, resolve_device, to_device
 from ..errors import CapacityError
 from ..io import container as container_io
 from ..ops import decompose as decompose_ops
+from ..ops import embed as embed_ops
 from ..ops import metrics as metric_ops
 from ..profiling import entry, stage
 from ..utils import bits as bit_utils
@@ -251,8 +252,10 @@ def encode_volume(
             # variance-ranked tile placement per slice at the GLOBAL cut
             # point: the block batch's popcounts, ranking and embed
             stego = [
-                batch_par._block_embed_shard(part, msgs_prefix, plan, rows,
-                                             config.block_size)
+                embed_ops.embed_block_batch(
+                    part, msgs_prefix[rows], plan.lengths[rows],
+                    plan.offsets[rows], plan.s[rows], nbits,
+                    config.block_size)
                 for rows, part in vol_parts
             ]
         else:
@@ -425,7 +428,6 @@ def pack_volume(
     import struct
 
     from ..io.codecs import get as get_codec
-    from ..ops import embed as embed_ops
     from ..ops.segments import distribute_segments
 
     dev = resolve_device(device)

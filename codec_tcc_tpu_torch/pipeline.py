@@ -17,7 +17,10 @@ Strategy ``block_adaptive`` runs in torch ops on the device both ways
 (tile popcounts, the variance-ranked embed and extract, the packed maps);
 the exact tile ranking and its base table are host array operations, and
 the decode restores the original on the host first, since the fill order
-is ranked from it. The host embed route (``device_policy="host"``, or
+is ranked from it. The ranking, the embed and the extract are the
+functions of :mod:`.ops.embed` that the batch, volume and tiled routes
+call too, and :func:`_decode_block` is the block decode of the single,
+batch and tiled decoders. The host embed route (``device_policy="host"``, or
 ``"auto"`` with ``compute_metrics=False``;
 ``EncodeConfig.resolve_host_route``) places a raster payload with numpy
 windows (:mod:`.ops.host_embed`) and never uploads the image. Strategy
@@ -57,7 +60,7 @@ from .ops import raster_kernels
 from .ops import segments as segment_ops
 from .ops.host_embed import embed_raster_host_packed
 from .parallel.batch import hybrid_base_offsets_host
-from .profiling import count, entry, stage
+from .profiling import entry, stage
 from .utils import bits as bit_utils
 from .utils.logging import get_logger
 
@@ -125,33 +128,10 @@ def _host_xor_maps(original: np.ndarray, stego: np.ndarray, s: int) -> np.ndarra
     return out
 
 
-def _block_bases(
-    image: torch.Tensor, nbits: int, s: int, block: int, h: int, w: int
-) -> np.ndarray:
-    """``(nbits, ntiles) int32`` tile bases of the block fill order: the
-    tile popcounts of planes ``0..s-1`` on the image's device, ranked on the
-    host; rows at and past ``s`` are zero. The encode ranks the image, the
-    decode the restored original, so both fill in one order."""
-    ntiles = (-(-h // block)) * (-(-w // block))
-    base = np.zeros((nbits, ntiles), dtype=np.int32)
-    counts = download(block_ops.block_bit_counts_all(image, s, block))
-    for p in range(s):
-        base[p] = block_ops.block_bases_from_counts(counts[p], h, w, block)
-    return base
-
-
 # Each embed route returns (stego, packed XOR maps or None, pair_stats
 # moments or None); the maps come back only when the container stores them
 # packed. The device routes return the stego as the device tensor, which the
 # transport codec may compress there; encode_array downloads it.
-
-
-def _count_block_fill(s: int, ntiles: int, lengths, n: int) -> None:
-    """The block fill's counters, for one side (encode or decode):
-    ``block.tiles_ranked`` the tiles of the ``s`` ranked planes,
-    ``block.bits_placed`` the payload bits their windows hold."""
-    count("block.tiles_ranked", s * ntiles)
-    count("block.bits_placed", sum(min(int(lengths[p]), n) for p in range(s)))
 
 
 def _embed_raster(image_dev, msg_bits, pp, s, emit_maps, with_stats):
@@ -169,10 +149,8 @@ def _embed_block(image_dev, msg_bits, pp, s, nbits, block, emit_maps,
                  with_stats):
     """block_adaptive on the image's device: the tile popcounts, the
     variance-ranked embed, the moments and the packed XOR maps."""
-    h, w = image_dev.shape
-    with stage("block_rank"):
-        bases = _block_bases(image_dev, nbits, s, block, h, w)
-    _count_block_fill(s, bases.shape[1], pp.lengths, h * w)
+    bases = embed_ops.rank_block_fill(image_dev, s, pp.lengths, nbits, block,
+                                      image_dev.device)
     stego_dev = embed_ops.embed_block_adaptive(
         image_dev, upload(msg_bits, image_dev.device), bases, pp.lengths,
         pp.offsets, s, nbits, block,
@@ -522,38 +500,13 @@ def decode_container(
     h, w = meta.height, meta.width
     if stego.shape != (h, w):
         raise ValueError(f"Decoded stego shape {stego.shape} != header {(h, w)}")
+    if meta.strategy == "block_adaptive":
+        return _decode_block(cont, stego, restore_original, dev)
     n = h * w
     kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
 
     starts, lengths, offsets = _plane_plan_from_meta(meta, n, kernel_bits)
     out_len = max(int(meta.payload_bits), 1)
-
-    if meta.strategy == "block_adaptive":
-        # the fill order is ranked from the restored original, so the maps
-        # come first; the bits are then read on the device through the same
-        # base table the encode wrote through
-        with stage("restore"):
-            diff = cont.diff(stego.dtype)
-            if diff is None:
-                raise ValueError(
-                    "block_adaptive extraction requires the XOR location maps"
-                )
-            original = stego ^ diff
-        block = container_io.parse_block_ext(meta.ext)
-        with stage("extract"):
-            with stage("block_rank"):
-                bases = _block_bases(upload(original, dev), kernel_bits,
-                                     meta.s, block, h, w)
-            _count_block_fill(meta.s, bases.shape[1], lengths, n)
-            if dev.type == "cuda":
-                count("block.decode_device")
-            bits = download(embed_ops.extract_block_message_device(
-                upload(stego, dev), bases, lengths, offsets, meta.s,
-                kernel_bits, block, out_len,
-            ))[: meta.payload_bits]
-        return DecodeResult(
-            bits, stego, meta, original if restore_original else None
-        )
 
     with stage("extract"):
         # K2 reads only the payload's pixels and writes them in message
@@ -569,6 +522,35 @@ def decode_container(
             # full-diff fallback otherwise — container.restore_original)
             original = cont.restore_original(stego)
     return DecodeResult(bits, stego, meta, original)
+
+
+def _decode_block(cont: container_io.Container, stego: np.ndarray,
+                  restore_original: bool, dev: torch.device) -> DecodeResult:
+    """The decode of a block_adaptive container whose stego the transport
+    codec has decoded, on ``dev``; the single, batch and tiled decoders
+    share it. The fill order is ranked from the restored original, so the
+    maps come first; the bits are then read through the base table the
+    encode wrote through."""
+    meta = cont.meta
+    kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
+    _, lengths, offsets = _plane_plan_from_meta(
+        meta, meta.height * meta.width, kernel_bits)
+    with stage("restore"):
+        diff = cont.diff(stego.dtype)
+        if diff is None:
+            raise ValueError(
+                "block_adaptive extraction requires the XOR location maps"
+            )
+        original = stego ^ diff
+    block = container_io.parse_block_ext(meta.ext)
+    with stage("extract"):
+        bits = download(embed_ops.extract_block_message(
+            stego, original, lengths, offsets, meta.s, kernel_bits, block,
+            max(int(meta.payload_bits), 1), dev,
+        ))[: meta.payload_bits]
+    return DecodeResult(
+        bits, stego, meta, original if restore_original else None
+    )
 
 
 def decode_file(

@@ -23,6 +23,7 @@ from codec_tcc_tpu_torch import pipeline as port_pipeline
 from codec_tcc_tpu_torch.config import EncodeConfig
 from codec_tcc_tpu_torch.io import dicom
 from codec_tcc_tpu_torch.ops import blocks as block_ops
+from codec_tcc_tpu_torch.ops import embed as embed_ops
 from codec_tcc_tpu_torch.ops import metrics as metric_ops
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
 from codec_tcc_tpu_torch.parallel import batch as tb
@@ -89,7 +90,6 @@ SAME = [
     (tb.BatchEncodeResult, jb.BatchEncodeResult),
     (tb._pack_batch_result, jb._pack_batch_result),
     (tb._group_decode_stegos, jb._group_decode_stegos),
-    (tb._decode_block_group, jb._decode_block_group),
     (tb._decode_raster_group, jb._decode_raster_group),
     (port_runner.ItemResult, jax_runner.ItemResult),
     (port_pipeline._next_pow2, jax_pipeline._next_pow2),
@@ -260,8 +260,8 @@ def test_block_batch_helpers_match_jax(b, h, w, dtype, block):
         block_ops.block_bit_counts_all(torch.from_numpy(imgs), 3,
                                        block).numpy(),
         np.asarray(jb._batch_block_counts_jit(jnp.asarray(imgs), 3, block)))
-    bases = tb._batch_block_bases(torch.from_numpy(imgs), plan.nbits,
-                                  plan.s, block, h, w)
+    bases = block_ops.block_bases(torch.from_numpy(imgs), plan.s,
+                                  plan.nbits, block)
     want_bases = jb._batch_block_bases(jnp.asarray(imgs), plan.nbits,
                                        plan.s, block, h, w)
     np.testing.assert_array_equal(bases, want_bases)
@@ -269,19 +269,42 @@ def test_block_batch_helpers_match_jax(b, h, w, dtype, block):
         jnp.asarray(imgs), jnp.asarray(plan.msgs), jnp.asarray(want_bases),
         jnp.asarray(plan.lengths), jnp.asarray(plan.offsets),
         jnp.asarray(plan.s), plan.nbits, block))
-    got = tb._block_embed_batch(
-        torch.from_numpy(imgs), torch.from_numpy(tb._msg_prefix(plan)),
-        bases, plan.lengths, plan.offsets, plan.s, plan.nbits, block)
+    got = embed_ops.embed_block_batch(
+        torch.from_numpy(imgs), tb._msg_prefix(plan), plan.lengths,
+        plan.offsets, plan.s, plan.nbits, block)
     np.testing.assert_array_equal(got.numpy(), want)
     out_len = int(plan.payload_bits.max())
     want_bits = np.asarray(jb._block_extract_batch(
         jnp.asarray(want), jnp.asarray(want_bases),
         jnp.asarray(plan.lengths), jnp.asarray(plan.offsets),
         jnp.asarray(plan.s), plan.nbits, block, out_len))
-    got_bits = tb._block_extract_batch(
-        torch.from_numpy(want), bases, plan.lengths, plan.offsets, plan.s,
-        plan.nbits, block, out_len)
-    np.testing.assert_array_equal(got_bits.numpy(), want_bits)
+    for i in range(b):
+        got_bits = embed_ops.extract_block_message_device(
+            torch.from_numpy(want[i]), bases[i], plan.lengths[i],
+            plan.offsets[i], int(plan.s[i]), plan.nbits, block, out_len)
+        np.testing.assert_array_equal(got_bits.numpy(), want_bits[i])
+
+
+@pytest.mark.parametrize("block", [4, 6])
+@pytest.mark.parametrize("b,h,w,dtype", GEOMS, ids=GEOM_IDS)
+def test_batch_block_bases_equal_block_base_offsets(b, h, w, dtype, block):
+    """The base table of a batch, with another cut point per image and one
+    of them 0, equals ``block_base_offsets`` row for row, with zero rows at
+    and past each image's ``s``."""
+    imgs = _images(12, b, h, w, dtype)
+    s = np.array([3, 0, 5][:b])
+    nbits = 8
+    bases = block_ops.block_bases(torch.from_numpy(imgs), s, nbits, block)
+    ntiles = (-(-h // block)) * (-(-w // block))
+    assert bases.shape == (b, nbits, ntiles) and bases.dtype == np.int32
+    counts = block_ops.block_bit_counts_all(torch.from_numpy(imgs), nbits,
+                                            block).numpy()
+    for i in range(b):
+        for p in range(nbits):
+            want = (block_ops.block_base_offsets(counts[i, p], h, w, block)[0]
+                    if p < s[i] else np.zeros(ntiles))
+            np.testing.assert_array_equal(bases[i, p], want,
+                                          err_msg=f"image {i} plane {p}")
 
 
 def test_batch_quality_reports_match_jax():

@@ -246,7 +246,8 @@ def test_block_bases_from_counts_equals_block_base_offsets(h, w, block, dtype,
                                                            s):
     """The loop-free base table equals ``block_base_offsets`` row for row
     (edge tiles, block 12 and a tile larger than the image among the
-    geometries), and the pipeline's table is built from it."""
+    geometries), and the table every block route ranks with
+    (``block_bases``) is built from it."""
     rng = np.random.default_rng(11 * h * w + s)
     img = _image(rng, h, w, dtype)
     counts = torch_host_extract.block_counts_host(img, max(s, 1), block)
@@ -256,7 +257,7 @@ def test_block_bases_from_counts_equals_block_base_offsets(h, w, block, dtype,
         assert got.dtype == np.int64
         np.testing.assert_array_equal(got, want, err_msg=f"plane {p}")
     nbits = _plane_bucket(s, 8 * np.dtype(dtype).itemsize)
-    got = pipeline._block_bases(torch.from_numpy(img), nbits, s, block, h, w)
+    got = block_ops.block_bases(torch.from_numpy(img), s, nbits, block)
     np.testing.assert_array_equal(got, _bases(img, nbits, s, block)[0])
 
 
@@ -361,3 +362,44 @@ def test_decode_container_equals_extract_block_host(monkeypatch, h, w, block,
                                           err_msg=what)
             np.testing.assert_array_equal(dec.original, original,
                                           err_msg=what)
+
+
+@pytest.mark.parametrize("route", ["batch", "tiled"])
+def test_batch_and_tiled_decodes_count_as_single_decodes(route):
+    """A batch decode of block containers, and a tiled decode of each,
+    advance ``block.tiles_ranked`` and ``block.bits_placed`` by the sum of
+    the single decodes of the same containers, and read the same bits."""
+    from codec_tcc_tpu_torch import profiling
+    from codec_tcc_tpu_torch.config import EncodeConfig
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile
+
+    rng = np.random.default_rng(21)
+    cfg = EncodeConfig(strategy="block_adaptive", compute_metrics=False)
+    blobs = [
+        pipeline.encode_array(
+            rng.integers(0, peak, (40, 48)).astype(np.uint16),
+            rng.integers(0, 2, bits).astype(np.uint8), cfg, bits_stored=12,
+            device="cpu").container
+        for peak, bits in ((4096, 300), (256, 1200), (4096, 0))
+    ]
+    keys = ("block.tiles_ranked", "block.bits_placed")
+
+    def counted(decode):
+        before = profiling.counters()
+        decs = decode()
+        after = profiling.counters()
+        return decs, {k: after.get(k, 0) - before.get(k, 0) for k in keys}
+
+    singles, want = counted(lambda: [
+        pipeline.decode_container(b, device="cpu") for b in blobs])
+    if route == "batch":
+        decs, got = counted(lambda: torch_batch.decode_batch_containers(
+            blobs, device="cpu"))
+    else:
+        mesh = make_mesh(devices=["cpu"] * 4, axes=("tile",))
+        decs, got = counted(lambda: [
+            tile.decode_container_tiled(b, mesh) for b in blobs])
+    assert got == want and want["block.bits_placed"] == 1500
+    for dec, single in zip(decs, singles):
+        np.testing.assert_array_equal(dec.payload_bits, single.payload_bits)
+        np.testing.assert_array_equal(dec.original, single.original)

@@ -4,7 +4,8 @@ kernels against host zlib, and the single-image encodes' use of them; the
 raster, PEE, block_adaptive, container batch, tiled (one image across a
 mesh of the card repeated) and ``dp`` (a batch split over such a mesh)
 encode paths against the CPU path; the device block
-extract against its host twin; the host embed route with no K1; the
+extract against its host twin, and the batch block decode on the card
+against the CPU's; the host embed route with no K1; the
 ``jls`` codec, v1 containers and the serving daemon against the parity
 fixture. Marked ``cuda``: they skip where no GPU is present and run on the
 GPU machine with
@@ -538,6 +539,31 @@ def test_gpu_block_decode_2048_equals_host_twin(cuda):
     for dec in decs:
         np.testing.assert_array_equal(dec.payload_bits, want)
         np.testing.assert_array_equal(dec.original, img)
+    profiling.get_profiler().reset()
+
+
+def test_gpu_block_batch_decode_equals_cpu(cuda):
+    """A group of block containers decodes on the card, each through the
+    single-image block decode there: the bits and originals of the CPU's
+    batch decode, one ``block.decode_device`` per container."""
+    from codec_tcc_tpu_torch.parallel import batch
+
+    rng = np.random.default_rng(31)
+    imgs = rng.integers(0, 4096, (3, 500, 501)).astype(np.uint16)
+    pays = [rng.integers(0, 2, bits).astype(np.uint8)
+            for bits in (304, 20_000, 0)]
+    cfg = port.EncodeConfig(strategy="block_adaptive")
+    blobs = batch.encode_batch_containers(imgs, pays, cfg, bits_stored=12,
+                                          device=cuda).containers
+    profiling.get_profiler().reset()
+    got = batch.decode_batch_containers(blobs, device=cuda)
+    assert profiling.counters().get("block.decode_device") == 3
+    want = batch.decode_batch_containers(blobs, device="cpu")
+    for g, w, img, p in zip(got, want, imgs, pays):
+        np.testing.assert_array_equal(g.payload_bits, w.payload_bits)
+        np.testing.assert_array_equal(g.payload_bits, p)
+        np.testing.assert_array_equal(g.original, w.original)
+        np.testing.assert_array_equal(g.original, img)
     profiling.get_profiler().reset()
 
 

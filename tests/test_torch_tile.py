@@ -254,7 +254,7 @@ def test_make_mesh():
 
 
 @pytest.mark.parametrize("name", ["TileParams", "shard_windows", "shard_rows",
-                                  "assemble_tiled", "_host_block_geometry"])
+                                  "assemble_tiled"])
 def test_copied_host_functions_are_the_same_code(name):
     assert same_code(getattr(port_tile, name), getattr(jax_tile, name))
 
