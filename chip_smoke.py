@@ -69,7 +69,15 @@ failure exits non-zero:
    host zlib, byte for byte, on the corpus of
    ``tests/torch_deflate_cases.py``, the probe's images and the
    benchmark's phantoms at 512x512 and 2048x2048 uint16, the larger 5
-   times identical;
+   times identical; and the inflate kernels (``inflate_scan``,
+   ``inflate_measure``, ``inflate_chain``, ``inflate_emit``, which inflate
+   the stego of a single-image decode on the card) against host zlib,
+   exact, on the payloads of ``tests/torch_inflate_cases.py`` (with the
+   plain version's counts of candidates, chain blocks and serial blocks,
+   ``tests/torch_inflate_plain.py``) and the phantoms at 512x512 and
+   2048x2048 on three seeds, one launch of each a call, the larger 5
+   times identical, and the payloads they leave to the host codec with
+   its result or message;
 3. every case of ``tests/data/torch_port_parity.json`` (six raster, six
    PEE, five block_adaptive, three on the host embed route) through
    ``encode_array(device="cuda")``: the container's sha256 (and for PEE the
@@ -170,7 +178,11 @@ failure exits non-zero:
    launch), the host-route cases (no K1, K2 once per decode), each
    deflate kernel once per single-image encode on the card (the raster,
    PEE and block cases, the daemon's ``deflate`` encodes; none on the host
-   route and the batch, volume, tiled and other-codec paths), the golden
+   route and the batch, volume, tiled and other-codec paths), each
+   inflate kernel once per single-image decode of a ``deflate`` stego on
+   the card (the raster, PEE, block and host-route cases, the daemon's
+   ``deflate`` decodes; none for the golden fixtures' code 2 and the
+   batch, volume, tiled and other-codec paths), the golden
    decodes and the batch paths (one batch K1 per device-route batch
    encode, one batch K2 per ``extract_batch``, none for the host and
    block batches and the batch decode), the volumes (one
@@ -230,6 +242,10 @@ failure exits non-zero:
    (at capacity) uint16; the deflate kernels on the phantoms at 512x512
    and 2048x2048 uint16 (each launch's device time and bound, the per-call
    wall of ``encode_device`` with its read-back, host zlib beside it); the
+   inflate kernels on the same phantoms (each launch's device time and
+   its bound from its own bytes, a call's device time, the host walls of
+   a call and of the stego's download, ``inflate_device`` and
+   ``transport_decode`` per call, host zlib's decode beside them); the
    warm daemon's ``encode`` and ``decode`` latency at 512x512 uint16 with
    304 bits (median of 5).
 
@@ -237,7 +253,8 @@ Before the last line it prints the ``nvidia-smi`` line and one JSON line
 ``{"kernels": [...]}`` (per kernel: launches, launches by path, max abs
 error, times, and the bound: the larger of its bytes over 3.35 TB/s and its
 integer operations over 67 TOP/s, from this run's shapes; the deflate
-kernels' ``library_ms`` is host zlib's encode); the last line is
+kernels' ``library_ms`` is host zlib's encode, the inflate kernels' its
+decode); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Without a GPU, or without the rest of the repository beside it, it exits
 non-zero and prints no result.
@@ -984,6 +1001,207 @@ def time_deflate(smi, dev) -> dict:
               f"other device ops: {other}; encode_device per call "
               f"{per_call:.4f} ms, host zlib {zlib_ms:.4f} ms (median of 5) "
               f"on {smi}", flush=True)
+    return timing
+
+
+def phase2_inflate(dev) -> tuple:
+    """The inflate kernels (``ops/inflate.py::inflate_device``) against host
+    zlib (the ``deflate`` codec's decode): the payloads of
+    ``tests/torch_inflate_cases.py`` that the card must decode (the corpus,
+    uint8, stored blocks only, one block, fixed-code blocks, more blocks
+    than the emit's grid, more candidates than the measure takes, each
+    with the plain version's counts of candidates, chain blocks and serial
+    blocks) and the benchmark's phantoms at 512x512 and 2048x2048 uint16 on
+    three seeds each (no serial block), each call one launch of each
+    kernel; the 2048x2048 one 5 times, identical; then the payloads the
+    host must decode or refuse, with the plain version's status and the
+    host's result or message word for word. Returns (text, the largest
+    |card - zlib| over every pixel of every payload)."""
+    import numpy as np
+    import torch
+    import torch_inflate_cases as ic
+    import torch_inflate_plain as plain
+    from codec_tcc_tpu_torch import profiling
+    from codec_tcc_tpu_torch.io.codecs import get as get_codec
+    from codec_tcc_tpu_torch.ops import inflate as inf
+
+    def spec(blob):
+        code, h, w = inf.sdfl_fields(blob)
+        cap = inf.limits(len(blob) - inf.SDFL_HEADER,
+                         h * w * (2 if code == 3 else 1))[0]
+        return plain.inflate_plain(blob, cap), cap
+
+    codec = get_codec("deflate")
+    payloads = [(name, ic.payload(name)) for name in ic.DEVICE]
+    payloads += [(f"phantom_{h}x{w}_seed{seed}", ic.phantom_payload(h, w,
+                                                                    seed))
+                 for h, w in ic.PHANTOM_SHAPES for seed in ic.PHANTOM_SEEDS]
+    counts, max_err = {}, 0
+    for name, blob in payloads:
+        before = profiling.launches(inf.KERNELS)
+        res = inf.inflate_device(blob, dev)
+        after = profiling.launches(inf.KERNELS)
+        check(all(after[k] - before[k] == 1 for k in inf.KERNELS),
+              f"inflate launches on {name}: {before} -> {after}")
+        check(res.status == inf.OK, f"inflate status {res.status} "
+              f"({inf.STATUS.get(res.status)}) on {name}")
+        want = codec.decode(blob)
+        got_img = res.stego.cpu().numpy()
+        check(got_img.shape == want.shape and got_img.dtype == want.dtype,
+              f"inflate image {got_img.shape} {got_img.dtype} on {name}")
+        err = int(np.abs(got_img.astype(np.int64)
+                         - want.astype(np.int64)).max())
+        max_err = max(max_err, err)
+        check(err == 0, f"inflate kernels != host zlib on {name} "
+              f"(max abs err {err})")
+        got = (res.candidates, res.blocks, res.serial)
+        if name.startswith("phantom_"):
+            check(res.serial == 0, f"serial blocks {got} on {name}")
+            counts[name] = got
+            if name.startswith("phantom_2048x2048_seed7"):
+                outs = {inf.inflate_device(blob, dev).stego.cpu().numpy()
+                        .tobytes() for _ in range(5)}
+                check(len(outs) == 1, f"inflate repeats differently on {name}")
+        else:
+            ref, cap = spec(blob)
+            # past the cap the scan keeps candidates in no fixed order: the
+            # plain version keeps the first, so its serial count is the most
+            serial_ok = (res.serial == ref.serial if ref.candidates <= cap
+                         else res.serial <= ref.serial)
+            check(got[:2] == (ref.candidates, ref.blocks) and serial_ok,
+                  f"inflate counts {got} != plain {ref[2:]} on {name}")
+            if name.startswith("fixed_code"):
+                check(res.serial > 0, f"no serial block on {name}")
+    routed = {}
+    for name in ic.HOST:
+        blob = ic.payload(name)
+        try:
+            want, err = codec.decode(blob), None
+        except ValueError as exc:
+            want, err = None, str(exc)
+        if inf.device_route(codec, blob, dev):
+            res = inf.inflate_device(blob, dev)
+            ref = spec(blob)[0]
+            check(res.status != inf.OK and res.status == ref.status,
+                  f"inflate status {res.status} (plain {ref.status}) on "
+                  f"{name}")
+            routed[name] = inf.STATUS[res.status]
+        else:
+            routed[name] = "not taken"
+        try:
+            got, got_dev = inf.transport_decode(codec, blob, dev)
+            check(err is None and got_dev is None
+                  and np.array_equal(got, want),
+                  f"host route of {name} gave another result")
+        except ValueError as exc:
+            check(str(exc) == err, f"host route of {name} raised {exc!r}, "
+                  f"not {err!r}")
+    torch.cuda.synchronize()
+    return (f"inflate kernels == host zlib on {len(payloads)} payloads "
+            f"(phantoms' candidates, blocks, serial: {counts}), 5 repeats "
+            f"identical; host route: {routed}"), max_err
+
+
+def inflate_bytes(blob) -> dict:
+    """The bytes each inflate kernel must move on a payload, for its bound:
+    the scan and the measure read the stream once (the measure's
+    candidates cover it), the chain reads each block's header (a dynamic
+    block's header up to its first data bit, a stored block's LEN/NLEN)
+    and, per chain block, one 56-byte candidate record and one 28-byte
+    block record it writes, and the emit reads the stream and writes the
+    image once."""
+    import torch_inflate_plain as plain
+    from codec_tcc_tpu_torch.ops import inflate as inf
+
+    code, h, w = inf.sdfl_fields(blob)
+    want = h * w * (2 if code == 3 else 1)
+    stream = bytes(blob[inf.SDFL_HEADER:])
+    r = plain._Bits(stream)
+    p, headers, nblocks = 16, 0, 0
+    while True:
+        final, btype = r.get(p, 1), r.get(p + 1, 2)
+        nblocks += 1
+        if btype == 0:
+            q = (p + 3 + 7) & ~7
+            headers += 5
+            p = 8 * (q // 8 + 4 + r.get(q, 16))
+        else:
+            t = (plain._fixed_tables(p) if btype == 1
+                 else plain.dynamic_header(r, p))
+            headers += (t.data_bit - p + 7) // 8
+            p = plain.decode_block(r, t, want).end
+        if final:
+            break
+    return {"inflate_scan": len(stream), "inflate_measure": len(stream),
+            "inflate_chain": headers + nblocks * (56 + 28),
+            "inflate_emit": len(stream) + want}
+
+
+def time_inflate(smi, dev) -> dict:
+    """The inflate kernels on the phantoms at the main path's shapes: each
+    launch's device time (``torch.profiler``), the device time of one
+    ``inflate_device`` call (the stream's upload, the four launches and the
+    status read-back; CUDA events), the host's share of a call (the call
+    itself, and the stego's download), the per-call wall of
+    ``inflate_device`` and of ``transport_decode`` beside host zlib's
+    decode of the same payload, and each kernel's bound from the bytes it
+    must move (:func:`inflate_bytes`)."""
+    import torch
+    import torch_inflate_cases as ic
+    from codec_tcc_tpu_torch.device import download
+    from codec_tcc_tpu_torch.io.codecs import get as get_codec
+    from codec_tcc_tpu_torch.ops import inflate as inf
+
+    codec = get_codec("deflate")
+    timing = {}
+
+    def walls(fn, reps=REPS):
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(out)
+
+    for h, w in ic.PHANTOM_SHAPES:
+        blob = ic.phantom_payload(h, w, ic.PHANTOM_SEEDS[0])
+        work = inflate_bytes(blob)
+        ops = dict(device_ops_ms(lambda: inf.inflate_device(blob, dev)))
+        device = cuda_median_ms(lambda: inf.inflate_device(blob, dev))
+        parts = {"inflate_device": [], "download": []}
+        for _ in range(REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = inf.inflate_device(blob, dev)
+            t1 = time.perf_counter()
+            download(res.stego)
+            t2 = time.perf_counter()
+            for key, v in zip(parts, (t1 - t0, t2 - t1)):
+                parts[key].append(v * 1e3)
+        parts = {k: statistics.median(v) for k, v in parts.items()}
+        per_call = walls(lambda: inf.inflate_device(blob, dev))
+        decode = walls(lambda: inf.transport_decode(codec, blob, dev))
+        zlib_ms = walls(lambda: codec.decode(blob))
+        row = {k: {"ms": ops.get(k + "_kernel"), "per_call": per_call,
+                   "decode": decode, "bound": bound(work[k], 0),
+                   "bytes": work[k], "library_ms": zlib_ms}
+               for k in inf.KERNELS}
+        timing[f"{h}x{w}"] = row
+        dev_txt = ", ".join(
+            f"{k} {fmt_ms(v['ms'])} (bound {v['bound'][0]:.5f} ms, "
+            f"{v['bytes']} B)" for k, v in row.items())
+        other = ", ".join(f"{k} {v:.4f} ms" for k, v in ops.items()
+                          if not k.startswith("inflate_"))
+        part_txt = ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+        print(f"  inflate {h}x{w} u16 ({len(blob)} B payload): device "
+              f"{dev_txt}; other device ops: {other}; a call's device time "
+              f"{device:.4f} ms; host walls: {part_txt}; inflate_device per "
+              f"call {per_call:.4f} ms, transport_decode {decode:.4f} ms, "
+              f"host zlib decode {zlib_ms:.4f} ms (medians of {REPS}) on "
+              f"{smi}", flush=True)
     return timing
 
 
@@ -3035,6 +3253,7 @@ def phase5_serve(port, sparity, counted, launches, dev):
     from codec_tcc_tpu_torch.io.container import parse as parse_container
     from codec_tcc_tpu_torch.io.container import parse_pee_ext
     from codec_tcc_tpu_torch.ops import deflate_rle as dfl
+    from codec_tcc_tpu_torch.ops import inflate as inf
 
     expected = {}
     tmp = tempfile.mkdtemp(prefix="ct_")
@@ -3073,9 +3292,10 @@ def phase5_serve(port, sparity, counted, launches, dev):
         check(cases.sha256(blob) == sparity[name]["container_sha256"],
               f"{name}: the daemon's container differs from the JAX "
               f"package's encode_file")
-        # the deflate codec's encode of the stego on the card
-        deflated = {k: int(config.get("codec", "deflate") == "deflate")
-                    for k in dfl.KERNELS}
+        # the deflate codec's encode and decode of the stego on the card
+        on_card = int(config.get("codec", "deflate") == "deflate")
+        deflated = {k: on_card for k in dfl.KERNELS}
+        inflated = {k: on_card for k in inf.KERNELS}
         if config["strategy"] == "pee":
             t_start = pee_start_thresholds(
                 img[None], [text_bits.size], 12,
@@ -3084,10 +3304,11 @@ def phase5_serve(port, sparity, counted, launches, dev):
             groups = cases.pee_attempt_groups(t_start, [t_final])
             expected[f"{name}_encode"] = launches(pee_embed=2 * groups,
                                                   **deflated)
-            expected[f"{name}_decode"] = launches(pee_extract=2)
+            expected[f"{name}_decode"] = launches(pee_extract=2, **inflated)
         else:
             expected[f"{name}_encode"] = launches(raster_embed=1, **deflated)
-            expected[f"{name}_decode"] = launches(raster_extract=1)
+            expected[f"{name}_decode"] = launches(raster_extract=1,
+                                                  **inflated)
         prefix = os.path.join(tmp, f"{name}_dec")
         d = counted(f"{name}_decode", lambda: serve_request(
             sock, {"op": "decode", "input": out, "output_prefix": prefix}))
@@ -3270,6 +3491,7 @@ def main() -> int:
     from codec_tcc_tpu_torch.ops import kernel_library
     from codec_tcc_tpu_torch import profiling
     from codec_tcc_tpu_torch.ops import deflate_rle as dfl
+    from codec_tcc_tpu_torch.ops import inflate as inf
     from codec_tcc_tpu_torch.ops import pee_kernels as pk
     from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
@@ -3291,6 +3513,7 @@ def main() -> int:
     # the deflate kernels first: their probe runs at the process's first
     # encode on the card
     deflate_txt = phase2_deflate(dev)
+    inflate_txt, inflate_err = phase2_inflate(dev)
     max_err = phase2_raster(np.random.default_rng(2024), dev)
     k1_err, k1_txt = phase2_k1(dev)
     max_err["raster_embed"] = max(max_err["raster_embed"], k1_err)
@@ -3306,17 +3529,18 @@ def main() -> int:
     stress_txt = phase2_pee_stress(dev)
     block_txt = phase2_block(port, dev)
     max_err.update({name: 0 for name in dfl.KERNELS})
-    phase(2, f"K1-K4, batch K1/K2, band K3/K4 and the deflate kernels == "
-             f"plain on the card (max abs err {max_err}); {k1_txt}; "
+    max_err.update({name: inflate_err for name in inf.KERNELS})
+    phase(2, f"K1-K4, batch K1/K2, band K3/K4, the deflate kernels and the "
+             f"inflate kernels == plain on the card (max abs err {max_err}); {k1_txt}; "
              f"{k2_txt}; {batch_k_txt}; {shard_txt}; {stress_txt}; "
-             f"{block_txt}; {deflate_txt}")
+             f"{block_txt}; {deflate_txt}; {inflate_txt}")
 
     # -- phase 3: the parity cases through the main path ---------------------
     # Each path runs with the launch counts set to 0 just before it and is
     # read just after it (phase 6 checks them).
     tparity = cases.load_parity_tiled()
     paths, expected = {}, {}
-    kernel_names = rk.KERNELS + pk.KERNELS + dfl.KERNELS
+    kernel_names = rk.KERNELS + pk.KERNELS + dfl.KERNELS + inf.KERNELS
 
     def launches(**nonzero):
         """Launches by kernel: 0 for every kernel not named."""
@@ -3325,6 +3549,12 @@ def main() -> int:
     def deflated(n):
         """The deflate kernels of n single-image encodes on the card."""
         return {name: n for name in dfl.KERNELS}
+
+    def inflated(n):
+        """The inflate kernels of n single-image decodes of a deflate stego
+        on the card (the batch, tiled and volume decoders inflate on the
+        host; the golden fixtures' code 2 is the host's)."""
+        return {name: n for name in inf.KERNELS}
 
     def counted(path, fn):
         before = profiling.launches(kernel_names)
@@ -3374,7 +3604,8 @@ def main() -> int:
     counted("raster", lambda: run_cases("raster"))
     expected["raster"] = launches(raster_embed=n_path["raster"],
                                   raster_extract=n_path["raster"],
-                                  **deflated(n_path["raster"]))
+                                  **deflated(n_path["raster"]),
+                                  **inflated(n_path["raster"]))
     counted("pee", lambda: run_cases("pee"))
     pee_cfg = port.EncodeConfig(strategy="pee")
     groups = 0
@@ -3386,15 +3617,18 @@ def main() -> int:
             t0, [parse_pee_ext(res.meta.ext)[0]])
     expected["pee"] = launches(pee_embed=2 * groups,
                                pee_extract=2 * n_path["pee"],
-                               **deflated(n_path["pee"]))
-    # block_adaptive: torch ops on the card to encode (and the deflate
-    # kernels), the host to decode
+                               **deflated(n_path["pee"]),
+                               **inflated(n_path["pee"]))
+    # block_adaptive: torch ops on the card both ways, and the deflate and
+    # inflate kernels
     counted("block", lambda: run_cases("block"))
-    expected["block"] = launches(**deflated(n_path["block"]))
-    # the host embed route: no K1, host zlib; its containers decode
-    # through K2
+    expected["block"] = launches(**deflated(n_path["block"]),
+                                 **inflated(n_path["block"]))
+    # the host embed route: no K1, host zlib; its containers inflate on
+    # the card and decode through K2
     counted("host", lambda: run_cases("host"))
-    expected["host"] = launches(raster_extract=n_path["host"])
+    expected["host"] = launches(raster_extract=n_path["host"],
+                                **inflated(n_path["host"]))
     batch_txt, pee_batch = phase3_batch(port, results, parity, counted, dev)
     expected["pee_batch"] = launches(**pee_batch)
     f1_txt, f1_expected = phase3_f1(port, tparity, counted, dev)
@@ -3526,6 +3760,7 @@ def main() -> int:
                  cycle_of("pee_cr2048_u16_3m", pee_cfg), 3)
     time_codecs(port, results, smi, dev)
     deflate = time_deflate(smi, dev)
+    inflate = time_inflate(smi, dev)
     for op, (wall, daemon_ms) in serve_lat.items():
         print(f"  serve {op} 512x512 u16 (304 bits), warm daemon: "
               f"{wall:.2f} ms request round trip, {daemon_ms:.2f} ms in the "
@@ -3565,18 +3800,26 @@ def main() -> int:
         (name, "deflate_rle.cu", "io/codecs/__init__.py:108",
          big_dfl[name]["ms"], None, big_dfl[name]["bound"])
         for name in dfl.KERNELS)
+    # the inflate kernels replace host zlib's decode (DeflateCodec.decode)
+    big_inf = inflate["2048x2048"]
+    rows += tuple(
+        (name, "inflate.cu", "io/codecs/__init__.py:139",
+         big_inf[name]["ms"], None, big_inf[name]["bound"])
+        for name in inf.KERNELS)
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"codec_tcc_tpu_torch/csrc/{src}",
          "replaces": f"codec_tcc_tpu/{'' if '/' in tpu else 'ops/'}{tpu}",
          "launches": totals[name],
          "launches_by_path": {path: counts[name]
-                              for path, counts in paths.items()},
+                              for path, counts in paths.items()
+                              if name in counts},
          "max_abs_err": max_err[name],
          "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
          "bound_by": bnd[1],
-         "library_ms": (big_dfl[name]["library_ms"]
-                        if name in dfl.KERNELS else None)}
+         "library_ms": (big_dfl[name]["library_ms"] if name in dfl.KERNELS
+                        else big_inf[name]["library_ms"]
+                        if name in inf.KERNELS else None)}
         for name, src, tpu, ms, plain_ms, bnd in rows
     ]
     print(smi)

@@ -7,7 +7,8 @@ passes it through :func:`resolve_device`, which never picks a device itself:
 ``"cuda"`` without a usable GPU raises instead of running on the CPU.
 
 Every copy between the host and a CUDA device goes through :func:`upload`,
-:func:`to_device` or :func:`download`, which count its bytes in
+:func:`upload_bytes`, :func:`to_device` or :func:`download`, which count its
+bytes in
 ``profiling``'s ``h2d_bytes`` and ``d2h_bytes`` and in the innermost open
 span. A CPU tensor counts nothing, and neither does a copy between devices.
 """
@@ -21,7 +22,8 @@ import torch
 
 from . import profiling
 
-__all__ = ["DeviceLike", "resolve_device", "upload", "to_device", "download"]
+__all__ = ["DeviceLike", "resolve_device", "upload", "upload_bytes",
+           "to_device", "download"]
 
 DeviceLike = Union[torch.device, str]
 
@@ -56,6 +58,22 @@ def upload(arr: np.ndarray, dev: torch.device, *,
     if pinned:
         return t.pin_memory().to(dev, non_blocking=True)
     return t.to(dev)
+
+
+def upload_bytes(data, dev: torch.device, nbytes: int) -> torch.Tensor:
+    """A bytes-like ``data`` as a uint8 tensor of ``nbytes`` on ``dev`` (zeros
+    after ``data``), written once into pinned memory and copied on the
+    current stream without waiting."""
+    src = np.frombuffer(data, np.uint8)
+    cuda = torch.device(dev).type == "cuda"
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+    view = host.numpy()
+    view[:src.size] = src
+    view[src.size:] = 0
+    if not cuda:
+        return host.to(dev)
+    profiling.copied("h2d_bytes", nbytes)
+    return host.to(dev, non_blocking=True)
 
 
 def to_device(arr, dev: torch.device) -> torch.Tensor:

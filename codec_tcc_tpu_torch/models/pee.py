@@ -31,6 +31,7 @@ from ..io import container as container_io
 from ..io.codecs import get as get_codec
 from ..ops import deflate_rle
 from ..ops import embed as embed_ops
+from ..ops import inflate
 from ..ops import metrics as metric_ops
 from ..ops import pee as pee_ops
 from ..ops import pee_kernels
@@ -263,9 +264,11 @@ def decode_pee_container(
         parse_pee_container_parts(cont)
     )
     with stage("transport_decode"):
-        stego = get_codec(meta.codec).decode(cont.stego_blob)
+        stego, stego_dev = inflate.transport_decode(
+            get_codec(meta.codec), cont.stego_blob, device)
     if stego.dtype != meta.dtype:
         stego = stego.astype(meta.dtype)
+        stego_dev = None
     h, w = meta.height, meta.width
     if stego.shape != (h, w):
         raise ValueError(f"Decoded stego shape {stego.shape} != header {(h, w)}")
@@ -279,7 +282,8 @@ def decode_pee_container(
             [[nproc0], [nproc1 if passes == 2 else 0]], dtype=np.int32,
         ), device)
         img, b1, n1, b0, n0 = pee_kernels.extract_both_passes(
-            upload(stego, device)[None], upload(overflow, device)[None],
+            (upload(stego, device) if stego_dev is None else stego_dev)[None],
+            upload(overflow, device)[None],
             nproc[0], nproc[1], t, out_len,
         )
         n0, n1 = (int(v) for v in download(torch.cat([n0, n1])))

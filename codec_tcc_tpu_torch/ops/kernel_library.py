@@ -30,7 +30,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = ("raster_embed.cu", "raster_extract.cu", "pee_embed.cu",
-           "pee_extract.cu", "deflate_rle.cu")
+           "pee_extract.cu", "deflate_rle.cu", "inflate.cu")
 HEADERS = ("raster_common.cuh", "pee_common.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -161,6 +161,12 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = i64
     lib.deflate_rle_max_stream.argtypes = []
     lib.deflate_rle_max_stream.restype = i64
+    # words, stream bytes, image, pixels, itemsize, workspace, its bytes,
+    # stream
+    lib.inflate_sdfl.argtypes = [ptr, i64, ptr, i64, i32, ptr, i64, ptr]
+    lib.inflate_sdfl.restype = i32
+    lib.inflate_buffer_bytes.argtypes = [i64, i64]
+    lib.inflate_buffer_bytes.restype = i64
     lib.codec_kernels_error_string.argtypes = [i32]
     lib.codec_kernels_error_string.restype = ctypes.c_char_p
     return lib

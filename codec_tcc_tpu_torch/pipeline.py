@@ -10,7 +10,8 @@ the value histogram, the hybrid block scan, the raster embed (kernel K1,
 which also emits the bit-packed XOR maps) and the metric moments run on the
 device; the float64 cut-point replay, the segment plan, the deflate codec
 and the STGC container stay host code. Decode inflates the stego on the
-host, uploads it, extracts the payload bits with kernel K2 and restores the
+card where the stream allows (:mod:`.ops.inflate`, else on the host and
+uploads it), extracts the payload bits with kernel K2 and restores the
 original from the container's maps on the host.
 
 Strategy ``block_adaptive`` runs in torch ops on the device both ways
@@ -55,6 +56,7 @@ from .ops import blocks as block_ops
 from .ops import decompose as decompose_ops
 from .ops import deflate_rle
 from .ops import embed as embed_ops
+from .ops import inflate
 from .ops import metrics as metric_ops
 from .ops import raster_kernels
 from .ops import segments as segment_ops
@@ -489,7 +491,8 @@ def decode_container(
 
     with stage("transport_decode"):
         codec = get_codec(meta.codec)
-        stego = codec.decode(cont.stego_blob)
+        stego, stego_dev = inflate.transport_decode(codec, cont.stego_blob,
+                                                    dev)
     if meta.version == 1:
         # v1 headers record no dtype (the parse-time uint16 is a placeholder);
         # the decoded transport payload does (BitsAllocated in the embedded
@@ -497,11 +500,12 @@ def decode_container(
         meta.dtype = stego.dtype
     elif stego.dtype != meta.dtype:
         stego = stego.astype(meta.dtype)
+        stego_dev = None
     h, w = meta.height, meta.width
     if stego.shape != (h, w):
         raise ValueError(f"Decoded stego shape {stego.shape} != header {(h, w)}")
     if meta.strategy == "block_adaptive":
-        return _decode_block(cont, stego, restore_original, dev)
+        return _decode_block(cont, stego, restore_original, dev, stego_dev)
     n = h * w
     kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
 
@@ -512,7 +516,8 @@ def decode_container(
         # K2 reads only the payload's pixels and writes them in message
         # order: the only download is the payload itself
         bits = download(raster_kernels.raster_extract(
-            upload(stego, dev), starts, lengths, offsets, meta.s, out_len
+            upload(stego, dev) if stego_dev is None else stego_dev, starts,
+            lengths, offsets, meta.s, out_len
         ))[: meta.payload_bits]
 
     original = None
@@ -525,12 +530,14 @@ def decode_container(
 
 
 def _decode_block(cont: container_io.Container, stego: np.ndarray,
-                  restore_original: bool, dev: torch.device) -> DecodeResult:
+                  restore_original: bool, dev: torch.device,
+                  stego_dev: Optional[torch.Tensor] = None) -> DecodeResult:
     """The decode of a block_adaptive container whose stego the transport
-    codec has decoded, on ``dev``; the single, batch and tiled decoders
-    share it. The fill order is ranked from the restored original, so the
-    maps come first; the bits are then read through the base table the
-    encode wrote through."""
+    codec has decoded (``stego_dev``: the same image on ``dev``, where the
+    transport decode left it there), on ``dev``; the single, batch and
+    tiled decoders share it. The fill order is ranked from the restored
+    original, so the maps come first; the bits are then read through the
+    base table the encode wrote through."""
     meta = cont.meta
     kernel_bits = _plane_bucket(meta.s, stego.dtype.itemsize * 8)
     _, lengths, offsets = _plane_plan_from_meta(
@@ -545,7 +552,8 @@ def _decode_block(cont: container_io.Container, stego: np.ndarray,
     block = container_io.parse_block_ext(meta.ext)
     with stage("extract"):
         bits = download(embed_ops.extract_block_message(
-            stego, original, lengths, offsets, meta.s, kernel_bits, block,
+            stego if stego_dev is None else stego_dev, original, lengths,
+            offsets, meta.s, kernel_bits, block,
             max(int(meta.payload_bits), 1), dev,
         ))[: meta.payload_bits]
     return DecodeResult(

@@ -18,7 +18,11 @@
   ``d2h_bytes`` per copy (:mod:`.device` counts them), ``spans_dropped``,
   per block fill ``block.tiles_ranked`` and ``block.bits_placed``, and
   ``block.decode_device`` per single-image block decode whose fill runs on
-  a CUDA device (:mod:`.pipeline`);
+  a CUDA device (:mod:`.pipeline`); per deflate stream the codec encodes or
+  decodes, the side that did it (``codec.deflate_device`` /
+  ``codec.deflate_host``, ``codec.inflate_device`` / ``codec.inflate_host``)
+  and, per stream inflated on the card, ``inflate.blocks`` and
+  ``inflate.serial_blocks`` (:mod:`.ops.deflate_rle`, :mod:`.ops.inflate`);
 * ``Profiler`` — per-name wall, self time, calls and copy bytes, always
   on; ``reset()`` zeroes them with the counters and the span log;
 * ``trace_to(dir)`` — captures a ``torch.profiler`` trace (CPU, and CUDA

@@ -1,6 +1,8 @@
 """The port's CUDA kernels on a GPU: K1-K4, the batch forms of K1/K2 and
 the band launches of K3/K4 against their plain versions; the deflate
 kernels against host zlib, and the single-image encodes' use of them; the
+inflate kernels against host zlib, the single-image decodes' use of them
+and the host route of the streams they leave; the
 raster, PEE, block_adaptive, container batch, tiled (one image across a
 mesh of the card repeated) and ``dp`` (a batch split over such a mesh)
 encode paths against the CPU path; the device block
@@ -21,9 +23,12 @@ import torch
 from codec_tcc_tpu_torch import profiling
 import codec_tcc_tpu_torch as port
 import torch_deflate_cases as dc
+import torch_inflate_cases as ic
+import torch_inflate_plain as inflate_plain
 import torch_pee_stress as stress
 from codec_tcc_tpu_torch.io.codecs import get as get_codec
 from codec_tcc_tpu_torch.ops import deflate_rle as dfl
+from codec_tcc_tpu_torch.ops import inflate as inf
 from codec_tcc_tpu_torch.ops import raster_kernels as rk
 
 pytestmark = pytest.mark.cuda
@@ -1180,10 +1185,12 @@ def test_gpu_serve_daemon_matches_fixture(native, tmp_path):
 def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
     """One 512x512 u16 encode + decode on the card: the copy counters and
     each stage's span hold exactly the bytes its shapes give. Up: the
-    image, the message bits, the stego for K2. Down: the int64 value
+    image, the message bits, the deflate stream for the inflate kernels
+    (padded to whole words and two more). Down: the int64 value
     histogram, the int32 plane-0 tile popcounts of the hybrid scan, the
     stego, the packed maps of planes 0..s-1, the twelve float32 moments,
-    the deflate kernels' length and stream, and K2's bit row."""
+    the deflate kernels' length and stream, the inflate kernels' 16-byte
+    status and the inflated stego, and K2's bit row."""
     rng = np.random.default_rng(17)
     img = np.clip(rng.normal(2000, 300, (512, 512)), 0, 4095).astype(np.uint16)
     bits = rng.integers(0, 2, 304).astype(np.uint8)
@@ -1198,6 +1205,7 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
     finally:
         profiling.disable()
     np.testing.assert_array_equal(dec.payload_bits, bits)
+    stream = len(port.io.container.parse(res.container).stego_blob) - 13
     block = port.EncodeConfig().search_block_size
     expected = {
         "image_upload": (img.nbytes, 0),
@@ -1206,7 +1214,8 @@ def test_gpu_copy_bytes_are_the_shapes_bytes(cuda):
         "embed": (bits.size, img.nbytes + res.s * n // 8 + 12 * 4),
         "transport_codec": (0, 8 + len(get_codec("deflate").encode(
             res.stego))),
-        "extract": (img.nbytes, bits.size),
+        "transport_decode": (4 * ((stream + 3) // 4 + 2), 16 + img.nbytes),
+        "extract": (0, bits.size),
     }
     report = prof.report()
     for name, row in report.items():
@@ -1314,3 +1323,166 @@ def test_gpu_deflate_stream_over_the_limit_raises(cuda, monkeypatch):
     with pytest.raises(ValueError, match="exceeds"):
         dfl.encode_device(t)
     assert len(dfl.encode_device(t[:, :6].contiguous())) > 13
+
+
+# ---------------------------------------------------------------------------
+# the inflate kernels (csrc/inflate.cu)
+# ---------------------------------------------------------------------------
+
+
+def _inflate_payload(name):
+    if name.startswith("phantom_"):
+        shape, seed = name[len("phantom_"):].split("_seed")
+        h, w = (int(v) for v in shape.split("x"))
+        return ic.phantom_payload(h, w, int(seed))
+    return ic.payload(name)
+
+
+def _inflate_cap(blob):
+    code, h, w = inf.sdfl_fields(blob)
+    return inf.limits(len(blob) - inf.SDFL_HEADER,
+                      h * w * (2 if code == 3 else 1))[0]
+
+
+def _plain_counts(blob):
+    plain = inflate_plain.inflate_plain(blob, _inflate_cap(blob))
+    return plain.status, (plain.candidates, plain.blocks, plain.serial)
+
+
+@pytest.mark.parametrize("name", [
+    *ic.DEVICE, *(f"phantom_{h}x{w}_seed{seed}" for h, w in ic.PHANTOM_SHAPES
+                  for seed in ic.PHANTOM_SEEDS)])
+def test_inflate_kernels_give_zlibs_bytes_on_gpu(cuda, name):
+    """The kernels' image equals host zlib's (the deflate codec's decode):
+    the corpus, uint8, stored blocks only, one block, fixed-code blocks
+    (decoded by the chain itself: serial blocks), more blocks than the
+    emit's grid (the chain emits the rest), more candidates than the
+    measure takes (the chain decodes the blocks of those left out), and
+    the benchmark's phantoms at 512x512 and 2048x2048 on three seeds (no
+    serial block); one launch of each kernel a call, and the plain
+    version's counts (past the cap, the scan keeps candidates in no fixed
+    order, so fewer blocks may be serial than the plain version's)."""
+    blob = _inflate_payload(name)
+    before = profiling.launches(inf.KERNELS)
+    res = inf.inflate_device(blob, cuda)
+    after = profiling.launches(inf.KERNELS)
+    assert {k: after[k] - before[k] for k in inf.KERNELS} == \
+        {k: 1 for k in inf.KERNELS}
+    assert res.status == inf.OK, inf.STATUS.get(res.status)
+    assert np.array_equal(res.stego.cpu().numpy(),
+                          get_codec("deflate").decode(blob))
+    if name.startswith("phantom_"):
+        assert res.serial == 0 and res.candidates > 0
+    else:
+        status, (ncand, nblocks, nserial) = _plain_counts(blob)
+        assert (status, ncand, nblocks) == (inf.OK, res.candidates,
+                                            res.blocks)
+        if ncand <= _inflate_cap(blob):
+            assert res.serial == nserial
+        else:
+            assert res.serial <= nserial
+    if name.startswith("fixed_code"):
+        assert res.serial == res.blocks > 0
+
+
+def test_inflate_kernels_repeat_on_gpu(cuda):
+    """10 inflates of one 2048x2048 phantom give the same image."""
+    blob = ic.phantom_payload(2048, 2048, 3)
+    outs = {inf.inflate_device(blob, cuda).stego.cpu().numpy().tobytes()
+            for _ in range(10)}
+    assert outs == {get_codec("deflate").decode(blob).tobytes()}
+
+
+@pytest.mark.parametrize("name", ic.HOST)
+def test_gpu_decode_leaves_foreign_streams_to_the_host(cuda, name):
+    """A payload the kernels do not take, or whose status is not OK, is
+    the host codec's: its image (status FOREIGN), or its ``Invalid file:``
+    message word for word, counted on the host side; the kernels' status
+    is the plain version's."""
+    blob = ic.payload(name)
+    codec = get_codec("deflate")
+    try:
+        want, err = codec.decode(blob), None
+    except ValueError as exc:
+        want, err = None, str(exc)
+    if inf.device_route(codec, blob, cuda):
+        res = inf.inflate_device(blob, cuda)
+        assert res.status != inf.OK and res.stego is None
+        assert _plain_counts(blob)[0] == res.status
+    before = profiling.counters()
+    if err is None:
+        got, got_dev = inf.transport_decode(codec, blob, cuda)
+        assert got_dev is None and np.array_equal(got, want)
+    else:
+        with pytest.raises(ValueError) as info:
+            inf.transport_decode(codec, blob, cuda)
+        assert str(info.value) == err
+    after = profiling.counters()
+    assert after.get("codec.inflate_host", 0) - \
+        before.get("codec.inflate_host", 0) == 1
+    assert after.get("codec.inflate_device", 0) == \
+        before.get("codec.inflate_device", 0)
+
+
+def _inflate_counts_since(before):
+    after = profiling.counters()
+    return {k: after.get(k, 0) - before.get(k, 0)
+            for k in ["codec.inflate_device", "codec.inflate_host",
+                      "inflate.serial_blocks",
+                      *("launch." + k for k in inf.KERNELS)]}
+
+
+@pytest.mark.parametrize("strategy", ["hybrid", "pee", "block_adaptive"])
+def test_gpu_decode_inflates_the_stego_on_the_card(cuda, strategy):
+    """A single-image decode on the card inflates its stego with one launch
+    of each inflate kernel and gives the CPU path's payload, stego and
+    original."""
+    rng = np.random.default_rng(31)
+    img = np.clip(rng.normal(2000, 300, (96, 80)), 0, 4095).astype(np.uint16)
+    cfg = port.EncodeConfig(strategy=strategy)
+    res = port.encode_array(img, "gpu", cfg, bits_stored=12, device=cuda)
+    before = profiling.counters()
+    dec_g = port.decode_container(res.container, device=cuda)
+    counts = _inflate_counts_since(before)
+    blocks = profiling.counters().get("inflate.blocks", 0) - \
+        before.get("inflate.blocks", 0)
+    assert counts == {"codec.inflate_device": 1, "codec.inflate_host": 0,
+                      "inflate.serial_blocks": 0,
+                      **{"launch." + k: 1 for k in inf.KERNELS}}
+    assert blocks >= 1
+    dec_c = port.decode_container(res.container, device="cpu")
+    np.testing.assert_array_equal(dec_g.payload_bits, dec_c.payload_bits)
+    np.testing.assert_array_equal(dec_g.stego, dec_c.stego)
+    np.testing.assert_array_equal(dec_g.original, dec_c.original)
+    np.testing.assert_array_equal(dec_g.original, img)
+
+
+@pytest.mark.parametrize("name", ["golden_hybrid", "golden_hybrid_packed",
+                                  "golden_multi_plane",
+                                  "golden_block_adaptive", "golden_pee"])
+def test_gpu_golden_containers_decode_as_on_the_cpu(cuda, name):
+    """The golden containers (interleaved SDFL code 2, the host's) decode on
+    the card as on the CPU, through host zlib; their stego deflated as the
+    codec writes it now (code 3) inflates on the card to the same image."""
+    import os
+
+    from codec_tcc_tpu_torch.io import container as container_io
+
+    path = os.path.join(os.path.dirname(__file__), "data", f"{name}.stgc")
+    with open(path, "rb") as f:
+        blob = f.read()
+    before = profiling.counters()
+    dec_g = port.decode_container(blob, device=cuda)
+    counts = _inflate_counts_since(before)
+    assert counts["codec.inflate_host"] == 1
+    assert counts["codec.inflate_device"] == 0
+    dec_c = port.decode_container(blob, device="cpu")
+    np.testing.assert_array_equal(dec_g.payload_bits, dec_c.payload_bits)
+    np.testing.assert_array_equal(dec_g.stego, dec_c.stego)
+    if dec_c.original is not None:
+        np.testing.assert_array_equal(dec_g.original, dec_c.original)
+    codec = get_codec("deflate")
+    stego = codec.decode(container_io.parse(blob).stego_blob)
+    res = inf.inflate_device(codec.encode(stego), cuda)
+    assert res.status == inf.OK
+    assert np.array_equal(res.stego.cpu().numpy(), stego)
