@@ -31,10 +31,27 @@ count in one copy.
 
 Pixels never move between bands. Containers are byte-identical to the
 single-device PEE encoder's (:func:`..models.pee.encode_pee_array`).
+
+The stego is joined on the first band's device and takes the
+single-image routes' transport, which picks the codec from that device:
+on a CUDA device the encode deflates it on the card
+(:func:`..ops.deflate_rle.transport_encode`) while the host compresses
+the overflow map, packed on the same device, and the decode inflates it
+there (:func:`..ops.inflate.transport_decode`) and splits the bands from
+the device image; on the CPU both go to the host codec.
+
+Spans and counters (:mod:`..profiling`): the entry points' own spans; the
+single PEE route's stages where the same work runs (``image_upload``,
+``pee_histogram``, ``embed``, ``transport_codec``, ``transport_decode``,
+``extract``, ``restore``); ``band_pass`` around each pass over the bands,
+inside ``embed`` or ``extract``; the counters ``tile.band_passes`` (those
+passes), ``tile.bands`` (live bands launched, summed over the passes) and
+``tile.attempts`` (the encode's T attempts).
 """
 
 from __future__ import annotations
 
+import functools
 import zlib
 from typing import Optional, Union
 
@@ -45,12 +62,16 @@ from ..config import EncodeConfig
 from ..device import download
 from ..io import container as container_io
 from ..io.codecs import get as get_codec
+from ..ops import deflate_rle
+from ..ops import embed as embed_ops
+from ..ops import inflate
 from ..ops import metrics as metric_ops
 from ..ops import pee as pee_ops
 from ..ops import pee_kernels
+from ..profiling import count, entry, stage
 from ..utils.logging import get_logger
 from .mesh import Mesh, device_guard
-from .tile import Bands, _on_devices, join_rows, shard_rows, split_rows
+from .tile import Bands, _on_devices, shard_rows, split_rows
 
 logger = get_logger("parallel.tile_pee")
 
@@ -82,6 +103,26 @@ def _live(bands: Bands):
     return {k: k * lh for k, band in enumerate(bands) if band.numel()}
 
 
+def _gathered(bands: Bands) -> torch.Tensor:
+    """A row-split image's bands joined on the first band's device."""
+    first = bands[0].device
+    return torch.cat([band.to(first) for band in bands])
+
+
+def _band_pass(fn):
+    """A pass over the bands: its ``band_pass`` span and one
+    ``tile.band_passes``."""
+
+    @functools.wraps(fn)
+    def spanned(*args, **kwargs):
+        count("tile.band_passes")
+        with stage("band_pass"):
+            return fn(*args, **kwargs)
+
+    return spanned
+
+
+@_band_pass
 def embed_pass_tiled(
     image, msg_bits, msg_base: int, want: int, parity: int, t: int,
     max_val: int, mesh: Mesh, axis: str = "tile",
@@ -97,6 +138,7 @@ def embed_pass_tiled(
     msgs = msg_bits if isinstance(msg_bits, dict) else _on_devices(
         np.asarray(msg_bits)[None], bands)
     halos = {k: _halo_rows(bands, k) for k in row0}
+    count("tile.bands", len(row0))
 
     # the rank prefix: every band's per-tile eligible counts, gathered on
     # the first device; band k's rank base is the sum of the rows above it
@@ -131,6 +173,7 @@ def embed_pass_tiled(
     return stego, over, used, n_proc
 
 
+@_band_pass
 def extract_pass_tiled(
     stego, overflow, n_proc: int, parity: int, t: int, out_len: int,
     mesh: Mesh, axis: str = "tile",
@@ -146,7 +189,9 @@ def extract_pass_tiled(
     first = bands[0].device
     restored = list(bands)
     nbits, rows = [], []
-    for k, row0 in _live(bands).items():
+    live = _live(bands)
+    count("tile.bands", len(live))
+    for k, row0 in live.items():
         with device_guard(bands[k].device):
             r_k, bits_k, n_k = pee_kernels.pee_extract_band(
                 bands[k][None], *_halo_rows(bands, k), row0, h,
@@ -182,6 +227,7 @@ def _capacity_histogram_tiled(bands: Bands, parity: int, t_max: int,
     return np.sum(hist, axis=0)
 
 
+@entry
 def encode_array_tiled_pee(
     image: np.ndarray,
     payload,
@@ -214,16 +260,18 @@ def encode_array_tiled_pee(
     msg_pad = np.zeros(lpad, dtype=np.uint8)
     msg_pad[:total_bits] = msg_bits
 
-    img0 = split_rows(image, mesh, axis)
-    msgs = _on_devices(msg_pad[None], img0)
+    with stage("image_upload"):
+        img0 = split_rows(image, mesh, axis)
+        msgs = _on_devices(msg_pad[None], img0)
 
     # histogram-driven threshold selection — identical rule to
     # models.pee.encode_pee_array, so the container stays byte-identical to
     # the single-device encoder's; each band's histogram, summed
-    cap0 = pee_ops.capacities_by_threshold(
-        _capacity_histogram_tiled(img0, 0, _MAX_T, max_val))
-    cap1 = pee_ops.capacities_by_threshold(
-        _capacity_histogram_tiled(img0, 1, _MAX_T, max_val))
+    with stage("pee_histogram"):
+        cap0 = pee_ops.capacities_by_threshold(
+            _capacity_histogram_tiled(img0, 0, _MAX_T, max_val))
+        cap1 = pee_ops.capacities_by_threshold(
+            _capacity_histogram_tiled(img0, 1, _MAX_T, max_val))
     t = select_threshold(cap0, cap1, total_bits, config.pee_threshold)
     if t is None:
         t = _MAX_T  # one exact attempt (the histogram only schedules)
@@ -233,39 +281,45 @@ def encode_array_tiled_pee(
                                 mesh, axis)
 
     result = None
-    while t <= _MAX_T:
-        s0, o0, used0, n0 = run_pass(img0, 0, total_bits, 0, t)
-        want1 = total_bits - used0
-        if want1 <= 0:
-            result = (t, s0, o0, used0, n0, None, 0, 0, 1)
+    with stage("embed"):
+        while t <= _MAX_T:
+            count("tile.attempts")
+            s0, o0, used0, n0 = run_pass(img0, 0, total_bits, 0, t)
+            want1 = total_bits - used0
+            if want1 <= 0:
+                result = (t, s0, o0, used0, n0, None, 0, 0, 1)
+                break
+            # pass 1 runs on pass 0's stego bands, where they lie: the halo
+            # rows come from pass 0's stego
+            s1, o1, u1, n1 = run_pass(s0, used0, want1, 1, t)
+            if u1 < want1:
+                t += 1  # pass-interaction shortfall of the estimate; escalate
+                continue
+            result = (t, s1, o0, used0, n0, o1, u1, n1, 2)
             break
-        # pass 1 runs on pass 0's stego bands, where they lie: the halo
-        # rows come from pass 0's stego
-        s1, o1, u1, n1 = run_pass(s0, used0, want1, 1, t)
-        if u1 < want1:
-            t += 1  # pass-interaction shortfall of the estimate; escalate
-            continue
-        result = (t, s1, o0, used0, n0, o1, u1, n1, 2)
-        break
-    if result is None:
-        raise CapacityError(
-            f"payload of {total_bits} bits exceeds PEE capacity even at "
-            f"T={_MAX_T}"
-        )
-    t, stego_d, over0, used0, nproc0, over1, used1, nproc1, passes = result
-    stego_np = join_rows(stego_d)
-    over = over0 if over1 is None else [a | b for a, b in zip(over0, over1)]
-    # the blob's zlib input: the h*w-bit map packed MSB-first, as the
-    # single-device encoder's
-    map_blob = zlib.compress(np.packbits(join_rows(over).reshape(-1)).tobytes())
+        if result is None:
+            raise CapacityError(
+                f"payload of {total_bits} bits exceeds PEE capacity even at "
+                f"T={_MAX_T}"
+            )
+        t, stego_d, over0, used0, nproc0, over1, used1, nproc1, passes = result
+        over = over0 if over1 is None else [a | b for a, b in zip(over0, over1)]
+        stego_dev = _gathered(stego_d)
+        stego_np = download(stego_dev)
+        # the blob's zlib input: the h*w-bit map packed MSB-first on the
+        # first band's device, as the single-device encoder's
+        packed_over = download(
+            embed_ops.pack_bits_batch(_gathered(over)[None])[0])
+        metrics = None
+        if config.compute_metrics:
+            metrics = metric_ops.encode_report(
+                pair_stats_tiled(img0, stego_d, mesh, axis), image, stego_np)
 
-    metrics = None
-    if config.compute_metrics:
-        metrics = metric_ops.quality_report(
-            pair_stats_tiled(img0, stego_d, mesh, axis)
-        )
-
-    stego_blob = get_codec(config.codec).encode(stego_np)
+    with stage("transport_codec"):
+        stego_bytes = deflate_rle.transport_encode(
+            get_codec(config.codec), stego_np, stego_dev)
+        map_blob = zlib.compress(packed_over.tobytes())
+        stego_blob = stego_bytes()
     ext = container_io.pack_pee_ext(t, passes, nproc0, nproc1, used0, used1)
     meta = container_io.ContainerMeta(
         version=2, codec=config.codec, strategy="pee", s=0,
@@ -290,6 +344,7 @@ def encode_array_tiled_pee(
     )
 
 
+@entry
 def decode_container_tiled_pee(
     data: Union[bytes, container_io.Container],
     mesh: Mesh,
@@ -313,9 +368,15 @@ def decode_container_tiled_pee(
     (t, passes, nproc0, nproc1, bits0, bits1), overflow = (
         parse_pee_container_parts(cont)
     )
-    stego = get_codec(meta.codec).decode(cont.stego_blob)
+    # inflated on the first band's device: on the card by the kernels, on
+    # the CPU by the host codec
+    with stage("transport_decode"):
+        stego, stego_dev = inflate.transport_decode(
+            get_codec(meta.codec), cont.stego_blob,
+            mesh.axis_devices(axis)[0])
     if stego.dtype != meta.dtype:
         stego = stego.astype(meta.dtype)
+        stego_dev = None
     h, w = meta.height, meta.width
     if stego.shape != (h, w):
         raise ValueError(
@@ -323,21 +384,27 @@ def decode_container_tiled_pee(
             f"{(h, w)}")
     out_len = 1 << max(3, (max(int(meta.payload_bits), 1) - 1).bit_length())
 
-    # split the stego and the overflow map once; the inter-pass image stays
-    # on the bands' devices
-    img = split_rows(stego, mesh, axis)
-    over = split_rows(np.asarray(overflow, dtype=np.uint8), mesh, axis)
-    bits1_arr = np.zeros(0, dtype=np.uint8)
-    if passes == 2:
-        img, b1, n1 = extract_pass_tiled(img, over, nproc1, 1, t, out_len,
+    with stage("extract"):
+        # split the stego (from its device image where the kernels
+        # inflated it) and the overflow map once; the inter-pass image
+        # stays on the bands' devices
+        img = split_rows(stego if stego_dev is None else stego_dev, mesh,
+                         axis)
+        over = split_rows(overflow, mesh, axis)
+        bits1_arr = np.zeros(0, dtype=np.uint8)
+        if passes == 2:
+            img, b1, n1 = extract_pass_tiled(img, over, nproc1, 1, t,
+                                             out_len, mesh, axis)
+            bits1_arr = b1[:n1]
+        img, b0, n0 = extract_pass_tiled(img, over, nproc0, 0, t, out_len,
                                          mesh, axis)
-        bits1_arr = b1[:n1]
-    img, b0, n0 = extract_pass_tiled(img, over, nproc0, 0, t, out_len,
-                                     mesh, axis)
-    bits0_arr = b0[:n0]
+        bits0_arr = b0[:n0]
 
     payload_bits = np.concatenate([bits0_arr, bits1_arr])[: meta.payload_bits]
-    original = join_rows(img) if restore_original else None
+    original = None
+    if restore_original:
+        with stage("restore"):
+            original = download(_gathered(img))
     return DecodeResult(
         payload_bits=payload_bits.astype(np.uint8),
         stego=stego,

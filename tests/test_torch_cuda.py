@@ -1457,6 +1457,38 @@ def test_gpu_decode_inflates_the_stego_on_the_card(cuda, strategy):
     np.testing.assert_array_equal(dec_g.original, img)
 
 
+@pytest.mark.parametrize("h,w,nbits", [(512, 512, 100_000),
+                                       (4096, 3328, 6_000_000)])
+def test_gpu_tiled_pee_codes_the_stego_on_the_card(cuda, h, w, nbits):
+    """The tiled PEE route over 4 bands of ``cuda:0`` (the 4096x3328 frame
+    is ``TILED_BIG``'s parity case): one request deflates and inflates its
+    stego on the card, never on the host, with no serial inflate block,
+    gives ``encode_array``'s container and decodes exactly."""
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    img = cases.image(cases.Case("t", h, w, "uint16", 12, "text", "pee", 41))
+    bits = np.random.default_rng(h).integers(0, 2, nbits, dtype=np.uint8)
+    cfg = port.EncodeConfig(strategy="pee")
+    mesh = make_mesh(devices=["cuda:0"] * 4, axes=("tile",))
+    keys = ("codec.deflate_device", "codec.deflate_host",
+            "codec.inflate_device", "codec.inflate_host",
+            "inflate.serial_blocks")
+    before = profiling.counters()
+    res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh,
+                                          bits_stored=12)
+    dec = tile_pee.decode_container_tiled_pee(res.container, mesh)
+    after = profiling.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in keys} == {
+        "codec.deflate_device": 1, "codec.deflate_host": 0,
+        "codec.inflate_device": 1, "codec.inflate_host": 0,
+        "inflate.serial_blocks": 0}
+    assert res.container == port.encode_array(img, bits, cfg, bits_stored=12,
+                                              device=cuda).container
+    np.testing.assert_array_equal(dec.payload_bits, bits)
+    np.testing.assert_array_equal(dec.original, img)
+
+
 @pytest.mark.parametrize("name", ["golden_hybrid", "golden_hybrid_packed",
                                   "golden_multi_plane",
                                   "golden_block_adaptive", "golden_pee"])
