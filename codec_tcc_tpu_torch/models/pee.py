@@ -1,6 +1,7 @@
 # Port of codec_tcc_tpu/models/pee.py: the XLA branch of the encoder and the
 # decoder, on the caller's device. select_threshold and
-# parse_pee_container_parts are copies of the originals.
+# parse_pee_container_parts are copies of the originals; the decoders parse
+# through parse_pee_container_packed, which keeps the overflow map packed.
 """PEE embedder model: pipeline + container integration.
 
 Prediction-error expansion end to end, on top of :mod:`..ops.pee` and the
@@ -36,7 +37,8 @@ from ..ops import metrics as metric_ops
 from ..ops import pee as pee_ops
 from ..ops import pee_kernels
 from ..ops.decompose import DecompositionResult
-from ..profiling import stage
+from ..profiling import count, stage
+from ..utils.bits import bounded_inflate, expand_bits
 from ..utils.logging import get_logger
 
 logger = get_logger("models.pee")
@@ -254,14 +256,78 @@ def parse_pee_container_parts(cont: container_io.Container):
     return ext, overflow[: h * w].reshape(h, w).astype(bool)
 
 
+def parse_pee_container_packed(cont: container_io.Container):
+    """:func:`parse_pee_container_parts`' checks and ``Invalid file:``
+    messages, without the map's expansion: returns ``(ext_tuple, raw)``,
+    ``raw`` the inflated overflow map packed MSB-first over the flat image
+    (at least ``ceil(h*w/8)`` bytes), for :func:`overflow_map_on`."""
+    meta = cont.meta
+    if len(meta.ext) < struct.calcsize(container_io._PEE_EXT_FMT):
+        raise ValueError(
+            "Invalid file: truncated PEE extension block "
+            f"({len(meta.ext)} bytes, need "
+            f"{struct.calcsize(container_io._PEE_EXT_FMT)})"
+        )
+    ext = _parse_ext(meta.ext)
+    h, w = meta.height, meta.width
+    # n feeds the inflate bound: never trust a meta that arrived by another
+    # route than container.parse
+    container_io._check_dims(w, h, meta.s)
+    t_val, passes, nproc0, nproc1, bits0, bits1 = ext
+    n = h * w
+    if not (1 <= t_val <= _MAX_T) or passes not in (1, 2):
+        raise ValueError(
+            f"Invalid file: PEE ext out of range (T={t_val}, passes={passes})"
+        )
+    if not (0 <= nproc0 <= n and 0 <= nproc1 <= n
+            and 0 <= bits0 <= n and 0 <= bits1 <= n):
+        raise ValueError(
+            "Invalid file: PEE ext boundaries exceed the image size "
+            f"({nproc0}, {nproc1}, {bits0}, {bits1} vs {n} pixels)"
+        )
+    if meta.payload_bits > bits0 + bits1:
+        raise ValueError(
+            f"Invalid file: payload_bits {meta.payload_bits} exceeds the "
+            f"recorded pass totals ({bits0} + {bits1})"
+        )
+    # the map is pack_bits of n pixels (device packing may lane-pad the
+    # tail); bound the untrusted inflate at that size plus the padding slack
+    raw = bounded_inflate(
+        cont.bitmaps_blob, (n + 7) // 8 + 4096, "PEE overflow map blob"
+    )
+    if 8 * len(raw) < n:
+        raise ValueError(
+            f"Invalid file: PEE overflow map holds {8 * len(raw)} bits, "
+            f"image needs {n}"
+        )
+    return ext, raw
+
+
+def overflow_map_on(raw: bytes, h: int, w: int, dev) -> torch.Tensor:
+    """The ``(h, w)`` uint8 overflow map on ``dev`` from the packed bytes of
+    :func:`parse_pee_container_packed` (bits past ``h*w`` dropped). On a
+    CUDA device the ``ceil(h*w/8)`` packed bytes go up and expand there
+    (``pee.map_device``); elsewhere the host's LUT expands them
+    (``pee.map_host``), many times faster than torch's shifts on a CPU."""
+    n = h * w
+    packed = np.frombuffer(raw, np.uint8, count=(n + 7) // 8)
+    if torch.device(dev).type == "cuda":
+        count("pee.map_device")
+        bits = embed_ops.expand_bits_tensor(upload(packed, dev))
+    else:
+        count("pee.map_host")
+        bits = upload(expand_bits(packed), dev)
+    return bits[:n].view(h, w)
+
+
 def decode_pee_container(
     cont: container_io.Container, *, restore_original: bool = True, device
 ):
     from ..pipeline import DecodeResult
 
     meta = cont.meta
-    (t, passes, nproc0, nproc1, bits0, bits1), overflow = (
-        parse_pee_container_parts(cont)
+    (t, passes, nproc0, nproc1, bits0, bits1), raw = (
+        parse_pee_container_packed(cont)
     )
     with stage("transport_decode"):
         stego, stego_dev = inflate.transport_decode(
@@ -283,7 +349,7 @@ def decode_pee_container(
         ), device)
         img, b1, n1, b0, n0 = pee_kernels.extract_both_passes(
             (upload(stego, device) if stego_dev is None else stego_dev)[None],
-            upload(overflow, device)[None],
+            overflow_map_on(raw, h, w, device)[None],
             nproc[0], nproc[1], t, out_len,
         )
         n0, n1 = (int(v) for v in download(torch.cat([n0, n1])))

@@ -54,6 +54,7 @@ __all__ = [
     "extract_block_message",
     "xor_maps_packed_batch",
     "pack_bits_batch",
+    "expand_bits_tensor",
     "restore_original",
     "pad_message",
 ]
@@ -216,6 +217,15 @@ def pack_bits_batch(bits: torch.Tensor) -> torch.Tensor:
         flat = torch.nn.functional.pad(flat, (0, pad))
     w = 1 << torch.arange(7, -1, -1, dtype=torch.int32, device=flat.device)
     return (flat.view(b, -1, 8) * w).sum(dim=-1).to(torch.uint8)
+
+
+def expand_bits_tensor(packed: torch.Tensor) -> torch.Tensor:
+    """``(..., nb) uint8`` MSB-first packed bytes -> ``(..., nb*8) uint8``
+    0/1 bits on their device: :func:`..utils.bits.expand_bits` as torch
+    ops, the inverse of :func:`pack_bits_batch`. The PEE decoders expand
+    the overflow map with it on a CUDA device."""
+    shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=packed.device)
+    return ((packed[..., None] >> shifts) & 1).flatten(-2)
 
 
 def restore_original(

@@ -48,7 +48,7 @@ from ..models.pee import (
 from ..ops import embed as embed_ops
 from ..ops import pee as pee_ops
 from ..ops import pee_kernels
-from ..profiling import stage
+from ..profiling import count, stage
 from ..utils.logging import get_logger
 from ..utils.pool import host_workers
 from .mesh import device_guard, dp_shards
@@ -315,6 +315,7 @@ def decode_pee_batch(
         key = (c.meta.width, c.meta.height, c.meta.bits_stored,
                str(np.dtype(c.meta.dtype)), c.meta.codec, ext[0])
         groups.setdefault(key, []).append(j)
+    count("pee.map_host", len(conts))
 
     results: List = [None] * len(conts)
     for idxs in groups.values():

@@ -38,7 +38,9 @@ on a CUDA device the encode deflates it on the card
 (:func:`..ops.deflate_rle.transport_encode`) while the host compresses
 the overflow map, packed on the same device, and the decode inflates it
 there (:func:`..ops.inflate.transport_decode`) and splits the bands from
-the device image; on the CPU both go to the host codec.
+the device image; on the CPU both go to the host codec. The decode's
+overflow map goes up packed and expands on that device
+(:func:`..models.pee.overflow_map_on`) before its bands split.
 
 Spans and counters (:mod:`..profiling`): the entry points' own spans; the
 single PEE route's stages where the same work runs (``image_upload``,
@@ -46,7 +48,8 @@ single PEE route's stages where the same work runs (``image_upload``,
 ``extract``, ``restore``); ``band_pass`` around each pass over the bands,
 inside ``embed`` or ``extract``; the counters ``tile.band_passes`` (those
 passes), ``tile.bands`` (live bands launched, summed over the passes) and
-``tile.attempts`` (the encode's T attempts).
+``tile.attempts`` (the encode's T attempts), and the decode's
+``pee.map_device`` or ``pee.map_host``.
 """
 
 from __future__ import annotations
@@ -355,7 +358,7 @@ def decode_container_tiled_pee(
     """Tile-sharded PEE decode: the stego rows stay on their band's device
     through both inverse passes; each band's bits land at the count of the
     bands above it."""
-    from ..models.pee import parse_pee_container_parts
+    from ..models.pee import overflow_map_on, parse_pee_container_packed
     from ..pipeline import DecodeResult
 
     cont = (
@@ -365,15 +368,15 @@ def decode_container_tiled_pee(
     meta = cont.meta
     if meta.strategy != "pee":
         raise ValueError(f"not a PEE container (strategy={meta.strategy})")
-    (t, passes, nproc0, nproc1, bits0, bits1), overflow = (
-        parse_pee_container_parts(cont)
+    (t, passes, nproc0, nproc1, bits0, bits1), raw = (
+        parse_pee_container_packed(cont)
     )
     # inflated on the first band's device: on the card by the kernels, on
     # the CPU by the host codec
+    first = mesh.axis_devices(axis)[0]
     with stage("transport_decode"):
         stego, stego_dev = inflate.transport_decode(
-            get_codec(meta.codec), cont.stego_blob,
-            mesh.axis_devices(axis)[0])
+            get_codec(meta.codec), cont.stego_blob, first)
     if stego.dtype != meta.dtype:
         stego = stego.astype(meta.dtype)
         stego_dev = None
@@ -386,11 +389,11 @@ def decode_container_tiled_pee(
 
     with stage("extract"):
         # split the stego (from its device image where the kernels
-        # inflated it) and the overflow map once; the inter-pass image
-        # stays on the bands' devices
+        # inflated it) and the overflow map, expanded on the first band's
+        # device, once; the inter-pass image stays on the bands' devices
         img = split_rows(stego if stego_dev is None else stego_dev, mesh,
                          axis)
-        over = split_rows(overflow, mesh, axis)
+        over = split_rows(overflow_map_on(raw, h, w, first), mesh, axis)
         bits1_arr = np.zeros(0, dtype=np.uint8)
         if passes == 2:
             img, b1, n1 = extract_pass_tiled(img, over, nproc1, 1, t,

@@ -23,6 +23,10 @@
   ``codec.deflate_host``, ``codec.inflate_device`` / ``codec.inflate_host``)
   and, per stream inflated on the card, ``inflate.blocks`` and
   ``inflate.serial_blocks`` (:mod:`.ops.deflate_rle`, :mod:`.ops.inflate`);
+  per PEE decode, where its overflow map was expanded: ``pee.map_device``
+  (packed up, expanded on a CUDA device) or ``pee.map_host`` (expanded on
+  the host: a CPU device, or a container of a batch decode)
+  (:mod:`.models.pee`, :mod:`.parallel.batch_pee`);
 * ``Profiler`` — per-name wall, self time, calls and copy bytes, always
   on; ``reset()`` zeroes them with the counters and the span log;
 * ``trace_to(dir)`` — captures a ``torch.profiler`` trace (CPU, and CUDA

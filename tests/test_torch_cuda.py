@@ -1489,6 +1489,80 @@ def test_gpu_tiled_pee_codes_the_stego_on_the_card(cuda, h, w, nbits):
     np.testing.assert_array_equal(dec.original, img)
 
 
+def _pee_map_decode(decode, blob):
+    """Run ``decode(blob)`` with the copy counters reset: returns its result,
+    the ``pee.map_*`` counts, and the host-to-device bytes in all, in
+    ``transport_decode`` and in ``extract``."""
+    prof = profiling.get_profiler()
+    prof.reset()
+    dec = decode(blob)
+    counters = profiling.counters()
+    report = prof.report()
+    prof.reset()
+    maps = {k: counters.get(k, 0) for k in ("pee.map_device", "pee.map_host")}
+    return dec, maps, counters.get("h2d_bytes", 0), \
+        report["transport_decode"]["h2d_bytes"], report["extract"]["h2d_bytes"]
+
+
+@pytest.mark.parametrize("payload", ["text", "bits:3000000"])
+def test_gpu_pee_decode_expands_the_map_on_the_card(cuda, payload):
+    """A 2048x2048 PEE decode on the card (304 bits, one pass; 3 Mbit, two)
+    uploads the overflow map packed, ``ceil(h*w/8)`` bytes in ``extract``
+    beside the two pass boundaries, and expands it there: one
+    ``pee.map_device``, no ``pee.map_host``, no ``h*w``-byte map upload, and
+    the CPU decode's payload, stego and original."""
+    import torch_port_cases as cases
+
+    seed = cases.BY_NAME["pee_cr2048_u16_3m"].seed
+    case = cases.Case("t", 2048, 2048, "uint16", 12, payload, "pee", seed)
+    img, bits = cases.image(case), cases.payload_bits(case, 0)
+    res = port.encode_array(img, bits, port.EncodeConfig(strategy="pee"),
+                            bits_stored=12, device=cuda)
+    n = img.size
+    dec_g, maps, h2d, h2d_stream, h2d_extract = _pee_map_decode(
+        lambda b: port.decode_container(b, device=cuda), res.container)
+    assert maps == {"pee.map_device": 1, "pee.map_host": 0}
+    assert h2d_extract == (n + 7) // 8 + 8
+    assert h2d == h2d_stream + h2d_extract
+    assert h2d_stream < len(res.container)
+    dec_c = port.decode_container(res.container, device="cpu")
+    np.testing.assert_array_equal(dec_g.payload_bits, dec_c.payload_bits)
+    np.testing.assert_array_equal(dec_g.payload_bits, bits)
+    np.testing.assert_array_equal(dec_g.stego, dec_c.stego)
+    np.testing.assert_array_equal(dec_g.original, dec_c.original)
+    np.testing.assert_array_equal(dec_g.original, img)
+
+
+@pytest.mark.parametrize("nbits", [304, 200_000])
+def test_gpu_tiled_pee_decode_expands_the_map_on_the_card(cuda, nbits):
+    """The tiled PEE decode over four bands of ``cuda:0`` of a 1024x832
+    image expands the packed map once on the first band's device and splits
+    it: the same counts and ``ceil(h*w/8)`` map bytes up as the single
+    decode, and the CPU decode's payload, stego and original."""
+    import torch_port_cases as cases
+    from codec_tcc_tpu_torch.parallel import make_mesh, tile_pee
+
+    img = cases.image(cases.Case("t", 1024, 832, "uint16", 12, "text", "pee",
+                                 43))
+    bits = np.random.default_rng(nbits).integers(0, 2, nbits, dtype=np.uint8)
+    cfg = port.EncodeConfig(strategy="pee")
+    mesh = make_mesh(devices=["cuda:0"] * 4, axes=("tile",))
+    res = tile_pee.encode_array_tiled_pee(img, bits, cfg, mesh,
+                                          bits_stored=12)
+    n = img.size
+    dec_g, maps, h2d, h2d_stream, h2d_extract = _pee_map_decode(
+        lambda b: tile_pee.decode_container_tiled_pee(b, mesh),
+        res.container)
+    assert maps == {"pee.map_device": 1, "pee.map_host": 0}
+    assert h2d_extract == (n + 7) // 8
+    assert h2d == h2d_stream + h2d_extract
+    dec_c = port.decode_container(res.container, device="cpu")
+    np.testing.assert_array_equal(dec_g.payload_bits, dec_c.payload_bits)
+    np.testing.assert_array_equal(dec_g.payload_bits, bits)
+    np.testing.assert_array_equal(dec_g.stego, dec_c.stego)
+    np.testing.assert_array_equal(dec_g.original, img)
+
+
 @pytest.mark.parametrize("name", ["golden_hybrid", "golden_hybrid_packed",
                                   "golden_multi_plane",
                                   "golden_block_adaptive", "golden_pee"])
