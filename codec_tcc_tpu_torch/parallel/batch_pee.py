@@ -21,6 +21,13 @@ Each image gets its own self-contained STGC-v2 container (strategy 4,
 per-image T in the PEE ext), byte-identical to the JAX package's, so any
 decoder reads it; :func:`decode_pee_batch` decodes each group of equal
 geometry and T with one K4 launch per pass.
+
+Its stages take the raster batch route's names: ``batch_plan`` (the start
+thresholds' histograms), ``batch_embed`` (the attempt groups) and
+``batch_pack`` (the containers' zlib); in the decode ``batch_codec_decode``
+and ``batch_extract`` (K4). Counters: ``pee.batch_groups`` per equal-T
+attempt group, ``pee.batch_escalated`` per image re-queued at T + 1,
+``pee.decode_groups`` per K4 group and ``pee.map_host`` per container.
 """
 
 from __future__ import annotations
@@ -128,7 +135,7 @@ def _start_thresholds(imgs, want, max_val: int, t_min: int) -> np.ndarray:
     per pass of the batch ``imgs`` on its device, or of each of its ``dp``
     shards (a list of tensors). A shortfall then escalates T by one per
     round."""
-    with stage("pee_histogram"):
+    with stage("batch_plan"):
         per_shard = []
         for part in (imgs if isinstance(imgs, list) else [imgs]):
             with device_guard(part.device):
@@ -169,8 +176,12 @@ def _run_passes(img_parts, msg_parts, idxs, b: int, want: np.ndarray,
     """Both PEE passes over the attempt group ``idxs`` of a batch of ``b``,
     split over the ``dp`` devices where the JAX package shards it (the
     group's power-of-two size a multiple of the mesh's size), every shard
-    launched before any is read back. Returns numpy ``(stego, packed
-    overflow, used0, nproc0, used1, nproc1)`` in ``idxs`` order."""
+    launched before any is read back. Returns numpy ``(fits, stego, packed
+    overflow, used0, nproc0, used1, nproc1)`` in ``idxs`` order: ``fits``
+    marks the entries whose passes hold their payload, and only their stego
+    and overflow rows come back from the device, as ``stego`` and
+    ``overflow`` (an empty list where none fits); an entry that falls short
+    runs again at T + 1."""
     g = len(idxs)
     g_pad = 1 << max(0, (g - 1).bit_length())
     lead = img_parts[0][1].device
@@ -188,11 +199,22 @@ def _run_passes(img_parts, msg_parts, idxs, b: int, want: np.ndarray,
                        want[rows], t, max_val)
         for dev, rows in shards if rows.stop > rows.start
     ]
-    stego = np.concatenate([download(r[0]) for r in runs])
-    over = np.concatenate([download(r[1]) for r in runs])
     scalars = np.concatenate([download(r[2]) for r in runs],
                              axis=1).astype(np.int64)
-    return stego, over, scalars[0], scalars[1], scalars[2], scalars[3]
+    fits = scalars[0] + scalars[2] >= want
+    stego, over, off = [], [], 0
+    for s1, packed, _ in runs:
+        sel = np.flatnonzero(fits[off:off + s1.shape[0]])
+        off += s1.shape[0]
+        if sel.size == s1.shape[0]:
+            stego.append(download(s1))
+            over.append(download(packed))
+        elif sel.size:
+            stego.append(download(_rows(s1, sel)))
+            over.append(download(_rows(packed, sel)))
+    if stego:
+        stego, over = np.concatenate(stego), np.concatenate(over)
+    return fits, stego, over, scalars[0], scalars[1], scalars[2], scalars[3]
 
 
 def encode_pee_batch(
@@ -229,29 +251,30 @@ def encode_pee_batch(
     nproc0 = np.zeros(b, np.int64)
     nproc1 = np.zeros(b, np.int64)
     pending = list(range(b))
-    with stage("embed"):
+    with stage("batch_embed"):
         while pending:
             next_pending: List[int] = []
             for t in sorted({int(t_img[i]) for i in pending}):
                 idxs = [i for i in pending if int(t_img[i]) == t]
-                g_stego, g_over, g_u0, g_n0, g_u1, g_n1 = _run_passes(
+                count("pee.batch_groups")
+                fits, g_stego, g_over, g_u0, g_n0, g_u1, g_n1 = _run_passes(
                     img_parts, msg_parts, idxs, b, want[idxs], t, mesh,
                     max_val,
                 )
-                for k, i in enumerate(idxs):
-                    if g_u0[k] + g_u1[k] >= want[i]:
-                        stego[i] = g_stego[k]
-                        overflow[i] = g_over[k]
-                        used0[i], used1[i] = g_u0[k], g_u1[k]
-                        nproc0[i], nproc1[i] = g_n0[k], g_n1[k]
-                    else:
-                        if t >= _MAX_T:
-                            raise CapacityError(
-                                f"payload {i} of {int(want[i])} bits exceeds "
-                                f"the PEE capacity even at T={_MAX_T}"
-                            )
-                        t_img[i] = t + 1
-                        next_pending.append(i)
+                if fits.any():
+                    done = np.asarray(idxs)[fits]
+                    stego[done], overflow[done] = g_stego, g_over
+                    used0[done], used1[done] = g_u0[fits], g_u1[fits]
+                    nproc0[done], nproc1[done] = g_n0[fits], g_n1[fits]
+                for i in np.asarray(idxs)[~fits].tolist():
+                    if t >= _MAX_T:
+                        raise CapacityError(
+                            f"payload {i} of {int(want[i])} bits exceeds "
+                            f"the PEE capacity even at T={_MAX_T}"
+                        )
+                    t_img[i] = t + 1
+                    next_pending.append(i)
+                    count("pee.batch_escalated")
             pending = next_pending
 
     codec = get_codec(config.codec)
@@ -273,7 +296,7 @@ def encode_pee_batch(
         map_blob = zlib.compress(overflow[i].tobytes())
         return container_io.pack(meta, map_blob, codec.encode(stego[i]))
 
-    with stage("transport_codec"):
+    with stage("batch_pack"):
         with ThreadPoolExecutor(max_workers=host_workers(b)) as pool:
             containers = list(pool.map(pack_one, range(b)))
 
@@ -319,6 +342,7 @@ def decode_pee_batch(
 
     results: List = [None] * len(conts)
     for idxs in groups.values():
+        count("pee.decode_groups")
         group_res = _decode_group_fused(
             [conts[j] for j in idxs],
             [parsed_ext[j] for j in idxs],
@@ -342,7 +366,7 @@ def _decode_group_fused(conts, parsed_ext, overflow_maps, restore_original,
     dtype = conts[0].meta.dtype
     codec = get_codec(conts[0].meta.codec)
 
-    with stage("transport_decode"):
+    with stage("batch_codec_decode"):
         with ThreadPoolExecutor(max_workers=host_workers(b)) as pool:
             stegos = list(pool.map(
                 lambda c: codec.decode(c.stego_blob).astype(dtype), conts
@@ -353,7 +377,7 @@ def _decode_group_fused(conts, parsed_ext, overflow_maps, restore_original,
                 f"Decoded stego shape {s.shape} != header {(h, w)}")
     stego = np.stack(stegos)
     over = np.stack(overflow_maps)
-    with stage("extract"):
+    with stage("batch_extract"):
         # same guard as the single-image decoder: a 1-pass container must
         # not have a pass-1 inversion applied even if its ext carries a
         # (foreign/corrupt) nonzero nproc1

@@ -52,7 +52,7 @@ from ..io import container as container_io
 from ..ops import decompose as decompose_ops
 from ..ops import embed as embed_ops
 from ..ops import metrics as metric_ops
-from ..profiling import entry, stage
+from ..profiling import count, entry, stage
 from ..utils import bits as bit_utils
 from . import batch as batch_par
 from .mesh import device_guard, dp_shards, lead_device
@@ -128,20 +128,45 @@ def _aggregate_volume_metrics(vol_parts, stego) -> dict:
     on the first shard's device and summed there (maxed for the max_*
     keys) across slices: the volume-wide quality report. The float32 sums
     run in another order than the JAX package's, as in
-    :func:`.batch._batch_quality_reports`."""
-    per_shard = []
+    :func:`.batch._batch_quality_reports`. Where the two maxima differ,
+    ``mse`` and ``psnr`` come from the range-normalised differences summed
+    themselves (:func:`_normalised_mse`), not from the moments."""
+    per_shard, pairs = [], []
     for k, (rows, vol_k) in enumerate(vol_parts):
         st_k = stego[k] if isinstance(stego, list) else stego[rows]
         with device_guard(vol_k.device):
-            per_shard.append(metric_ops.pair_stats(
-                vol_k, to_device(st_k, vol_k.device)))
+            pairs.append((vol_k, to_device(st_k, vol_k.device)))
+            per_shard.append(metric_ops.pair_stats(*pairs[-1]))
     stats = {k: batch_par._gather([st[k] for st in per_shard])
              for k in per_shard[0]}
     agg = {k: float(download(torch.sum(v))) for k, v in stats.items()
            if k not in ("max_absdiff", "max_a", "max_b")}
     for k in ("max_absdiff", "max_a", "max_b"):
         agg[k] = float(download(torch.max(stats[k])))
-    return metric_ops.quality_report(agg)  # type: ignore[arg-type]
+    report = metric_ops.quality_report(agg)  # type: ignore[arg-type]
+    max_a, max_b = agg["max_a"], agg["max_b"]
+    if max_a != max_b and max_a > 0 and max_b > 0:
+        report["mse"] = _normalised_mse(pairs, report["max_value"] / max_a,
+                                        report["max_value"] / max_b,
+                                        agg["n"])
+        report["psnr"] = metric_ops.psnr_from_mse(report["mse"],
+                                                  report["max_value"])
+    return report
+
+
+def _normalised_mse(pairs, alpha: float, beta: float, n: float) -> float:
+    """The range-normalised MSE, ``sum((alpha a - beta b)^2) / n``, summed in
+    float32 on each shard's device. The moments' ``alpha^2 sum(a^2) +
+    beta^2 sum(b^2) - 2 alpha beta sum(ab)`` cancels in float32 (sum(a^2)
+    ~ 1e12 over a 512x512 u16 slice, the numerator ~ 1e9): 1e-4 to 1e-3
+    off the MSE of a PEE series; the normalised differences do not."""
+    total = 0.0
+    for vol_k, st_k in pairs:
+        with device_guard(vol_k.device):
+            diff = (vol_k.to(torch.float32) * alpha
+                    - st_k.to(torch.float32) * beta)
+            total += float(download(torch.sum(diff * diff)))
+    return total / n
 
 
 @entry
@@ -303,7 +328,12 @@ def _encode_volume_pee(
     contiguously at the smallest uniform reference threshold whose
     (slightly discounted) estimated capacities cover it, and the batch
     encoder then gives each slice its own minimal T. Each slice's container is self-describing (T + used0/used1 in the
-    PEE ext), so STGV decode is the standard per-slice path."""
+    PEE ext), so STGV decode is the standard per-slice path.
+
+    The histograms and each split run in the stage ``volume_plan``, each
+    batch encode outside it (its own ``batch_*`` stages); counters
+    ``volume.pee_encodes`` per batch encode and ``volume.pee_probes`` per
+    exact capacity probe."""
     from ..models.pee import _MAX_T
     from ..ops import pee as pee_ops
     from .batch_pee import encode_pee_batch
@@ -315,7 +345,7 @@ def _encode_volume_pee(
 
     with stage("volume_upload"):
         vol_parts = _volume_shards(volume, mesh, device)
-    with stage("pee_histogram"):
+    with stage("volume_plan"):
         hists = [_cap_hists(part, _MAX_T, max_val) for _, part in vol_parts]
         caps = sum(
             pee_ops.capacities_by_threshold(np.concatenate(
@@ -328,9 +358,9 @@ def _encode_volume_pee(
     # batch encoder's per-slice escalation absorbs anything that still
     # slips through; a second attempt with a harsher discount covers the
     # pathological case.
-    def _try_split(caps_t: np.ndarray):
-        """Contiguous split by per-slice capacities; None if they fall short
-        of the payload, else (result, slice_bits) or None on CapacityError."""
+    def _split(caps_t: np.ndarray):
+        """Contiguous split by per-slice capacities: ``(slice_bits,
+        chunks)``, None if they fall short of the payload."""
         if int(caps_t.sum()) < total:
             return None
         sb = np.zeros(d, dtype=np.int64)
@@ -343,6 +373,15 @@ def _encode_volume_pee(
         for i in range(d):
             chunks.append(bits[off : off + int(sb[i])])
             off += int(sb[i])
+        return sb, chunks
+
+    def _try_encode(split):
+        """``(result, slice_bits)`` of the batch encode of ``split``; None
+        where there is no split or the encode raises CapacityError."""
+        if split is None:
+            return None
+        sb, chunks = split
+        count("volume.pee_encodes")
         try:
             return encode_pee_batch(volume, chunks, config, mesh,
                                     device=device), sb
@@ -354,15 +393,14 @@ def _encode_volume_pee(
     r = None
     slice_bits = np.zeros(d, dtype=np.int64)
     for discount in (64, 1024):
-        caps_d = np.maximum(caps - discount, 0)
-        t_split = None
-        for t in range(max(1, config.pee_threshold), _MAX_T + 1):
-            if int(caps_d[:, t - 1].sum()) >= total:
-                t_split = t
-                break
-        if t_split is None:
-            continue
-        got = _try_split(caps_d[:, t_split - 1])
+        with stage("volume_plan"):
+            caps_d = np.maximum(caps - discount, 0)
+            split = None
+            for t in range(max(1, config.pee_threshold), _MAX_T + 1):
+                if int(caps_d[:, t - 1].sum()) >= total:
+                    split = _split(caps_d[:, t - 1])
+                    break
+        got = _try_encode(split)
         if got is not None:
             r, slice_bits = got
             break
@@ -377,9 +415,12 @@ def _encode_volume_pee(
             est = int(caps[:, t - 1].sum())
             if est + 1024 * d < total:
                 continue  # not worth probing: far below the payload
-            exact = probe_capacity_batch(volume, t, max_val,
-                                         device=lead_device(mesh, device))
-            got = _try_split(np.asarray(exact))
+            with stage("volume_plan"):
+                count("volume.pee_probes")
+                exact = probe_capacity_batch(volume, t, max_val,
+                                             device=lead_device(mesh, device))
+                split = _split(np.asarray(exact))
+            got = _try_encode(split)
             if got is not None:
                 r, slice_bits = got
                 break

@@ -26,7 +26,12 @@
   per PEE decode, where its overflow map was expanded: ``pee.map_device``
   (packed up, expanded on a CUDA device) or ``pee.map_host`` (expanded on
   the host: a CPU device, or a container of a batch decode)
-  (:mod:`.models.pee`, :mod:`.parallel.batch_pee`);
+  (:mod:`.models.pee`, :mod:`.parallel.batch_pee`); per PEE batch,
+  ``pee.batch_groups`` (equal-T attempt groups), ``pee.batch_escalated``
+  (images re-queued at T + 1) and ``pee.decode_groups`` (K4 groups of a
+  decode) (:mod:`.parallel.batch_pee`); per PEE volume encode,
+  ``volume.pee_encodes`` (batch encodes of its splits) and
+  ``volume.pee_probes`` (exact capacity probes) (:mod:`.parallel.volume`);
 * ``Profiler`` — per-name wall, self time, calls and copy bytes, always
   on; ``reset()`` zeroes them with the counters and the span log;
 * ``trace_to(dir)`` — captures a ``torch.profiler`` trace (CPU, and CUDA
